@@ -1,0 +1,80 @@
+"""The port's own copies of the JAX package's framework-neutral modules:
+the flax -> torch key map and the config dataclasses.
+
+Exact: the same keys, the same arrays bit for bit, the same field names
+and defaults.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from yoloclip_tpu import config as jax_config
+from yoloclip_tpu.utils.convert import (build_key_map as jax_key_map,
+                                        convert_reference_state_dict,
+                                        export_reference_state_dict)
+from yoloclip_tpu_torch import config as port_config
+from yoloclip_tpu_torch.models.yolo_clip import (YOLOCLIP, build_model,
+                                                 init_weights)
+from yoloclip_tpu_torch.utils.convert import build_key_map, state_dict_from_jax
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize('variant', ['n', 's', 'x'])
+def test_key_map_matches_jax(variant):
+    cfg = port_config.ModelConfig(backbone_variant=variant)
+    jcfg = jax_config.ModelConfig(backbone_variant=variant)
+    assert build_key_map(cfg) == jax_key_map(jcfg)
+
+
+@pytest.mark.parametrize('with_aux_box', [True, False])
+def test_state_dict_from_jax_matches_export(with_aux_box):
+    """flax variables made from a seeded port model -> the JAX package's
+    exporter and the port's converter give the same state dict."""
+    cfg = port_config.ModelConfig(image_size=(64, 64))
+    jcfg = jax_config.ModelConfig(image_size=(64, 64))
+    model = YOLOCLIP(cfg, with_aux_box=with_aux_box)
+    init_weights(model, torch.Generator().manual_seed(5))
+    sd = model.state_dict()
+    variables = convert_reference_state_dict(sd, jcfg,
+                                             with_aux_box=with_aux_box)
+    want = export_reference_state_dict(variables, jcfg)
+    got = state_dict_from_jax(variables, cfg)
+    assert any('.box_conv.' in k for k in want) == with_aux_box
+    assert {k for k in got if not k.endswith('num_batches_tracked')} \
+        == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    back = build_model(cfg, got)       # strict load of the converted dict
+    for k, v in back.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+
+
+def _defaults(cls):
+    return {f.name: (f.default if f.default is not dataclasses.MISSING
+                     else f.default_factory())
+            for f in dataclasses.fields(cls)}
+
+
+def test_config_fields_and_defaults_match_jax():
+    assert port_config.COCO_CLASS_NAMES == jax_config.COCO_CLASS_NAMES
+    assert port_config.VARIANT_CONFIGS == jax_config.VARIANT_CONFIGS
+    assert _defaults(port_config.ModelConfig) == _defaults(
+        jax_config.ModelConfig)
+    want = _defaults(jax_config.InferenceConfig)
+    got = _defaults(port_config.InferenceConfig)
+    assert list(got) == list(want)
+    assert dataclasses.asdict(got.pop('model')) == dataclasses.asdict(
+        want.pop('model'))
+    assert got == want
+    for v in jax_config.VARIANT_CONFIGS:
+        p = port_config.ModelConfig(backbone_variant=v, image_size=(320, 480))
+        j = jax_config.ModelConfig(backbone_variant=v, image_size=(320, 480))
+        assert p.backbone_channels() == j.backbone_channels()
+        assert p.backbone_depths() == j.backbone_depths()
+        assert p.feature_channels() == j.feature_channels()
+        assert p.num_anchors() == j.num_anchors()
+        assert p.level_shapes() == j.level_shapes()

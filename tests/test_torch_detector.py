@@ -1,12 +1,15 @@
 """The port's detector against the JAX detector on the CPU.
 
 Both load the same JAX random-init weights (the port through
-`state_dict_from_jax`) and the same JSON vocabulary, and run the device
-letterbox path (`host_preprocess=False`) on the same uint8 frames.
+`state_dict_from_jax`) and run the device letterbox path
+(`host_preprocess=False`) on the same uint8 frames. The vocabulary comes
+from the same JSON file (`pair`), or through class names and free-text
+prompts (`prompt_pair`); both pairs load the same miniature CLIP text
+tower `.npz` (width 64, 2 layers).
 
 Tolerances: counts, validity, saturation flags and class ids exact; scores
 atol 1e-5; boxes (rescaled and clipped to the frame) atol 1e-3 px, and the
-int-truncated boxes of `detect` equal.
+int-truncated boxes of `detect` equal; text-tower vocabularies atol 1e-5.
 """
 
 import json
@@ -17,41 +20,107 @@ import numpy as np
 import pytest
 import torch
 
-from yoloclip_tpu.config import InferenceConfig, ModelConfig
+from yoloclip_tpu.config import InferenceConfig as JaxInferenceConfig
+from yoloclip_tpu.config import ModelConfig as JaxModelConfig
 from yoloclip_tpu.inference.detector import YOLOCLIPDetector as JaxDetector
 from yoloclip_tpu.inference.detector import _pack_detections as jax_pack
 from yoloclip_tpu.models.yolo_clip import YOLOCLIP as JaxYOLOCLIP
+from yoloclip_tpu.text.encoder import save_text_tower_params
+from yoloclip_tpu.text.model import CLIPTextTransformer as JaxTower
+from yoloclip_tpu_torch.config import InferenceConfig, ModelConfig
 from yoloclip_tpu_torch.inference.detector import (YOLOCLIPDetector,
                                                    _pack_detections)
+from yoloclip_tpu_torch.text.model import (CLIPTextTransformer,
+                                           init_text_weights)
 from yoloclip_tpu_torch.utils.convert import state_dict_from_jax
 
 torch.set_num_threads(2)
 
 SIZE = 128
 NAMES = ['cat', 'dog', 'person', 'car', 'tree']
+PROMPTS = ['a red car', 'café au lait', '日本の猫', 'a dog', 'tree']
+
+
+def configs(**kw):
+    """The same settings as the JAX package's config and the port's."""
+    return (JaxInferenceConfig(model=JaxModelConfig(image_size=(SIZE, SIZE)),
+                               **kw),
+            InferenceConfig(model=ModelConfig(image_size=(SIZE, SIZE)), **kw))
 
 
 @pytest.fixture(scope='module')
-def pair(tmp_path_factory):
-    cfg = InferenceConfig(model=ModelConfig(image_size=(SIZE, SIZE)),
-                          conf_threshold=0.0, nms_topk=64, max_detections=16,
-                          host_preprocess=False)
+def weights():
+    jcfg, cfg = configs(conf_threshold=0.0, nms_topk=64, max_detections=16,
+                        host_preprocess=False)
+    jmodel = JaxYOLOCLIP(jcfg.model)
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(1),
+                                     jnp.zeros((1, SIZE, SIZE, 3)),
+                                     jnp.zeros((4, 512)))
+    return jcfg, cfg, variables, state_dict_from_jax(variables, cfg.model)
+
+
+@pytest.fixture(scope='module')
+def pair(weights, tower_npz, tmp_path_factory):
+    """Both detectors serving the same JSON vocabulary."""
+    jcfg, cfg, variables, sd = weights
     rng = np.random.RandomState(0)
     vocab = rng.randn(len(NAMES), 512)
     vocab /= np.linalg.norm(vocab, axis=-1, keepdims=True)
     path = str(tmp_path_factory.mktemp('vocab') / 'vocab.json')
     with open(path, 'w') as f:
         json.dump({n: v.tolist() for n, v in zip(NAMES, vocab)}, f)
-    jmodel = JaxYOLOCLIP(cfg.model)
-    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(1),
-                                     jnp.zeros((1, SIZE, SIZE, 3)),
-                                     jnp.zeros((4, 512)))
-    jdet = JaxDetector(vocab_path=path, config=cfg, variables=variables)
-    det = YOLOCLIPDetector(cfg, vocab_path=path,
-                           state_dict=state_dict_from_jax(variables,
-                                                          cfg.model),
-                           device='cpu')
+    jdet = JaxDetector(vocab_path=path, config=jcfg, variables=variables,
+                       text_checkpoint=tower_npz)
+    det = YOLOCLIPDetector(cfg, vocab_path=path, state_dict=sd,
+                           text_checkpoint=tower_npz, device='cpu')
     return jdet, det, cfg, path
+
+
+@pytest.fixture(scope='module')
+def tower_npz(tmp_path_factory):
+    """A miniature text tower (width 64, 2 layers) saved as .npz by the JAX
+    package, every param perturbed by numpy noise."""
+    params = JaxTower(width=64, layers=2, heads=1, output_dim=512).init(
+        jax.random.PRNGKey(2), jnp.zeros((1, 77), jnp.int32))['params']
+    rng = np.random.RandomState(1)
+    params = jax.tree_util.tree_map(
+        lambda p: (np.asarray(p) + 0.02 * rng.randn(*np.shape(p))
+                   ).astype(np.float32), params)
+    npz = str(tmp_path_factory.mktemp('tower') / 'text_tower.npz')
+    save_text_tower_params(params, npz)
+    return npz
+
+
+@pytest.fixture(scope='module')
+def prompt_pair(weights, tower_npz):
+    """Both detectors with the vocabulary of NAMES built by the same
+    miniature text tower."""
+    jcfg, cfg, variables, sd = weights
+    jdet = JaxDetector(class_names=NAMES, config=jcfg,
+                       text_checkpoint=tower_npz, variables=variables)
+    det = YOLOCLIPDetector(cfg, class_names=NAMES, text_checkpoint=tower_npz,
+                           state_dict=sd, device='cpu')
+    return jdet, det
+
+
+def assert_batches_agree(got, want):
+    assert set(got) == set(want)
+    for k in ('count', 'valid', 'prefilter_saturated', 'class_ids'):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    np.testing.assert_allclose(got['scores'].numpy(),
+                               np.asarray(want['scores']), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got['boxes'].numpy(), np.asarray(want['boxes']),
+                               rtol=0, atol=1e-3)
+
+
+def assert_detections_agree(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g['class_id'] == w['class_id']
+        assert g['class_name'] == w['class_name']
+        assert g['box'] == w['box']
+        assert abs(g['score'] - w['score']) <= 1e-5
 
 
 def test_vocabulary_and_names(pair):
@@ -67,14 +136,7 @@ def test_detect_batch_matches_jax(pair):
         np.uint8)
     want = jdet.detect_batch(imgs)
     got = det.detect_batch(imgs)
-    assert set(got) == set(want)
-    for k in ('count', 'valid', 'prefilter_saturated', 'class_ids'):
-        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
-                                      err_msg=k)
-    np.testing.assert_allclose(got['scores'].numpy(),
-                               np.asarray(want['scores']), rtol=0, atol=1e-5)
-    np.testing.assert_allclose(got['boxes'].numpy(), np.asarray(want['boxes']),
-                               rtol=0, atol=1e-3)
+    assert_batches_agree(got, want)
     assert (got['count'] > 0).all()
     packed = _pack_detections(got).numpy()
     np.testing.assert_allclose(
@@ -88,12 +150,7 @@ def test_detect_matches_jax(pair):
     img = (np.random.RandomState(3).rand(120, 200, 3) * 255).astype(np.uint8)
     want = jdet.detect(img)
     got = det.detect(img)
-    assert len(got) == len(want) > 0
-    for g, w in zip(got, want):
-        assert g['class_id'] == w['class_id']
-        assert g['class_name'] == w['class_name']
-        assert g['box'] == w['box']
-        assert abs(g['score'] - w['score']) <= 1e-5
+    assert_detections_agree(got, want)
 
 
 def test_draw_detections(pair):
@@ -103,15 +160,8 @@ def test_draw_detections(pair):
     assert drawn.shape == img.shape and drawn.dtype == np.uint8
 
 
-def test_unported_paths_raise(pair):
+def test_unported_paths_raise(pair, tmp_path):
     _, det, cfg, path = pair
-    img = np.zeros((64, 64, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        det.detect(img, text_prompts=['a cat'])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        det.detect_batch(img[None], text_prompts=['a cat'])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        YOLOCLIPDetector(cfg, device='cpu')                 # no vocabulary
     host = InferenceConfig(model=cfg.model, host_preprocess=True)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         YOLOCLIPDetector(host, vocab_path=path, device='cpu')
@@ -119,3 +169,55 @@ def test_unported_paths_raise(pair):
                                              quant='int8'))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         YOLOCLIPDetector(int8, vocab_path=path, device='cpu')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):   # orbax dir
+        YOLOCLIPDetector(cfg, vocab_path=path, text_checkpoint=str(tmp_path),
+                         device='cpu')
+
+
+def test_class_names_vocabulary_matches_jax(prompt_pair):
+    jdet, det = prompt_pair
+    assert det.class_names == jdet.class_names == NAMES
+    assert det.use_offline_vocab and not det.text_encoder.random_init
+    np.testing.assert_allclose(det.offline_vocabulary.numpy(),
+                               np.asarray(jdet.offline_vocabulary), rtol=0,
+                               atol=1e-5)
+
+
+def test_detect_batch_class_names_and_prompts_match_jax(prompt_pair):
+    jdet, det = prompt_pair
+    imgs = (np.random.RandomState(12).rand(2, 100, 140, 3) * 255).astype(
+        np.uint8)
+    assert_batches_agree(det.detect_batch(imgs), jdet.detect_batch(imgs))
+    assert_batches_agree(det.detect_batch(imgs, text_prompts=PROMPTS),
+                         jdet.detect_batch(imgs, text_prompts=PROMPTS))
+
+
+def test_detect_with_text_prompts_matches_jax(prompt_pair):
+    jdet, det = prompt_pair
+    img = (np.random.RandomState(5).rand(110, 180, 3) * 255).astype(np.uint8)
+    got = det.detect(img, text_prompts=PROMPTS)
+    assert_detections_agree(got, jdet.detect(img, text_prompts=PROMPTS))
+    assert {d['class_name'] for d in got} <= set(PROMPTS)
+    assert set(det.text_encoder._cache) >= set(PROMPTS)   # encoded once
+
+
+def test_online_mode_needs_prompts(weights, tmp_path):
+    _, cfg, _, sd = weights
+    online = InferenceConfig(model=cfg.model, use_offline_vocab=False,
+                             host_preprocess=False)
+    tower = tmp_path / 'tower.pth'
+    tiny = CLIPTextTransformer(width=64, layers=1)
+    init_text_weights(tiny, torch.Generator().manual_seed(0))
+    torch.save(tiny.state_dict(), tower)
+    det = YOLOCLIPDetector(online, text_checkpoint=str(tower), state_dict=sd,
+                           device='cpu')
+    assert det.offline_vocabulary is None and not det.use_offline_vocab
+    img = np.zeros((64, 64, 3), np.uint8)
+    with pytest.raises(ValueError, match='online mode'):
+        det.detect(img)
+    assert isinstance(det.detect(img, text_prompts=['a cat']), list)
+    strict = InferenceConfig(model=cfg.model, require_text_quality=True,
+                             host_preprocess=False)
+    with pytest.raises(RuntimeError, match='DEGRADED'):
+        YOLOCLIPDetector(strict, vocab_path=None, state_dict=sd,
+                         text_checkpoint=str(tower), device='cpu')

@@ -1,9 +1,10 @@
 """The port must run where JAX is not installed (the GPU machine has none).
 
 In a fresh interpreter: import every `yoloclip_tpu_torch` module, run a
-tiny CPU `detect_batch`, then check that neither jax, jaxlib nor flax was
-imported, and that nothing of the JAX package beyond its jax-free modules
-was.
+tiny CPU `detect_batch` from a JSON vocabulary, build a detector from class
+names with a miniature text tower and run `detect` with free-text prompts,
+then check that neither jax, jaxlib, flax nor any module of the JAX package
+(`yoloclip_tpu`) was imported.
 """
 
 import json
@@ -16,8 +17,7 @@ import torch
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ALLOWED = {'yoloclip_tpu', 'yoloclip_tpu.config', 'yoloclip_tpu.utils',
-           'yoloclip_tpu.utils.convert', 'yoloclip_tpu.utils.visualize'}
+ALLOWED = set()
 
 SCRIPT = r'''
 import importlib, json, os, pkgutil, sys
@@ -28,8 +28,14 @@ import yoloclip_tpu_torch
 for info in pkgutil.walk_packages(yoloclip_tpu_torch.__path__,
                                   'yoloclip_tpu_torch.'):
     importlib.import_module(info.name)
-from yoloclip_tpu.config import InferenceConfig, ModelConfig
+from yoloclip_tpu_torch.config import InferenceConfig, ModelConfig
 from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
+from yoloclip_tpu_torch.text.model import (CLIPTextTransformer,
+                                           init_text_weights)
+tower = os.path.join(sys.argv[1], 'tower.pth')
+tiny = CLIPTextTransformer(width=64, layers=2)
+init_text_weights(tiny, torch.Generator().manual_seed(0))
+torch.save(tiny.state_dict(), tower)
 path = os.path.join(sys.argv[1], 'vocab.json')
 rng = np.random.RandomState(0)
 with open(path, 'w') as f:
@@ -37,9 +43,15 @@ with open(path, 'w') as f:
 cfg = InferenceConfig(model=ModelConfig(image_size=(64, 64)),
                       conf_threshold=-1.0, nms_topk=32, max_detections=8,
                       host_preprocess=False)
-det = YOLOCLIPDetector(cfg, vocab_path=path, device='cpu', seed=0)
+det = YOLOCLIPDetector(cfg, vocab_path=path, text_checkpoint=tower,
+                       device='cpu', seed=0)
 out = det.detect_batch(np.zeros((1, 48, 64, 3), np.uint8))
 assert out['boxes'].shape == (1, 8, 4) and int(out['count'][0]) > 0
+det = YOLOCLIPDetector(cfg, class_names=['cat', 'dog'], text_checkpoint=tower,
+                       device='cpu', seed=0)
+dets = det.detect(np.zeros((48, 64, 3), np.uint8),
+                  text_prompts=['a red car', 'café'])
+assert dets and {d['class_name'] for d in dets} <= {'a red car', 'café'}
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                                'yoloclip_tpu'))))

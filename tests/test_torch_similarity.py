@@ -1,9 +1,10 @@
-"""The port's folded similarity max/argmax against the Pallas kernel.
+"""The port's similarity max/argmax, folded and unprojected, against the
+Pallas kernels.
 
 `yoloclip_tpu_torch.ops.kernels.similarity.fused_projected_similarity_argmax`
-on CPU tensors runs its plain PyTorch version; the reference is the JAX
-`fused_projected_similarity_argmax` in interpret mode, on the same numpy
-inputs.
+and `fused_similarity_argmax` on CPU tensors run their plain PyTorch
+versions; the references are the JAX functions of the same names in
+interpret mode, on the same numpy inputs.
 
 Tolerances: scores atol 1e-5 (fp32; the two sum in different orders).
 Class ids exact, except at an anchor whose top-2 cosine gap (float64 on the
@@ -17,6 +18,8 @@ import torch
 
 from yoloclip_tpu.ops.pallas.similarity import (
     fused_projected_similarity_argmax as jax_folded)
+from yoloclip_tpu.ops.pallas.similarity import (
+    fused_similarity_argmax as jax_unprojected)
 from yoloclip_tpu_torch.ops.kernels import similarity as port
 
 torch.set_num_threads(2)
@@ -130,3 +133,103 @@ def test_wrapper_rejects_devices_and_shapes_it_has_no_kernel_for():
     with pytest.raises(TypeError, match='float32 or bfloat16'):
         port._launch(torch.zeros((1, 4, 64), dtype=torch.float16), tp, cb,
                      torch.zeros((64, 128)), torch.zeros(128), 3)
+
+
+def unprojected_near_ties(obj, text, num_valid=None):
+    """(B, A) bool: best and second-best cosine (float64) differ by less
+    than TIE_GAP."""
+    o = obj.astype(np.float64)
+    o /= np.maximum(np.linalg.norm(o, axis=-1, keepdims=True), 1e-12)
+    sim = np.einsum('bae,bce->bac', o, text.astype(np.float64))
+    if num_valid is not None:
+        sim[..., num_valid:] = -np.inf
+    top2 = np.sort(sim, axis=-1)[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) < TIE_GAP
+
+
+def check_unprojected(obj, text, num_valid=None, normalize_obj=False):
+    want_s, want_i = jax_unprojected(
+        jnp.asarray(obj), jnp.asarray(text),
+        None if num_valid is None else jnp.int32(num_valid),
+        tile_a=128, tile_c=128, interpret=True, normalize_obj=normalize_obj)
+    got_s, got_i = port.fused_similarity_argmax(
+        torch.from_numpy(obj), torch.from_numpy(text), num_valid,
+        normalize_obj=normalize_obj)
+    assert got_s.dtype == torch.float32 and got_i.dtype == torch.int32
+    assert got_s.shape == want_s.shape
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                               rtol=0, atol=SCORE_ATOL)
+    o = obj if obj.ndim == 3 else obj[None]
+    t = text if text.ndim == 3 else text[None]
+    t = np.broadcast_to(t, (o.shape[0],) + t.shape[1:])
+    tie = unprojected_near_ties(o, t, num_valid).reshape(got_i.shape)
+    assert not ((got_i.numpy() != np.asarray(want_i)) & ~tie).any()
+    return got_s.numpy(), got_i.numpy()
+
+
+@pytest.mark.parametrize('normalize_obj', [True, False])
+def test_unprojected_plain_matches_pallas(normalize_obj):
+    rng = np.random.RandomState(9)
+    B, A, C, E = 2, 300, 150, 128
+    obj = rng.randn(B, A, E).astype(np.float32) * 3.0
+    obj[0, 5] = 0.0                     # zero row: score 0, id 0
+    if not normalize_obj:
+        obj /= np.maximum(np.linalg.norm(obj, axis=-1, keepdims=True), 1e-12)
+    text = normed(rng, (B, C, E))       # per-image text
+    s, i = check_unprojected(obj, text, normalize_obj=normalize_obj)
+    assert s[0, 5] == 0.0 and i[0, 5] == 0
+
+
+def test_unprojected_num_valid_shared_text_and_squeeze():
+    rng = np.random.RandomState(10)
+    obj = rng.randn(2, 200, 64).astype(np.float32)
+    text = normed(rng, (90, 64))        # one (C, E) matrix for the batch
+    _, i = check_unprojected(obj, text, num_valid=37, normalize_obj=True)
+    assert (i < 37).all()
+    s2, i2 = check_unprojected(obj[1], text, normalize_obj=True)   # 2-D
+    assert s2.shape == (200,) and i2.shape == (200,)
+
+
+def test_unprojected_duplicate_row_ties_go_to_lowest_index():
+    rng = np.random.RandomState(11)
+    obj = rng.randn(1, 256, 64).astype(np.float32)
+    text = normed(rng, (1, 30, 64))
+    text[:, 21] = text[:, 6]            # exact tie between classes 6 and 21
+    _, i = check_unprojected(obj, text, normalize_obj=True)
+    assert (i == 6).any() and not (i == 21).any()
+
+
+def test_unprojected_cpu_wrapper_runs_plain():
+    rng = np.random.RandomState(12)
+    obj = torch.from_numpy(rng.randn(3, 40, 64).astype(np.float32))
+    text = torch.from_numpy(normed(rng, (3, 12, 64)))
+    before = port.unprojected_launches
+    s, i = port.fused_similarity_argmax(obj, text, normalize_obj=True)
+    assert port.unprojected_launches == before
+    ps, pi = port.similarity_argmax_reference_plain(obj, text,
+                                                    normalize_obj=True)
+    assert torch.equal(s, ps) and torch.equal(i, pi)
+    # bf16 rows: the products of bf16 values, summed in fp32
+    sb, _ = port.fused_similarity_argmax(obj.bfloat16(), text)
+    want = torch.matmul(obj.bfloat16().float(),
+                        text.bfloat16().float().transpose(1, 2)).max(-1)[0]
+    assert torch.allclose(sb, want, rtol=0, atol=1e-6)
+
+
+def test_unprojected_wrapper_rejects_what_it_has_no_kernel_for():
+    obj = torch.zeros((1, 4, 64), device='meta')
+    text = torch.zeros((1, 3, 64), device='meta')
+    with pytest.raises(RuntimeError, match='no similarity kernel'):
+        port.fused_similarity_argmax(obj, text)
+    text = torch.zeros((1, 3, 64))
+    with pytest.raises(ValueError, match='E % 32'):
+        port._launch_unprojected(torch.zeros((1, 4, 48)),
+                                 torch.zeros((1, 3, 48)), 3, True)
+    with pytest.raises(ValueError, match='E <= 512'):
+        port._launch_unprojected(torch.zeros((1, 4, 544)),
+                                 torch.zeros((1, 3, 544)), 3, True)
+    with pytest.raises(ValueError, match='does not match'):
+        port._launch_unprojected(torch.zeros((2, 4, 64)), text, 3, False)
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        port._launch_unprojected(torch.zeros((1, 4, 64), dtype=torch.float16),
+                                 text, 3, False)

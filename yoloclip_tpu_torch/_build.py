@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -46,20 +47,22 @@ def _nvcc() -> str:
     return path
 
 
-def _compile(name: str) -> Path:
+def _compile(name: str) -> str:
+    """nvcc `csrc/<name>.cu` into `_kernels/lib<name>.so`; returns ptxas's
+    report (registers, shared memory and spills of each kernel)."""
     src = CSRC / f'{name}.cu'
     out = BUILD_DIR / f'lib{name}.so'
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.so.tmp{os.getpid()}')
+    tmp = out.with_suffix(f'.so.tmp{os.getpid()}.{threading.get_ident()}')
     cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
            '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-           *_EXTRA_FLAGS[name], '-o', str(tmp), str(src)]
+           '-Xptxas=-v', *_EXTRA_FLAGS[name], '-o', str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed for {src}:\n{proc.stdout}\n'
                            f'{proc.stderr}')
     os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
-    return out
+    return proc.stdout + proc.stderr
 
 
 def load(name: str, rebuild: bool = False) -> ctypes.CDLL:
@@ -81,11 +84,17 @@ def load(name: str, rebuild: bool = False) -> ctypes.CDLL:
         return lib
 
 
-def build_all(names: Sequence[str] = ('similarity', 'nms')) -> None:
-    """Compile every kernel source from scratch and load it. Call before
-    any kernel has run in the process (chip_smoke.py does)."""
+def build_all(names: Sequence[str] = ('similarity', 'nms')
+              ) -> Dict[str, str]:
+    """Compile every kernel source from scratch, one nvcc per source, all
+    started together, then load them. Call before any kernel has run in
+    the process (chip_smoke.py does). Returns ptxas's report per source."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        jobs = {name: pool.submit(_compile, name) for name in names}
+        reports = {name: job.result() for name, job in jobs.items()}
     for name in names:
-        load(name, rebuild=True)
+        load(name)
+    return reports
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,0 +1,106 @@
+"""Model and inference settings. The port's own copy of the dataclasses in
+`yoloclip_tpu/config.py`, with the same field names and defaults, so a
+configuration written for one package builds the same model in the other.
+
+The training settings and the YAML loader come with the training slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+COCO_CLASS_NAMES: List[str] = [
+    'person', 'bicycle', 'car', 'motorcycle', 'airplane', 'bus', 'train',
+    'truck', 'boat', 'traffic light', 'fire hydrant', 'stop sign',
+    'parking meter', 'bench', 'bird', 'cat', 'dog', 'horse', 'sheep', 'cow',
+    'elephant', 'bear', 'zebra', 'giraffe', 'backpack', 'umbrella', 'handbag',
+    'tie', 'suitcase', 'frisbee', 'skis', 'snowboard', 'sports ball', 'kite',
+    'baseball bat', 'baseball glove', 'skateboard', 'surfboard',
+    'tennis racket', 'bottle', 'wine glass', 'cup', 'fork', 'knife', 'spoon',
+    'bowl', 'banana', 'apple', 'sandwich', 'orange', 'broccoli', 'carrot',
+    'hot dog', 'pizza', 'donut', 'cake', 'chair', 'couch', 'potted plant',
+    'bed', 'dining table', 'toilet', 'tv', 'laptop', 'mouse', 'remote',
+    'keyboard', 'cell phone', 'microwave', 'oven', 'toaster', 'sink',
+    'refrigerator', 'book', 'clock', 'vase', 'scissors', 'teddy bear',
+    'hair drier', 'toothbrush',
+]
+
+# Width and depth multipliers of the YOLOv8 variants.
+VARIANT_CONFIGS: Dict[str, Dict[str, float]] = {
+    'n': {'width': 0.25, 'depth': 0.33},
+    's': {'width': 0.50, 'depth': 0.33},
+    'm': {'width': 0.75, 'depth': 0.67},
+    'l': {'width': 1.00, 'depth': 1.00},
+    'x': {'width': 1.25, 'depth': 1.33},
+}
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Static architecture hyperparameters."""
+
+    backbone_variant: str = 'n'
+    clip_model: str = 'ViT-B/32'
+    embed_dim: int = 512
+    reg_max: int = 16
+    strides: Tuple[int, ...] = (8, 16, 32)
+    hidden_dim: int = 256
+    neck_bottlenecks: int = 2
+    cls_alpha: float = 1.0
+    cls_beta: float = 0.0
+    image_size: Tuple[int, int] = (640, 640)
+    dtype: str = 'float32'         # compute dtype: 'float32' | 'bfloat16'
+    # Not ported yet (the model raises for anything but the defaults):
+    quant: str = 'none'            # 'none'|'calib'|'calib_pct'|'int8'
+    stem_s2d: bool = False         # stem as a 2x2 conv over space-to-depth
+    stem_u8_s2d: bool = False      # uint8 space-to-depth canvas input
+
+    def backbone_channels(self) -> List[int]:
+        """Per-stage channel widths."""
+        wm = VARIANT_CONFIGS[self.backbone_variant]['width']
+        return [max(int(c * wm), 16) for c in [64, 128, 256, 512, 1024]]
+
+    def backbone_depths(self) -> List[int]:
+        """Bottleneck counts per stage."""
+        dm = VARIANT_CONFIGS[self.backbone_variant]['depth']
+        return [max(int(d * dm), 1) for d in [1, 2, 4, 8]]
+
+    def feature_channels(self) -> List[int]:
+        """Backbone output channels (c3, c4, c5)."""
+        ch = self.backbone_channels()
+        return [ch[2], ch[3], ch[4]]
+
+    def num_anchors(self) -> int:
+        h, w = self.image_size
+        return sum((h // s) * (w // s) for s in self.strides)
+
+    def level_shapes(self) -> List[Tuple[int, int]]:
+        h, w = self.image_size
+        return [(h // s, w // s) for s in self.strides]
+
+
+@dataclass(frozen=True)
+class InferenceConfig:
+    """Inference settings."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    model_path: Optional[str] = None
+    vocab_path: Optional[str] = None
+    conf_threshold: float = 0.25
+    iou_threshold: float = 0.45
+    class_names: Tuple[str, ...] = tuple(COCO_CLASS_NAMES)
+    use_offline_vocab: bool = True
+    output_dir: str = 'outputs/detections/'
+    max_detections: int = 300      # fixed-shape NMS output size
+    nms_topk: int = 1024           # pre-NMS candidate pool (top-k by score)
+    fused_similarity: bool = True  # folded similarity kernel (CUDA only)
+    # True: cross-class suppression, as the original detector does;
+    # False: per-class NMS.
+    class_agnostic_nms: bool = True
+    # True: refuse to serve with a degraded text pipeline (random-init
+    # text tower or zero-merge tokenizer) instead of warning.
+    require_text_quality: bool = False
+    # 'auto' or True: host letterbox into a fixed canvas (not ported yet);
+    # False: device letterbox.
+    host_preprocess: Any = 'auto'

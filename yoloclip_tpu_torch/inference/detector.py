@@ -1,19 +1,22 @@
 """Batched open-vocabulary detection. Counterpart of
-`yoloclip_tpu/inference/detector.py` for the offline-vocabulary path.
+`yoloclip_tpu/inference/detector.py`.
 
 device letterbox -> model (folded similarity kernel on CUDA) -> DFL decode
 -> rescale and clip -> top-k prefilter + greedy NMS (NMS kernel on CUDA).
-`detect_batch` returns the NMS dict on the device; `detect` returns the
-reference's list of detection dicts after ONE device-to-host copy of the
-packed `(max_det + 1, 6)` result.
+The vocabulary comes from a JSON file, from class names through the CLIP
+text tower and the prompt templates, or from free-text prompts per call
+(encoded online and cached per prompt). `detect_batch` returns the NMS dict
+on the device; `detect` returns the reference's list of detection dicts
+after ONE device-to-host copy of the packed `(max_det + 1, 6)` result.
 
 Not ported yet, and refused with NotImplementedError rather than replaced
-by something else: text prompts and vocabulary building (the text tower),
-the host-letterbox canvas path, int8 and the space-to-depth stems.
+by something else: the host-letterbox canvas path, int8 and the
+space-to-depth stems.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -21,18 +24,16 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from yoloclip_tpu.config import InferenceConfig
+from yoloclip_tpu_torch.config import InferenceConfig
 from yoloclip_tpu_torch.models.yolo_clip import build_model
 from yoloclip_tpu_torch.ops.nms import batched_nms, nms_fixed
 from yoloclip_tpu_torch.ops.preprocess import (letterbox, letterbox_batch,
                                                rescale_boxes)
-from yoloclip_tpu_torch.text.vocab import load_offline_vocabulary
+from yoloclip_tpu_torch.text.encoder import CLIPTextEncoder
+from yoloclip_tpu_torch.text.vocab import VocabularyBuilder
+from yoloclip_tpu_torch.utils.visualize import draw_detections
 
 logger = logging.getLogger(__name__)
-
-_TEXT_TOWER = ('text prompts and vocabulary building need the CLIP text '
-               'tower, which is not ported yet (ROADMAP.md, queue A: text tower); '
-               'pass vocab_path= with a JSON vocabulary')
 
 
 def _pack_detections(out: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -78,19 +79,27 @@ def _imread_rgb(path: str) -> np.ndarray:
 
 class YOLOCLIPDetector:
     def __init__(self, config: Optional[InferenceConfig] = None,
+                 class_names: Optional[Sequence[str]] = None,
                  vocab_path: Optional[str] = None,
+                 text_checkpoint: Optional[str] = None,
                  state_dict: Optional[dict] = None,
                  device: Union[str, torch.device] = 'cuda',
                  seed: int = 0):
-        """config: the JAX package's InferenceConfig. vocab_path: a JSON
-        vocabulary {class: [E floats]} (required: the text tower is not
-        ported). state_dict: weights in the reference key layout (e.g.
+        """config: an InferenceConfig (`yoloclip_tpu_torch.config`).
+        class_names: the vocabulary, built online through the text tower
+        and the prompt templates. vocab_path: a JSON vocabulary
+        {class: [E floats]}; it wins over class_names. With neither, the
+        vocabulary is `config.class_names` when `config.use_offline_vocab`
+        is set; otherwise every call must pass text_prompts.
+        text_checkpoint: the text tower's weights (.npz or an OpenAI
+        .pt/.pth); None = random init from `seed`. state_dict: detector
+        weights in the reference key layout (e.g.
         `utils.convert.state_dict_from_jax`); None = random init from
-        `seed` (bring-up mode). device: where the model runs -- a CUDA
-        device runs the kernels, the CPU their plain versions."""
+        `seed`. device: where everything runs -- a CUDA device runs the
+        kernels, the CPU their plain versions."""
         cfg = config or InferenceConfig()
-        if vocab_path is None:
-            raise NotImplementedError(_TEXT_TOWER)
+        if class_names is not None:
+            cfg = dataclasses.replace(cfg, class_names=tuple(class_names))
         if cfg.host_preprocess is True:
             raise NotImplementedError(
                 'the host-letterbox canvas path is not ported yet '
@@ -98,6 +107,7 @@ class YOLOCLIPDetector:
                 'host_preprocess=False')
         self.config = cfg
         self.device = torch.device(device)
+        self.class_names = list(cfg.class_names)
         self.image_size = tuple(cfg.model.image_size)
         self.conf_threshold = cfg.conf_threshold
         self.iou_threshold = cfg.iou_threshold
@@ -109,13 +119,62 @@ class YOLOCLIPDetector:
         self.model = build_model(cfg.model, state_dict, seed).to(
             device=self.device, dtype=dtype,
             memory_format=torch.channels_last)
-        self.load_offline_vocabulary(vocab_path)
+        self.text_encoder = CLIPTextEncoder(
+            cfg.model.clip_model, cfg.model.embed_dim,
+            checkpoint_path=text_checkpoint, seed=seed,
+            dtype=cfg.model.dtype, device=self.device)
+        self.vocab_builder = VocabularyBuilder(self.text_encoder)
+
+        # A degraded text stack (random-init tower / zero-merge tokenizer)
+        # produces confident-looking garbage: warn at init and once more at
+        # the first detect, or refuse behind require_text_quality.
+        self._check_text_quality()
+        self._text_quality_warned = True
+
+        self.offline_vocabulary: Optional[torch.Tensor] = None
+        self.use_offline_vocab = False
+        if vocab_path is not None:
+            self.load_offline_vocabulary(vocab_path)
+        elif class_names is not None or cfg.use_offline_vocab:
+            self.set_offline_vocabulary(self.class_names)
+
+    def _check_text_quality(self) -> None:
+        issues = self.text_encoder.quality_issues()
+        if not issues:
+            return
+        msg = ('DEGRADED text pipeline -- open-vocabulary scores will be '
+               'meaningless: ' + '; '.join(issues))
+        if self.config.require_text_quality:
+            raise RuntimeError(msg)
+        logger.warning(msg)
+
+    def set_offline_vocabulary(self, class_names: Sequence[str],
+                               save_path: Optional[str] = None) -> None:
+        """Encode class_names through the templates and serve them; also
+        save the JSON vocabulary when save_path is given."""
+        self.class_names = list(class_names)
+        self.offline_vocabulary = self.vocab_builder.build_online_vocabulary(
+            class_names)
+        if save_path is not None:
+            self.vocab_builder.build_offline_vocabulary(class_names, save_path)
+        self.use_offline_vocab = True
 
     def load_offline_vocabulary(self, path: str) -> None:
-        vocab = load_offline_vocabulary(path)
+        vocab = self.vocab_builder.load_offline_vocabulary(path)
         self.class_names = list(vocab.keys())
         self.offline_vocabulary = torch.from_numpy(
             np.stack([vocab[k] for k in self.class_names])).to(self.device)
+        self.use_offline_vocab = True
+
+    def _text(self, text_prompts: Optional[Sequence[str]]
+              ) -> Tuple[torch.Tensor, List[str]]:
+        """(text embeddings, class names) for one call: the offline
+        vocabulary, or the prompts encoded online."""
+        if self.use_offline_vocab and text_prompts is None:
+            return self.offline_vocabulary, self.class_names
+        if text_prompts is None:
+            raise ValueError('Text prompts must be provided in online mode')
+        return self.text_encoder(list(text_prompts)), list(text_prompts)
 
     def _use_fused_similarity(self) -> bool:
         # as the JAX package keeps its Pallas kernel to the accelerator
@@ -136,12 +195,11 @@ class YOLOCLIPDetector:
         """Same-size frames (B, H, W, 3) uint8 -> the batched NMS dict
         (boxes (B, D, 4), scores, class_ids, valid, count,
         prefilter_saturated), left on the device."""
-        if text_prompts is not None:
-            raise NotImplementedError(_TEXT_TOWER)
+        text, _ = self._text(text_prompts)
         images = torch.as_tensor(images, device=self.device)
         h, w = images.shape[1], images.shape[2]
         canvases, scale = letterbox_batch(images, self.image_size)
-        out = self.model(canvases, self.offline_vocabulary,
+        out = self.model(canvases, text,
                          fused_scores=self._use_fused_similarity())
         boxes = rescale_boxes(out['boxes'], scale, (h, w))
         return batched_nms(boxes, out['scores'], out['class_ids'],
@@ -151,23 +209,25 @@ class YOLOCLIPDetector:
                text_prompts: Optional[Sequence[str]] = None) -> List[Dict]:
         """One frame -> list of {box (int xyxy), score, class_id,
         class_name}, sorted by score."""
-        if text_prompts is not None:
-            raise NotImplementedError(_TEXT_TOWER)
         start = time.time()
+        if self._text_quality_warned:
+            self._text_quality_warned = False
+            self._check_text_quality()   # repeat the warning at serve time
         if isinstance(image, str):
             image = _imread_rgb(image)
         orig = np.asarray(image)
+        text, names = self._text(text_prompts)
         with torch.inference_mode():
             canvas, scale = letterbox(torch.as_tensor(orig, device=self.device),
                                       self.image_size)
-            out = self.model(canvas[None], self.offline_vocabulary,
+            out = self.model(canvas[None], text,
                              fused_scores=self._use_fused_similarity())
             boxes = rescale_boxes(out['boxes'][0], scale, orig.shape[:2])
             packed = _pack_detections(nms_fixed(
                 boxes, out['scores'][0], class_ids=out['class_ids'][0],
                 **self._nms_args()))
         packed = packed.cpu().numpy()       # the ONE device -> host copy
-        detections, saturated = _unpack_detections(packed, self.class_names)
+        detections, saturated = _unpack_detections(packed, names)
         if saturated:
             logger.warning(
                 'NMS prefilter saturated: more than nms_topk=%d candidates '
@@ -180,7 +240,6 @@ class YOLOCLIPDetector:
 
     def draw_detections(self, image: Union[str, np.ndarray],
                         detections: List[Dict]) -> np.ndarray:
-        from yoloclip_tpu.utils.visualize import draw_detections
         if isinstance(image, str):
             image = _imread_rgb(image)
         return draw_detections(image, detections, len(self.class_names) or 80)

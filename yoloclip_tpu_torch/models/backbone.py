@@ -12,7 +12,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from yoloclip_tpu.config import ModelConfig
+from yoloclip_tpu_torch.config import ModelConfig
 from yoloclip_tpu_torch.models.layers import SPPF, ConvBlock, CSPLayer
 
 

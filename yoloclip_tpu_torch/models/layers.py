@@ -3,13 +3,14 @@
 space-to-depth stems).
 
 Tensors are NCHW in channels_last memory format. Module and parameter names
-follow the reference torch layout that `yoloclip_tpu/utils/convert.py::
-build_key_map` spells out, so converted weights load with strict=True.
+follow the reference torch layout that `utils/convert.py::build_key_map`
+spells out, so converted weights load with strict=True.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -86,18 +87,22 @@ class SPPF(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameter layout (batch first, packed
-    in_proj = [q; k; v], out_proj), computed as plain matmuls and softmax."""
+    in_proj = [q; k; v], out_proj), computed as plain matmuls and softmax.
+    The scores and the softmax are fp32 whatever the compute dtype."""
 
     def __init__(self, embed_dim: int, num_heads: int = 8):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
-                                                       embed_dim))
+        self.in_proj_weight = nn.Parameter(nn.init.xavier_uniform_(
+            torch.empty(3 * embed_dim, embed_dim)))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
-                value: torch.Tensor) -> torch.Tensor:
+                value: torch.Tensor,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """attn_mask: optional additive (Lq, Lk) mask (e.g. causal -inf),
+        added to the fp32 scores before the softmax."""
         E, H = self.embed_dim, self.num_heads
         hd = E // H
         wq, wk, wv = self.in_proj_weight.chunk(3, dim=0)
@@ -108,6 +113,8 @@ class MultiHeadAttention(nn.Module):
         k = F.linear(key, wk, bk).reshape(B, Lk, H, hd).transpose(1, 2)
         v = F.linear(value, wv, bv).reshape(B, Lk, H, hd).transpose(1, 2)
         scores = torch.matmul(q, k.transpose(2, 3)).float() / math.sqrt(hd)
+        if attn_mask is not None:
+            scores = scores + attn_mask.float()
         attn = torch.softmax(scores, dim=-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Lq, E)
         return self.out_proj(out)

@@ -15,7 +15,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from yoloclip_tpu.config import ModelConfig
+from yoloclip_tpu_torch.config import ModelConfig
 from yoloclip_tpu_torch.models.backbone import YOLOv8Backbone
 from yoloclip_tpu_torch.models.heads import (BoxHead, TextContrastiveHead,
                                              decode_boxes, flatten_levels)
