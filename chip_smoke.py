@@ -8,32 +8,40 @@ Phases, each printing its results; any failure exits non-zero:
 
   1. device    -- the card's name and power limit (nvidia-smi);
   2. build     -- compile both CUDA sources from yoloclip_tpu_torch/csrc/
-                  (one nvcc each, in parallel), ptxas's report;
-  3. kernel 1  -- folded similarity max/argmax vs its plain PyTorch version
-                  at the main-path shapes, fp32 (TF32 off) and bf16;
+                  (one nvcc each, in parallel), ptxas's report, and the
+                  count of tensor-core (HGMMA) instructions in the SASS of
+                  each similarity instantiation (cuobjdump; none fails);
+  3. kernel 1  -- folded similarity max/argmax vs its plain PyTorch version,
+                  fp32 (TF32 off) and bf16, at batch 32: the main-path
+                  shapes, C = 1 / 80 / 1203, A ragged against the row tiles
+                  and A = 1, num_valid inside a class tile, text rows 7 and
+                  700 copies of row 3 (across class tiles), a zero row;
   4. kernel 2  -- greedy NMS keep mask vs its plain version, bit for bit;
-  5. kernel 3  -- unprojected similarity max/argmax vs its plain version at
-                  B=32, A=8400, E=512, C=80 and 1203, fp32 and bf16,
-                  normalize_obj both ways, num_valid < C, a duplicated text
-                  row, a zero obj row;
+  5. kernel 3  -- unprojected similarity max/argmax vs its plain version,
+                  the same kinds of cases at E=512 (A = 8400, 400, 1),
+                  normalize_obj both ways;
   6. text      -- the full-width CLIP text tower (12 x 512, seeded) on the
                   card vs the same weights on the CPU for 16 prompts; a
                   1203-class vocabulary build (6015 prompts) timed in fp32
                   and bf16 with its peak memory;
   7. main path -- YOLOCLIPDetector at variant 'n', 640x640, COCO-80 JSON
-                  vocabulary, random weights from a seed: detect_batch on 32
-                  frames of 480x640 at conf 0.25 and -1.0, detect on one
-                  frame; kernels 1 and 2 must have launched; outputs finite;
+                  vocabulary, random weights from a seed: fp32 detect_batch
+                  on 32 frames of 480x640 at conf 0.25 and -1.0, detect on
+                  one frame, and a bf16 detect_batch; kernel 1 (fp32 and
+                  bf16) and kernel 2 must have launched; outputs finite;
                   a bs=2 fp32 run on the card against the same run on CPU;
   8. prompts   -- the LVIS-scale prompt path: YOLOCLIPDetector from 1203
                   class names (vocabulary built by the text tower on the
                   card), the unfolded scoring (model unfused + kernel 3 on
-                  its obj_embeddings) against the model's own scores and the
-                  folded kernel-1 run, then detect_batch and detect with
-                  five free-text prompts; all three kernels must launch;
+                  its obj_embeddings, fp32 and bf16) against the model's own
+                  scores and the folded kernel-1 run, then detect_batch and
+                  detect with five free-text prompts; every kernel must
+                  launch;
   9. timing    -- detect_batch images/s (COCO-80 fp32 and bf16, LVIS-1203
-                  fp32) and each kernel beside its plain version and its
-                  bound (CUDA events).
+                  fp32), the device time of each detect_batch stage alone
+                  for those three, and kernels 1 (C = 80 and 1203) and 3
+                  (C = 1203) through their wrappers and alone, beside their
+                  plain versions and bounds (CUDA events).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -43,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -76,11 +85,31 @@ PROMPTS = ['a photo of a cat', 'a dog', 'person', 'a red car',
 FREE_PROMPTS = ['a red car', 'a person on a bicycle', 'café', 'a dog',
                 'traffic light']
 
-# The H100 SXM's published peaks (dense) and memory rate: the bound of a
-# kernel is the larger of its operations over the peak for its input type
-# and its bytes (inputs read once, outputs written once) over HBM.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# The H100 SXM's published dense peaks and memory rate. A kernel's bound is
+# the larger of its operations over the peak of the units it runs on and
+# its bytes (inputs read once, outputs written once) over HBM. Kernels 1
+# and 3 run on the tensor cores: bf16 at the bf16 peak, fp32 as 3xTF32
+# (three TF32 products for each fp32 one, at the TF32 peak). NMS runs in
+# fp32 on the CUDA cores.
+BF16_TC, TF32_TC, FP32_CORES = 989e12, 495e12, 67e12
 HBM_BYTES_S = 3.35e12
+# bf16 kernel 3 on the prompt path against the fp32 run on the same rows:
+# rounding both operands to bf16 moves each product by <= 2^-8 relative.
+BF16_PATH_ATOL = 1e-2
+# Rows duplicated from row 3 of the text: the lower index must win, also
+# across class tiles (128 classes a tile).
+DUP_ROWS = (7, 700)
+# Kernel 1 cases (A, C, num_valid) and kernel 3 cases (A, C, num_valid,
+# normalize_obj), each run in fp32 and bf16 at batch 32: the main-path
+# shapes, C = 1 / 80 / 1203, A ragged against the row tiles (400, 1600)
+# and A = 1, num_valid inside a class tile.
+K1_CASES = [(6400, 80, None), (1600, 80, None), (400, 80, None),
+            (6400, 1203, None), (400, 1203, 1000), (1600, 80, 33),
+            (1, 80, None), (1, 1, None), (400, 1, None)]
+K3_CASES = [(8400, 80, None, True), (8400, 80, None, False),
+            (8400, 1203, None, True), (8400, 1203, None, False),
+            (8400, 1203, 1186, True), (400, 1203, 1000, True),
+            (1, 80, None, False), (1, 1, None, True), (400, 1, None, True)]
 
 
 class SmokeFailure(RuntimeError):
@@ -92,11 +121,19 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def bound(flops: float, nbytes: float, dtype: torch.dtype):
+def bound(flops: float, nbytes: float, peak: float):
     """(least time in ms, 'operations' or 'bytes')."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def sim_bound(flops: float, nbytes: float, dtype: torch.dtype):
+    """Bound of kernel 1 or 3: bf16 at the bf16 tensor-core peak, fp32 as
+    3xTF32 at the TF32 peak."""
+    if dtype == torch.float32:
+        return bound(3 * flops, nbytes, TF32_TC)
+    return bound(flops, nbytes, BF16_TC)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -139,45 +176,97 @@ def phase_build(_build) -> None:
                 'yc_similarity_unprojected_f32',
                 'yc_similarity_unprojected_bf16'):
         require(hasattr(lib, sym), f'symbol {sym} missing')
+    counts = _sass_gmma(_build.BUILD_DIR / 'libsimilarity.so')
+    for fn, n in counts.items():
+        kind = ('bf16' if '__nv_bfloat16' in fn else 'fp32') + (
+            ' folded' if 'Lb1E' in fn else ' unprojected')
+        print(f'[build] SASS of similarity_wgmma, {kind}: {n} HGMMA '
+              f'(tensor-core) instructions')
+    require(len(counts) == 4 and all(counts.values()),
+            'a similarity instantiation has no tensor-core instruction')
+
+
+def _sass_gmma(lib_path) -> dict:
+    """HGMMA instructions in each kernel of a built library (cuobjdump)."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    sass = subprocess.run([tool, '-sass', str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if 'Function :' in ln:
+            fn = ln.split('Function :')[1].strip()
+            counts[fn] = 0
+        elif fn is not None and 'HGMMA' in ln:
+            counts[fn] += 1
+    return counts
 
 
 def _sim_inputs(g, A, C, dtype):
+    """Kernel 1 inputs at batch 32: hidden rows in `dtype` with row
+    (0, min(3, A-1)) zero, the head's K and bias, unit text (B, C, 512)
+    whose rows DUP_ROWS copy row 3."""
     h = torch.randn(BATCH, A, HIDDEN, device='cuda', generator=g)
-    h[0, 3] = 0.0                        # zero hidden row: norm = ||b||
+    h[0, min(3, A - 1)] = 0.0            # zero hidden row: norm = ||b||
     K = torch.randn(HIDDEN, EMBED, device='cuda', generator=g) / 16
     b = 0.1 * torch.randn(EMBED, device='cuda', generator=g)
     t = torch.randn(BATCH, C, EMBED, device='cuda', generator=g)
     t = t / t.norm(dim=-1, keepdim=True)
-    t[:, 7] = t[:, 3]                    # exact tie: class 3 must win
+    for r in DUP_ROWS:
+        if r < C:
+            t[:, r] = t[:, 3]            # exact tie: class 3 must win
     return h.to(dtype), t, K, b
 
 
-def phase_kernel1(sim) -> float:
+def _near_ties(raw, norm):
+    """(B, A) bool: best and second-best raw score, over the norm, differ
+    by less than SIM_ATOL."""
+    if raw.shape[-1] < 2:
+        return torch.zeros(raw.shape[:-1], dtype=torch.bool, device='cuda')
+    top2 = raw.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) / norm < SIM_ATOL
+
+
+def _require_ids(i, num_valid, C, tag):
+    for r in DUP_ROWS:
+        if r < C and (num_valid is None or r < num_valid):
+            require(not (i == r).any().item(),
+                    f'{tag}: duplicated class {r} beat class 3')
+    if num_valid is not None:
+        require(bool((i < num_valid).all()), f'{tag}: num_valid')
+
+
+def phase_kernel1(sim):
+    """Returns the worst score difference per input type."""
     g = torch.Generator(device='cuda').manual_seed(1)
-    worst = 0.0
+    worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for A, C in [(a, 80) for a in LEVELS] + [(LEVELS[0], 1203)]:
+        worst[dtype] = 0.0
+        for A, C, nv in K1_CASES:
             h, t, K, b = _sim_inputs(g, A, C, dtype)
-            s, i = sim.fused_projected_similarity_argmax(h, t, K, b)
-            ps, pi = sim.similarity_argmax_plain(h, t, K, b)
+            s, i = sim.fused_projected_similarity_argmax(h, t, K, b, nv)
+            ps, pi = sim.similarity_argmax_plain(h, t, K, b, nv)
             tp, cb = sim._fold_text(t, K, b, dtype)
             raw = torch.matmul(h.float(), tp.float().transpose(1, 2)) \
                 + cb[:, None]
+            if nv is not None:
+                raw[..., nv:] = sim.NEG
             norm = (torch.matmul(h.float(), K.to(dtype).float()) + b).norm(
                 dim=-1).clamp_min(1e-12)
-            top2 = raw.topk(2, dim=-1).values
-            tie = (top2[..., 0] - top2[..., 1]) / norm < SIM_ATOL
+            tie = _near_ties(raw, norm)
+            del raw
             torch.cuda.synchronize()
             err = (s - ps).abs().max().item()
             bad = ((i != pi) & ~tie).sum().item()
-            worst = max(worst, err)
-            print(f'[kernel1] {str(dtype)[6:]:8s} B={BATCH} A={A:5d} C={C:4d}'
-                  f' max|score-plain|={err:.3e} (tol {SIM_ATOL:g}) '
-                  f'id mismatches outside near-ties={bad} '
+            worst[dtype] = max(worst[dtype], err)
+            tag = (f'{str(dtype)[6:]:8s} B={BATCH} A={A:5d} C={C:4d} '
+                   f'num_valid={nv}')
+            print(f'[kernel1] {tag}: max|score-plain|={err:.3e} (tol '
+                  f'{SIM_ATOL:g}) id mismatches outside near-ties={bad} '
                   f'near-tie anchors exempt={int(tie.sum())}')
-            require(err <= SIM_ATOL, 'kernel 1 scores disagree')
-            require(bad == 0, 'kernel 1 ids disagree')
-            require(not (i == 7).any().item(), 'kernel 1 tie order')
+            require(err <= SIM_ATOL, f'kernel 1 scores disagree ({tag})')
+            require(bad == 0, f'kernel 1 ids disagree ({tag})')
+            _require_ids(i, nv, C, f'kernel 1 ({tag})')
+            del h, t
     return worst
 
 
@@ -215,16 +304,19 @@ def phase_kernel2(nms) -> float:
     return worst
 
 
-def _obj_inputs(g, C, dtype, normalize_obj):
-    """obj (B, 8400, 512) in `dtype` (unit rows unless normalize_obj; row
-    (0, 3) zero) and unit text (B, C, 512) with row 7 a copy of row 3."""
-    obj = torch.randn(BATCH, ANCHORS, EMBED, device='cuda', generator=g)
+def _obj_inputs(g, A, C, dtype, normalize_obj):
+    """obj (B, A, 512) in `dtype` (unit rows unless normalize_obj; row
+    (0, min(3, A-1)) zero) and unit text (B, C, 512) whose rows DUP_ROWS
+    copy row 3."""
+    obj = torch.randn(BATCH, A, EMBED, device='cuda', generator=g)
     if not normalize_obj:
         obj = obj / obj.norm(dim=-1, keepdim=True)
-    obj[0, 3] = 0.0
+    obj[0, min(3, A - 1)] = 0.0
     t = torch.randn(BATCH, C, EMBED, device='cuda', generator=g)
     t = t / t.norm(dim=-1, keepdim=True)
-    t[:, 7] = t[:, 3]                    # exact tie: class 3 must win
+    for r in DUP_ROWS:
+        if r < C:
+            t[:, r] = t[:, 3]            # exact tie: class 3 must win
     return obj.to(dtype), t
 
 
@@ -238,9 +330,7 @@ def _check_unprojected(sim, obj, t, num_valid, normalize_obj, tag):
     raw = torch.matmul(obj.float(), t.to(obj.dtype).float().transpose(1, 2))
     if num_valid is not None:
         raw[..., num_valid:] = sim.NEG
-    top2 = raw.topk(2, dim=-1).values
-    norm = obj.float().norm(dim=-1).clamp_min(1e-12)
-    tie = (top2[..., 0] - top2[..., 1]) / norm < SIM_ATOL
+    tie = _near_ties(raw, obj.float().norm(dim=-1).clamp_min(1e-12))
     del raw
     torch.cuda.synchronize()
     err = (s - ps).abs().max().item()
@@ -250,29 +340,26 @@ def _check_unprojected(sim, obj, t, num_valid, normalize_obj, tag):
           f'exempt={int(tie.sum())}')
     require(err <= SIM_ATOL, f'kernel 3 scores disagree ({tag})')
     require(bad == 0, f'kernel 3 ids disagree ({tag})')
-    require(not (i == 7).any().item(), f'kernel 3 tie order ({tag})')
-    require(s[0, 3].item() == 0.0 and i[0, 3].item() == 0,
+    _require_ids(i, num_valid, t.shape[1], f'kernel 3 ({tag})')
+    z = min(3, obj.shape[1] - 1)
+    require(s[0, z].item() == 0.0 and i[0, z].item() == 0,
             f'kernel 3 zero obj row ({tag})')
-    if num_valid is not None:
-        require(bool((i < num_valid).all()), f'kernel 3 num_valid ({tag})')
     return err
 
 
-def phase_kernel3(sim) -> float:
+def phase_kernel3(sim):
+    """Returns the worst score difference per input type."""
     g = torch.Generator(device='cuda').manual_seed(4)
-    worst = 0.0
+    worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for C in (80, LVIS_C):
-            for normalize_obj in (True, False):
-                obj, t = _obj_inputs(g, C, dtype, normalize_obj)
-                tag = (f'{str(dtype)[6:]:8s} B={BATCH} A={ANCHORS} '
-                       f'E={EMBED} C={C:4d} normalize_obj={normalize_obj}')
-                worst = max(worst, _check_unprojected(
-                    sim, obj, t, None, normalize_obj, tag))
-                if C == LVIS_C and normalize_obj:
-                    worst = max(worst, _check_unprojected(
-                        sim, obj, t, C - 17, True, tag + f' num_valid={C - 17}'))
-                del obj, t
+        worst[dtype] = 0.0
+        for A, C, nv, normalize_obj in K3_CASES:
+            obj, t = _obj_inputs(g, A, C, dtype, normalize_obj)
+            tag = (f'{str(dtype)[6:]:8s} B={BATCH} A={A:5d} E={EMBED} '
+                   f'C={C:4d} num_valid={nv} normalize_obj={normalize_obj}')
+            worst[dtype] = max(worst[dtype], _check_unprojected(
+                sim, obj, t, nv, normalize_obj, tag))
+            del obj, t
     return worst
 
 
@@ -355,28 +442,40 @@ def _finite(out) -> bool:
                for k in ('boxes', 'scores'))
 
 
-def phase_main_path(sim, nms, vocab_path, frames):
+def _detector(vocab_path, dtype='float32'):
     from yoloclip_tpu_torch.config import InferenceConfig
     from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
     cfg = InferenceConfig(host_preprocess=False)
-    det = YOLOCLIPDetector(cfg, vocab_path=vocab_path, device='cuda', seed=0)
-    require(len(det.class_names) == 80, 'COCO-80 vocabulary')
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype=dtype))
+    return YOLOCLIPDetector(cfg, vocab_path=vocab_path, device='cuda', seed=0)
 
-    sim.launches = 0
+
+def phase_main_path(sim, nms, vocab_path, frames):
+    """Returns the fp32 and bf16 detectors and the launches of the run."""
+    det, bf = _detector(vocab_path), _detector(vocab_path, 'bfloat16')
+    require(len(det.class_names) == 80, 'COCO-80 vocabulary')
+    conf = det.conf_threshold
+
+    sim.launches = sim.launches_bf16 = 0
     nms.launches = 0
     out = det.detect_batch(frames)
     det.conf_threshold = -1.0
     out_all = det.detect_batch(frames)
-    det.conf_threshold = cfg.conf_threshold
+    det.conf_threshold = conf
     dets = det.detect(frames[0].cpu().numpy())
+    out_bf = bf.detect_batch(frames)
     torch.cuda.synchronize()
-    launches = {'similarity': sim.launches, 'nms': nms.launches}
-    print(f'[main] launches on the main path: {launches}')
+    launches = {'similarity': sim.launches - sim.launches_bf16,
+                'similarity_bf16': sim.launches_bf16, 'nms': nms.launches}
+    print(f'[main] launches on the main path (fp32 detect_batch x2, detect, '
+          f'bf16 detect_batch): {launches}')
     require(all(n > 0 for n in launches.values()),
             'a kernel of the main path never launched')
 
-    D = cfg.max_detections
-    for name, o in (('conf 0.25', out), ('conf -1.0', out_all)):
+    D = det.config.max_detections
+    for name, o in (('fp32 conf 0.25', out), ('fp32 conf -1.0', out_all),
+                    ('bf16 conf 0.25', out_bf)):
         require(o['boxes'].shape == (BATCH, D, 4), 'detect_batch shape')
         require(_finite(o), 'non-finite detect_batch output')
         print(f'[main] detect_batch {name}: counts '
@@ -387,7 +486,7 @@ def phase_main_path(sim, nms, vocab_path, frames):
     require(bool((out_all['count'] > 0).all()), 'conf -1.0 keeps boxes')
     require(all(np.isfinite(d['score']) for d in dets), 'detect scores')
     print(f'[main] detect on one 480x640 frame: {len(dets)} detections')
-    return det
+    return det, bf, launches
 
 
 def phase_cross_device(det, vocab_path, frames) -> None:
@@ -440,22 +539,29 @@ def phase_prompts(sim, nms, frames, lvis_vocab):
           f'{vdiff:.3e}')
     require(vdiff <= 1e-5, 'the detector built another vocabulary')
 
-    sim.launches = sim.unprojected_launches = nms.launches = 0
+    sim.launches = sim.launches_bf16 = nms.launches = 0
+    sim.unprojected_launches = sim.unprojected_launches_bf16 = 0
     alpha, beta = cfg.model.cls_alpha, cfg.model.cls_beta
     with torch.inference_mode():
         canv, _ = letterbox_batch(frames, det.image_size)
         unf = det.model(canv, det.offline_vocabulary)
         txt = unf['text_embeddings']
         txt = txt / txt.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-        s3, i3 = sim.fused_similarity_argmax(unf['obj_embeddings'], txt,
-                                             normalize_obj=True)
-        s3 = alpha * s3 + beta
+        raw3, i3 = sim.fused_similarity_argmax(unf['obj_embeddings'], txt,
+                                               normalize_obj=True)
+        s3 = alpha * raw3 + beta
+        # the same unfolded scoring on bf16 rows and text
+        raw3b, i3b = sim.fused_similarity_argmax(
+            unf['obj_embeddings'].bfloat16(), txt.bfloat16(),
+            normalize_obj=True)
         folded = det.model(canv, det.offline_vocabulary, fused_scores=True)
     out = det.detect_batch(frames)
     dets = det.detect(frames[0].cpu().numpy(), text_prompts=FREE_PROMPTS)
     torch.cuda.synchronize()
     launches = {'similarity': sim.launches,
-                'similarity_unprojected': sim.unprojected_launches,
+                'similarity_unprojected': (sim.unprojected_launches
+                                           - sim.unprojected_launches_bf16),
+                'similarity_unprojected_bf16': sim.unprojected_launches_bf16,
                 'nms': nms.launches}
     print(f'[prompts] launches on the prompt path: {launches}')
     require(all(n > 0 for n in launches.values()),
@@ -472,6 +578,12 @@ def phase_prompts(sim, nms, frames, lvis_vocab):
               f'near-ties={bad}; near-tie anchors exempt={int(tie.sum())}')
         require(err <= SIM_ATOL, f'kernel 3 path disagrees with {name}')
         require(bad == 0, f'kernel 3 path ids disagree with {name}')
+    err_b = (raw3b - raw3).abs().max().item()
+    print(f'[prompts] unfolded scoring in bf16 vs fp32: max|score diff|='
+          f'{err_b:.3e} (tol {BF16_PATH_ATOL:g}); ids equal on '
+          f'{(i3b == i3).float().mean().item():.4f} of anchors')
+    require(raw3b.shape == raw3.shape and err_b <= BF16_PATH_ATOL,
+            'bf16 unfolded scoring')
     require(out['boxes'].shape == (BATCH, cfg.max_detections, 4)
             and _finite(out), 'LVIS detect_batch output')
     require(bool((out['class_ids'] < LVIS_C).all()), 'LVIS class ids')
@@ -497,19 +609,88 @@ def _img_per_s(det, frames, iters: int = 10) -> float:
     return frames.shape[0] / statistics.median(times)
 
 
-def phase_timing(det, lvis_det, vocab_path, frames, sim, nms, card: str):
-    from yoloclip_tpu_torch.config import InferenceConfig
-    from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
+def _stage_ms(det, frames, sim) -> dict:
+    """Device time of each detect_batch stage alone, in order (CUDA events,
+    10 calls after 3 warm-up); the stages' inputs are made once first."""
+    from yoloclip_tpu_torch.models.heads import decode_boxes
+    from yoloclip_tpu_torch.ops.nms import batched_nms
+    from yoloclip_tpu_torch.ops.preprocess import (letterbox_batch,
+                                                   rescale_boxes)
+    m, cfg = det.model, det.model.cfg
+    text, _ = det._text(None)
+    ms = {}
+    with torch.inference_mode():
+        ms['letterbox'] = cuda_ms(lambda: letterbox_batch(
+            frames, det.image_size), iters=10)
+        canv, scale = letterbox_batch(frames, det.image_size)
+        dt = m.box_head.box_convs[0][2].weight.dtype
+        x = canv.permute(0, 3, 1, 2).to(dt).contiguous(
+            memory_format=torch.channels_last)
+        txt = text[None].expand(BATCH, -1, -1).float()
+        ms['backbone'] = cuda_ms(lambda: m.backbone(x), iters=10)
+        feats = m.backbone(x)
+        ms['neck'] = cuda_ms(lambda: m.neck(feats, txt), iters=10)
+        pan, ptxt = m.neck(feats, txt)
+        txt_n = ptxt / ptxt.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        ms['contrastive towers'] = cuda_ms(lambda: [
+            hd(f, return_hidden=True)
+            for hd, f in zip(m.contrastive_heads, pan)], iters=10)
+        hidden = [hd(f, return_hidden=True)
+                  for hd, f in zip(m.contrastive_heads, pan)]
+        ms['similarity kernel x 3 levels'] = cuda_ms(lambda: [
+            sim.fused_projected_similarity_argmax(
+                h.permute(0, 2, 3, 1).reshape(BATCH, -1, h.shape[1]),
+                txt_n, k, b) for h, k, b in hidden], iters=10)
+        ms['box head'] = cuda_ms(lambda: m.box_head(pan), iters=10)
+        bp = m.box_head(pan)
+        ms['DFL decode'] = cuda_ms(lambda: decode_boxes(
+            bp, cfg.strides, cfg.reg_max), iters=10)
+        out = m(canv, text, fused_scores=True)
+        boxes = rescale_boxes(out['boxes'], scale, tuple(frames.shape[1:3]))
+        ms['rescale + NMS'] = cuda_ms(lambda: batched_nms(
+            boxes, out['scores'], out['class_ids'], **det._nms_args()),
+            iters=10)
+        ms['whole model forward'] = cuda_ms(
+            lambda: m(canv, text, fused_scores=True), iters=10)
+    ms['detect_batch'] = cuda_ms(lambda: det.detect_batch(frames), iters=10)
+    return ms
+
+
+def _time_folded(sim, g, C, dtype, card):
+    """Kernel 1 over the three levels at C classes: (wrapper ms, kernel
+    alone ms, plain ms, bound ms, bound_by)."""
+    tot = [0.0, 0.0, 0.0]
+    for A in LEVELS:
+        h, t, K, b = _sim_inputs(g, A, C, dtype)
+        ops = sim._prepare_folded(dtype, t, K, b)
+        ms = (cuda_ms(lambda: sim.fused_projected_similarity_argmax(
+                  h, t, K, b)),
+              cuda_ms(lambda: sim._launch(h, ops, C, EMBED, C)),
+              cuda_ms(lambda: sim.similarity_argmax_plain(h, t, K, b)))
+        tot = [x + y for x, y in zip(tot, ms)]
+        print(f'[time] similarity {str(dtype)[6:]:8s} B={BATCH} A={A:5d} '
+              f'C={C:4d}: wrapper {ms[0]:.4f} ms (kernel alone {ms[1]:.4f}),'
+              f' plain {ms[2]:.4f} ms')
+        del h, t, ops
+    esize = torch.finfo(dtype).bits // 8
+    flops = 2 * BATCH * ANCHORS * HIDDEN * (C + EMBED)
+    # h, tp (B, C, Kd) and K in the input type; cb, bias fp32; the outputs
+    nbytes = (BATCH * ANCHORS * HIDDEN * esize + BATCH * C * HIDDEN * esize
+              + BATCH * C * 4 + HIDDEN * EMBED * esize + EMBED * 4
+              + BATCH * ANCHORS * 8)
+    bms, bby = sim_bound(flops, nbytes, dtype)
+    print(f'[time] similarity {str(dtype)[6:]} C={C} all three levels: '
+          f'wrapper {tot[0]:.4f} ms, kernel alone {tot[1]:.4f} ms, plain '
+          f'{tot[2]:.4f} ms, bound {bms:.4f} ms ({bby}; {flops / 1e9:.1f} '
+          f'GFLOP)  [{card}]')
+    return tot[0], tot[1], tot[2], bms, bby
+
+
+def phase_timing(det, bf, lvis_det, frames, sim, nms, card: str):
     torch.cuda.reset_peak_memory_stats()
     fp32 = _img_per_s(det, frames)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    cfg = InferenceConfig(host_preprocess=False)
-    bf = YOLOCLIPDetector(
-        dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, dtype='bfloat16')),
-        vocab_path=vocab_path, device='cuda', seed=0)
     bf16 = _img_per_s(bf, frames)
-    del bf
     print(f'[time] detect_batch bs={BATCH} 640px COCO-80 variant n, frames '
           f'480x640 uint8 already on the card, conf 0.25: '
           f'fp32 {fp32:.1f} img/s (peak {peak:.2f} GiB), '
@@ -517,48 +698,42 @@ def phase_timing(det, lvis_det, vocab_path, frames, sim, nms, card: str):
     lvis = _img_per_s(lvis_det, frames)
     print(f'[time] detect_batch bs={BATCH} 640px LVIS-scale {LVIS_C} '
           f'classes (folded path) fp32: {lvis:.1f} img/s  [{card}]')
+    for name, d in (('COCO-80 fp32', det), ('COCO-80 bf16', bf),
+                    (f'LVIS-{LVIS_C} fp32', lvis_det)):
+        ms = _stage_ms(d, frames, sim)
+        print(f'[stages] {name}, bs={BATCH}, 640 px, device ms of each '
+              f'stage alone: ' + ', '.join(f'{k} {v:.3f}'
+                                            for k, v in ms.items())
+              + f'  [{card}]')
 
     g = torch.Generator(device='cuda').manual_seed(3)
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
-        tot_k = tot_p = 0.0
-        for A in LEVELS:
-            h, t, K, b = _sim_inputs(g, A, 80, dtype)
-            mk = cuda_ms(lambda: sim.fused_projected_similarity_argmax(
-                h, t, K, b))
-            mp = cuda_ms(lambda: sim.similarity_argmax_plain(h, t, K, b))
-            tot_k += mk
-            tot_p += mp
-            print(f'[time] similarity {str(dtype)[6:]:8s} B={BATCH} A={A:5d}'
-                  f' C=80: kernel {mk:.3f} ms, plain {mp:.3f} ms')
-        esize = torch.finfo(dtype).bits // 8
-        flops = 2 * BATCH * ANCHORS * HIDDEN * (80 + EMBED)
-        nbytes = (BATCH * ANCHORS * HIDDEN * esize + BATCH * 80 * EMBED * 4
-                  + HIDDEN * EMBED * 4 + EMBED * 4 + BATCH * ANCHORS * 8)
-        bms, bby = bound(flops, nbytes, dtype)
-        print(f'[time] similarity {str(dtype)[6:]} all three levels: kernel '
-              f'{tot_k:.3f} ms, plain {tot_p:.3f} ms, bound {bms:.4f} ms '
-              f'({bby})  [{card}]')
-        res[('similarity', dtype)] = (tot_k, tot_p, bms, bby)
-        del h, t
+        res[('similarity', dtype)] = _time_folded(sim, g, 80, dtype, card)
+        _time_folded(sim, g, LVIS_C, dtype, card)
 
     for dtype in (torch.float32, torch.bfloat16):
-        obj, t = _obj_inputs(g, LVIS_C, dtype, True)
-        mk = cuda_ms(lambda: sim.fused_similarity_argmax(
+        obj, t = _obj_inputs(g, ANCHORS, LVIS_C, dtype, True)
+        tc = t.to(dtype)
+        mw = cuda_ms(lambda: sim.fused_similarity_argmax(
             obj, t, normalize_obj=True), iters=10)
+        mk = cuda_ms(lambda: sim._launch_unprojected(obj, tc, LVIS_C, True),
+                     iters=10)
         mp = cuda_ms(lambda: sim.similarity_argmax_reference_plain(
             obj, t, None, True), iters=10)
         esize = torch.finfo(dtype).bits // 8
         flops = 2 * BATCH * ANCHORS * EMBED * LVIS_C
+        # obj and text in the input type; the outputs
         nbytes = (BATCH * ANCHORS * EMBED * esize
-                  + BATCH * LVIS_C * EMBED * 4 + BATCH * ANCHORS * 8)
-        bms, bby = bound(flops, nbytes, dtype)
+                  + BATCH * LVIS_C * EMBED * esize + BATCH * ANCHORS * 8)
+        bms, bby = sim_bound(flops, nbytes, dtype)
         print(f'[time] similarity unprojected {str(dtype)[6:]} B={BATCH} '
-              f'A={ANCHORS} E={EMBED} C={LVIS_C} normalize_obj: kernel '
-              f'{mk:.3f} ms, plain {mp:.3f} ms, bound {bms:.4f} ms ({bby})'
+              f'A={ANCHORS} E={EMBED} C={LVIS_C} normalize_obj: wrapper '
+              f'{mw:.4f} ms (kernel alone {mk:.4f}), plain {mp:.4f} ms, '
+              f'bound {bms:.4f} ms ({bby}; {flops / 1e9:.1f} GFLOP)'
               f'  [{card}]')
-        res[('unprojected', dtype)] = (mk, mp, bms, bby)
-        del obj, t
+        res[('unprojected', dtype)] = (mw, mk, mp, bms, bby)
+        del obj, t, tc
 
     boxes = _nms_scene(g, BATCH, 1024)
     valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device='cuda')
@@ -566,10 +741,10 @@ def phase_timing(det, lvis_det, vocab_path, frames, sim, nms, card: str):
     mp = cuda_ms(lambda: nms.nms_keep_plain(boxes, valid, 0.45), iters=5)
     # ~12 fp32 operations per IoU pair (i < j); boxes, valid, keep once
     pairs = BATCH * 1024 * 1023 // 2
-    bms, bby = bound(12 * pairs, BATCH * 1024 * (16 + 1 + 1), torch.float32)
+    bms, bby = bound(12 * pairs, BATCH * 1024 * (16 + 1 + 1), FP32_CORES)
     print(f'[time] nms keep B={BATCH} K=1024: kernel {mk:.3f} ms, '
           f'plain {mp:.3f} ms, bound {bms:.4f} ms ({bby})  [{card}]')
-    res[('nms', torch.float32)] = (mk, mp, bms, bby)
+    res[('nms', torch.float32)] = (mk, mk, mp, bms, bby)
     return res
 
 
@@ -587,7 +762,7 @@ def main() -> int:
 
     card = phase_device()
     phase_build(_build)
-    sim_err = phase_kernel1(sim)
+    k1_err = phase_kernel1(sim)
     nms_err = phase_kernel2(nms)
     k3_err = phase_kernel3(sim)
     lvis_vocab = phase_text(card)
@@ -598,36 +773,42 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         vocab_path = os.path.join(tmp, 'coco80_vocab.json')
         _write_vocab(vocab_path)
-        det = phase_main_path(sim, nms, vocab_path, frames)
+        det, bf, main_launches = phase_main_path(sim, nms, vocab_path, frames)
         phase_cross_device(det, vocab_path, frames)
-        lvis_det, launches = phase_prompts(sim, nms, frames, lvis_vocab)
-        res = phase_timing(det, lvis_det, vocab_path, frames, sim, nms, card)
+        lvis_det, prompt_launches = phase_prompts(sim, nms, frames,
+                                                  lvis_vocab)
+        res = phase_timing(det, bf, lvis_det, frames, sim, nms, card)
 
     require(not any(m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                         'yoloclip_tpu')
                     for m in sys.modules), 'the port imported JAX')
 
     def entry(name, source, replaces, key, n, err):
-        ms, plain, bms, bby = res[key]
+        ms, _, plain, bms, bby = res[key]
         return {'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, 'launches': n, 'max_abs_err': err,
                 'ms': ms, 'plain_ms': plain, 'bound_ms': bms,
                 'bound_by': bby, 'library_ms': None}
 
+    f32, b16 = torch.float32, torch.bfloat16
+    sim_src = 'yoloclip_tpu_torch/csrc/similarity.cu'
+    k1, k3 = ('yoloclip_tpu/ops/pallas/similarity.py:240',
+              'yoloclip_tpu/ops/pallas/similarity.py:110')
     kernels = [
-        entry('fused_projected_similarity_argmax',
-              'yoloclip_tpu_torch/csrc/similarity.cu',
-              'yoloclip_tpu/ops/pallas/similarity.py:240',
-              ('similarity', torch.float32), launches['similarity'],
-              sim_err),
+        entry('fused_projected_similarity_argmax[float32]', sim_src, k1,
+              ('similarity', f32), main_launches['similarity'], k1_err[f32]),
+        entry('fused_projected_similarity_argmax[bfloat16]', sim_src, k1,
+              ('similarity', b16), main_launches['similarity_bf16'],
+              k1_err[b16]),
         entry('nms_keep', 'yoloclip_tpu_torch/csrc/nms.cu',
-              'yoloclip_tpu/ops/pallas/nms.py:103', ('nms', torch.float32),
-              launches['nms'], nms_err),
-        entry('fused_similarity_argmax',
-              'yoloclip_tpu_torch/csrc/similarity.cu',
-              'yoloclip_tpu/ops/pallas/similarity.py:110',
-              ('unprojected', torch.float32),
-              launches['similarity_unprojected'], k3_err),
+              'yoloclip_tpu/ops/pallas/nms.py:103', ('nms', f32),
+              main_launches['nms'], nms_err),
+        entry('fused_similarity_argmax[float32]', sim_src, k3,
+              ('unprojected', f32),
+              prompt_launches['similarity_unprojected'], k3_err[f32]),
+        entry('fused_similarity_argmax[bfloat16]', sim_src, k3,
+              ('unprojected', b16),
+              prompt_launches['similarity_unprojected_bf16'], k3_err[b16]),
     ]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

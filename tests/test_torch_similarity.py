@@ -6,9 +6,11 @@ and `fused_similarity_argmax` on CPU tensors run their plain PyTorch
 versions; the references are the JAX functions of the same names in
 interpret mode, on the same numpy inputs.
 
-Tolerances: scores atol 1e-5 (fp32; the two sum in different orders).
-Class ids exact, except at an anchor whose top-2 cosine gap (float64 on the
-host) is below 1e-5, where rounding may legitimately pick either class.
+Tolerances: scores atol 1e-5 (fp32 sums of the same products in different
+orders; in bf16 the products of bf16 values are exact in fp32, so the same
+holds). Class ids exact, except at an anchor whose top-2 cosine gap
+(float64 on the host) is below 1e-5, where rounding may legitimately pick
+either class.
 """
 
 import jax.numpy as jnp
@@ -126,13 +128,90 @@ def test_wrapper_rejects_devices_and_shapes_it_has_no_kernel_for():
     with pytest.raises(RuntimeError, match='no similarity kernel'):
         port.fused_projected_similarity_argmax(h, text, W, b)
     # shape and dtype limits are checked before anything is launched
-    tp, cb = torch.zeros((1, 3, 48)), torch.zeros((1, 3))
-    with pytest.raises(ValueError, match='hidden % 32'):
-        port._launch(torch.zeros((1, 4, 48)), tp, cb, torch.zeros((48, 128)),
-                     torch.zeros(128), 3)
+    text = torch.zeros((1, 3, 128))
+    for Kd, E in ((64, 128), (384, 128), (128, 192)):
+        ops = port._prepare_folded(torch.float32, text[..., :E] if E <= 128
+                                   else torch.zeros((1, 3, E)),
+                                   torch.zeros((Kd, E)), torch.zeros(E))
+        with pytest.raises(ValueError, match='hidden % 128'):
+            port._launch(torch.zeros((1, 4, Kd)), ops, 3, E, 3)
+    ops = port._prepare_folded(torch.float32, torch.zeros((1, 0, 128)),
+                               torch.zeros((128, 128)), torch.zeros(128))
+    with pytest.raises(ValueError, match='C >= 1'):
+        port._launch(torch.zeros((1, 4, 128)), ops, 0, 128, 0)
+    ops = port._prepare_folded(torch.float16, text, torch.zeros((128, 128)),
+                               torch.zeros(128))
     with pytest.raises(TypeError, match='float32 or bfloat16'):
-        port._launch(torch.zeros((1, 4, 64), dtype=torch.float16), tp, cb,
-                     torch.zeros((64, 128)), torch.zeros(128), 3)
+        port._launch(torch.zeros((1, 4, 128), dtype=torch.float16), ops, 3,
+                     128, 3)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_folded_operands_match_the_jax_function(dtype):
+    """The wrapper's host-side operands (tp, cb, K^T) against the ones the
+    JAX function builds (`similarity.py:275-284`). tp is rounded to the
+    compute dtype once: equal to one unit in its last place."""
+    rng = np.random.RandomState(13)
+    B, C, Kd, E = 2, 37, 128, 256
+    text = normed(rng, (B, C, E))
+    W = (rng.randn(Kd, E) / np.sqrt(Kd)).astype(np.float32)
+    b = (0.1 * rng.randn(E)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    k32 = jnp.asarray(W)
+    want_tp = jnp.einsum('bce,ke->bck', jnp.asarray(text).astype(jdt),
+                         k32.astype(jdt),
+                         preferred_element_type=jnp.float32).astype(jdt)
+    want_cb = jnp.einsum('bce,e->bc', jnp.asarray(text), jnp.asarray(b),
+                         preferred_element_type=jnp.float32)
+    ops = port._prepare_folded(tdt, torch.from_numpy(text),
+                               torch.from_numpy(W), torch.from_numpy(b))
+    assert ops['tp'].dtype == tdt and ops['tp'].shape == (B, C, Kd)
+    ulp = 2.0 ** -8 if dtype == 'bfloat16' else 2.0 ** -23
+    np.testing.assert_allclose(ops['tp'].float().numpy(),
+                               np.asarray(want_tp.astype(jnp.float32)),
+                               rtol=ulp, atol=1e-6)
+    np.testing.assert_allclose(ops['cb'].numpy(), np.asarray(want_cb),
+                               rtol=0, atol=1e-6)
+    # K^T (E, Kd) in the compute dtype, as the kernel reads it: the same
+    # values the JAX function passes (k32.astype(dt)), transposed
+    assert ops['kt'].shape == (E, Kd) and ops['kt'].is_contiguous()
+    np.testing.assert_array_equal(
+        ops['kt'].float().numpy(),
+        np.asarray(k32.astype(jdt).astype(jnp.float32)).T)
+    assert ops['bias'].dtype == torch.float32
+
+
+def test_bf16_plain_matches_pallas_folded():
+    """bf16 hidden rows: the plain version against the JAX function in
+    interpret mode on the same numpy inputs cast to bf16."""
+    rng = np.random.RandomState(14)
+    B, A, C, Kd, E = 2, 300, 80, 128, 256
+    h = rng.randn(B, A, Kd).astype(np.float32)
+    h[1, 7] = 0.0
+    W = (rng.randn(Kd, E) / np.sqrt(Kd)).astype(np.float32)
+    b = (0.1 * rng.randn(E)).astype(np.float32)
+    text = normed(rng, (B, C, E))
+    text[:, 50] = text[:, 9]            # exact tie: class 9 must win
+    hb = torch.from_numpy(h).bfloat16()
+    want_s, want_i = jax_folded(
+        jnp.asarray(h).astype(jnp.bfloat16), jnp.asarray(text),
+        jnp.asarray(W), jnp.asarray(b), tile_a=128, tile_c=64,
+        interpret=True)
+    got_s, got_i = port.fused_projected_similarity_argmax(
+        hb, torch.from_numpy(text), torch.from_numpy(W), torch.from_numpy(b))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=0,
+                               atol=SCORE_ATOL)
+    # near-ties in float64 on the bf16 operands both sides multiply
+    ops = port._prepare_folded(torch.bfloat16, torch.from_numpy(text),
+                               torch.from_numpy(W), torch.from_numpy(b))
+    h64 = hb.double()
+    raw = h64 @ ops['tp'].double().transpose(1, 2) + ops['cb'].double()[:, None]
+    norm = (h64 @ ops['kt'].double().t() + torch.from_numpy(b).double()
+            ).norm(dim=-1).clamp_min(1e-12)
+    top2 = raw.topk(2, dim=-1).values
+    tie = ((top2[..., 0] - top2[..., 1]) / norm < TIE_GAP).numpy()
+    assert not ((got_i.numpy() != np.asarray(want_i)) & ~tie).any()
+    assert not (got_i == 50).any()
 
 
 def unprojected_near_ties(obj, text, num_valid=None):
@@ -217,19 +296,49 @@ def test_unprojected_cpu_wrapper_runs_plain():
 
 
 def test_unprojected_wrapper_rejects_what_it_has_no_kernel_for():
-    obj = torch.zeros((1, 4, 64), device='meta')
-    text = torch.zeros((1, 3, 64), device='meta')
+    obj = torch.zeros((1, 4, 128), device='meta')
+    text = torch.zeros((1, 3, 128), device='meta')
     with pytest.raises(RuntimeError, match='no similarity kernel'):
         port.fused_similarity_argmax(obj, text)
-    text = torch.zeros((1, 3, 64))
-    with pytest.raises(ValueError, match='E % 32'):
-        port._launch_unprojected(torch.zeros((1, 4, 48)),
-                                 torch.zeros((1, 3, 48)), 3, True)
+    text = torch.zeros((1, 3, 128))
+    with pytest.raises(ValueError, match='E % 128'):
+        port._launch_unprojected(torch.zeros((1, 4, 64)),
+                                 torch.zeros((1, 3, 64)), 3, True)
     with pytest.raises(ValueError, match='E <= 512'):
-        port._launch_unprojected(torch.zeros((1, 4, 544)),
-                                 torch.zeros((1, 3, 544)), 3, True)
+        port._launch_unprojected(torch.zeros((1, 4, 640)),
+                                 torch.zeros((1, 3, 640)), 3, True)
     with pytest.raises(ValueError, match='does not match'):
-        port._launch_unprojected(torch.zeros((2, 4, 64)), text, 3, False)
+        port._launch_unprojected(torch.zeros((2, 4, 128)), text, 3, False)
+    with pytest.raises(ValueError, match='no class'):
+        port._launch_unprojected(torch.zeros((1, 4, 128)),
+                                 torch.zeros((1, 0, 128)), 0, False)
     with pytest.raises(TypeError, match='float32 or bfloat16'):
-        port._launch_unprojected(torch.zeros((1, 4, 64), dtype=torch.float16),
+        port._launch_unprojected(torch.zeros((1, 4, 128), dtype=torch.float16),
                                  text, 3, False)
+
+
+@pytest.mark.parametrize('normalize_obj', [True, False])
+def test_bf16_plain_matches_pallas_unprojected(normalize_obj):
+    """bf16 rows and text: the plain version against the JAX function in
+    interpret mode on the same numpy inputs cast to bf16."""
+    rng = np.random.RandomState(15)
+    B, A, C, E = 2, 260, 150, 128
+    obj = rng.randn(B, A, E).astype(np.float32) * 2.0
+    obj[0, 5] = 0.0
+    if not normalize_obj:
+        obj /= np.maximum(np.linalg.norm(obj, axis=-1, keepdims=True), 1e-12)
+    text = normed(rng, (B, C, E))
+    text[:, 140] = text[:, 20]          # exact tie across class tiles
+    ob, tb = torch.from_numpy(obj).bfloat16(), torch.from_numpy(text).bfloat16()
+    want_s, want_i = jax_unprojected(
+        jnp.asarray(obj).astype(jnp.bfloat16),
+        jnp.asarray(text).astype(jnp.bfloat16), tile_a=128, tile_c=128,
+        interpret=True, normalize_obj=normalize_obj)
+    got_s, got_i = port.fused_similarity_argmax(ob, tb,
+                                                normalize_obj=normalize_obj)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=0,
+                               atol=SCORE_ATOL)
+    tie = unprojected_near_ties(ob.double().numpy(), tb.double().numpy())
+    assert not ((got_i.numpy() != np.asarray(want_i)) & ~tie).any()
+    assert got_s[0, 5] == 0.0 and got_i[0, 5] == 0
+    assert not (got_i == 140).any()

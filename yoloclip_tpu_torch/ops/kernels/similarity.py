@@ -23,7 +23,9 @@ max(||obj||, 1e-12) when normalize_obj is set, without materialising
 (B, A, C). Plain version: `similarity_argmax_reference_plain`.
 
 Each wrapper runs its plain version for CPU tensors and the CUDA kernel for
-CUDA tensors; it never swaps one for the other.
+CUDA tensors; it never swaps one for the other. The kernel runs both
+products on the tensor cores: bf16 as it is, fp32 as 3xTF32 (each operand
+split into TF32 high and low parts inside the kernel).
 """
 
 from __future__ import annotations
@@ -37,10 +39,12 @@ from yoloclip_tpu_torch import _build
 
 NEG = -1e30
 
-# Launches of the CUDA kernel, folded and unprojected mode (incremented
-# only where each launches).
+# Launches of the CUDA kernel, folded and unprojected mode, and of their
+# bf16 instantiations among them (incremented only where each launches).
 launches = 0
+launches_bf16 = 0
 unprojected_launches = 0
+unprojected_launches_bf16 = 0
 
 
 def _fold_text(text: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -81,34 +85,79 @@ def similarity_argmax_plain(h: torch.Tensor, text: torch.Tensor,
     return best / norm.clamp_min(1e-12), ids.to(torch.int32)
 
 
-def _launch(h: torch.Tensor, tp: torch.Tensor, cb: torch.Tensor,
-            kernel: torch.Tensor, bias: torch.Tensor, nvalid: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
-    B, A, Kd = h.shape
-    C, E = tp.shape[1], kernel.shape[1]
-    if h.dtype not in (torch.float32, torch.bfloat16):
+def _prepare_folded(dtype: torch.dtype, text: torch.Tensor,
+                    kernel: torch.Tensor, bias: torch.Tensor) -> dict:
+    """Host-side operands of the folded kernel, built once per call: tp
+    and cb as `_fold_text` makes them, and K^T (E, Kd) in `dtype`, so that
+    both products read a K-major B operand."""
+    kd = kernel.to(dtype)    # cast once: `_fold_text` then casts nothing
+    tp, cb = _fold_text(text, kd, bias, dtype)
+    # The model's K is a transposed view of the conv weight (E, Kd), so
+    # this transpose is usually free.
+    return dict(tp=tp, cb=cb, kt=kd.t().contiguous(), bias=bias.float())
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, on a 16-byte boundary (the kernel copies 16 bytes at a
+    time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_dtype(dtype: torch.dtype) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'similarity kernel takes float32 or bfloat16, '
-                        f'got {h.dtype}')
-    if Kd % 32 or Kd > 512 or E % 64:
-        raise ValueError(f'similarity kernel needs hidden % 32 == 0, '
-                         f'hidden <= 512 and E % 64 == 0 (got {Kd}, {E})')
+                        f'got {dtype}')
+
+
+_ARGTYPES = {
+    'folded': [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    'unprojected': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+}
+_fns: dict = {}
+
+
+def _fn(mode: str, dtype: torch.dtype):
+    """The C launcher of `mode` for `dtype`, its argtypes set once per
+    process."""
+    key = (mode, dtype)
+    if key not in _fns:
+        lib = _build.load('similarity')
+        name = ('yc_similarity_' + ('unprojected_' if mode == 'unprojected'
+                                    else '')
+                + ('bf16' if dtype == torch.bfloat16 else 'f32'))
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES[mode]
+        fn.restype = ctypes.c_int
+        _fns[key] = (lib, fn)
+    return _fns[key]
+
+
+def _launch(h: torch.Tensor, ops: dict, C: int, E: int, nvalid: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h (B, A, Kd); `ops` from `_prepare_folded`."""
+    global launches, launches_bf16
+    B, A, Kd = h.shape
+    _check_dtype(h.dtype)
+    if Kd % 128 or not 0 < Kd <= 256 or E % 128 or E <= 0:
+        raise ValueError(f'similarity kernel needs hidden % 128 == 0, '
+                         f'hidden <= 256 and E % 128 == 0 (got {Kd}, {E})')
+    if C < 1:
+        raise ValueError(f'similarity kernel needs C >= 1 (got {C})')
     scores = torch.empty((B, A), dtype=torch.float32, device=h.device)
     ids = torch.empty((B, A), dtype=torch.int32, device=h.device)
     if B == 0 or A == 0:
         return scores, ids
-    lib = _build.load('similarity')
-    fn = (lib.yc_similarity_bf16 if h.dtype == torch.bfloat16
-          else lib.yc_similarity_f32)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ins = [t.contiguous() for t in (h, tp, cb, kernel, bias)]
-    err = fn(*(t.data_ptr() for t in ins), scores.data_ptr(), ids.data_ptr(),
-             B, A, Kd, C, E, nvalid,
+    lib, fn = _fn('folded', h.dtype)
+    ins = [_aligned(t) for t in (h, ops['tp'], ops['cb'], ops['kt'],
+                                 ops['bias'])]
+    err = fn(*(t.data_ptr() for t in ins),
+             scores.data_ptr(), ids.data_ptr(), B, A, Kd, C, E, nvalid,
              torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(lib, err, 'similarity kernel launch')
     launches += 1
+    launches_bf16 += h.dtype == torch.bfloat16
     return scores, ids
 
 
@@ -129,9 +178,9 @@ def fused_projected_similarity_argmax(h: torch.Tensor, text: torch.Tensor,
     if h.device.type == 'cpu':
         s, i = similarity_argmax_plain(h, text, kernel, bias, num_valid)
     elif h.device.type == 'cuda':
-        tp, cb = _fold_text(text, kernel, bias, h.dtype)
+        ops = _prepare_folded(h.dtype, text, kernel, bias)
         nvalid = text.shape[1] if num_valid is None else int(num_valid)
-        s, i = _launch(h, tp, cb, kernel.to(h.dtype), bias.float(), nvalid)
+        s, i = _launch(h, ops, text.shape[1], kernel.shape[1], nvalid)
     else:
         raise RuntimeError(f'no similarity kernel for device {h.device}')
     return (s[0], i[0]) if squeeze else (s, i)
@@ -155,34 +204,29 @@ def similarity_argmax_reference_plain(obj: torch.Tensor, text: torch.Tensor,
 def _launch_unprojected(obj: torch.Tensor, text: torch.Tensor, nvalid: int,
                         normalize_obj: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    global unprojected_launches
+    global unprojected_launches, unprojected_launches_bf16
     B, A, E = obj.shape
     C = text.shape[1]
-    if obj.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'similarity kernel takes float32 or bfloat16, '
-                        f'got {obj.dtype}')
-    if E % 32 or E > 512:
-        raise ValueError(f'unprojected similarity kernel needs E % 32 == 0 '
+    _check_dtype(obj.dtype)
+    if E % 128 or not 0 < E <= 512:
+        raise ValueError(f'unprojected similarity kernel needs E % 128 == 0 '
                          f'and E <= 512 (got {E})')
-    if text.shape != (B, C, E):
+    if text.shape != (B, C, E) or C < 1:
         raise ValueError(f'text {tuple(text.shape)} does not match obj '
-                         f'{tuple(obj.shape)}')
+                         f'{tuple(obj.shape)} (or has no class)')
     scores = torch.empty((B, A), dtype=torch.float32, device=obj.device)
     ids = torch.empty((B, A), dtype=torch.int32, device=obj.device)
     if B == 0 or A == 0:
         return scores, ids
-    lib = _build.load('similarity')
-    fn = (lib.yc_similarity_unprojected_bf16 if obj.dtype == torch.bfloat16
-          else lib.yc_similarity_unprojected_f32)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ins = [obj.contiguous(), text.to(obj.dtype).contiguous()]
-    err = fn(*(t.data_ptr() for t in ins), scores.data_ptr(), ids.data_ptr(),
-             B, A, E, C, nvalid, int(normalize_obj),
+    lib, fn = _fn('unprojected', obj.dtype)
+    ins = [_aligned(obj), _aligned(text.to(obj.dtype))]
+    err = fn(*(t.data_ptr() for t in ins),
+             scores.data_ptr(), ids.data_ptr(), B, A, E, C, nvalid,
+             int(normalize_obj),
              torch.cuda.current_stream(obj.device).cuda_stream)
     _build.check(lib, err, 'unprojected similarity kernel launch')
     unprojected_launches += 1
+    unprojected_launches_bf16 += obj.dtype == torch.bfloat16
     return scores, ids
 
 
