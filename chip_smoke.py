@@ -16,7 +16,13 @@ Phases, each printing its results; any failure exits non-zero:
                   shapes, C = 1 / 80 / 1203, A ragged against the row tiles
                   and A = 1, num_valid inside a class tile, text rows 7 and
                   700 copies of row 3 (across class tiles), a zero row;
-  4. kernel 2  -- greedy NMS keep mask vs its plain version, bit for bit;
+  4. kernel 2  -- greedy NMS keep mask vs its plain version, bit for bit:
+                  K = 1 / 33 / 1000 / 1024 / 2048 at batch 32, K = 8400 at
+                  batch 2 and 16000 at batch 1, all, half, random, a prefix
+                  or no candidate valid, random-valid runs right after
+                  all-valid ones, copies and zero-area boxes, chains of 64
+                  and 2000 boxes; and a 400,000-box chain (keeps every
+                  other box);
   5. kernel 3  -- unprojected similarity max/argmax vs its plain version,
                   the same kinds of cases at E=512 (A = 8400, 400, 1),
                   normalize_obj both ways;
@@ -27,8 +33,10 @@ Phases, each printing its results; any failure exits non-zero:
   7. main path -- YOLOCLIPDetector at variant 'n', 640x640, COCO-80 JSON
                   vocabulary, random weights from a seed: fp32 detect_batch
                   on 32 frames of 480x640 at conf 0.25 and -1.0, detect on
-                  one frame, and a bf16 detect_batch; kernel 1 (fp32 and
-                  bf16) and kernel 2 must have launched; outputs finite;
+                  one frame, a bf16 detect_batch and an fp32 one at
+                  conf -1.0 with nms_topk = 8400 (every anchor); kernel 1
+                  (fp32 and bf16) and kernel 2 must have launched; outputs
+                  finite;
                   a bs=2 fp32 run on the card against the same run on CPU;
   8. prompts   -- the LVIS-scale prompt path: YOLOCLIPDetector from 1203
                   class names (vocabulary built by the text tower on the
@@ -39,9 +47,12 @@ Phases, each printing its results; any failure exits non-zero:
                   launch;
   9. timing    -- detect_batch images/s (COCO-80 fp32 and bf16, LVIS-1203
                   fp32), the device time of each detect_batch stage alone
-                  for those three, and kernels 1 (C = 80 and 1203) and 3
-                  (C = 1203) through their wrappers and alone, beside their
-                  plain versions and bounds (CUDA events).
+                  for those three (NMS also at conf -1.0 and at
+                  nms_topk = 8400), kernels 1 (C = 80 and 1203) and 3
+                  (C = 1203) through their wrappers and alone, and kernel 2
+                  in NMS_SCENES with its mask build and scan apart, beside
+                  their plain versions and bounds (CUDA events; kernel 2
+                  alone and the NMS stage also by CUDA-graph replay).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -110,6 +121,11 @@ K3_CASES = [(8400, 80, None, True), (8400, 80, None, False),
             (8400, 1203, None, True), (8400, 1203, None, False),
             (8400, 1203, 1186, True), (400, 1203, 1000, True),
             (1, 80, None, False), (1, 1, None, True), (400, 1, None, True)]
+# Kernel 2 timing scenes (B, K, valid prefix): all valid at the main path's
+# K (the kernels line's scene, first), one image, a valid prefix of 128,
+# none valid, and every anchor of a 640-px frame a candidate.
+NMS_SCENES = [(BATCH, 1024, 1024), (1, 1024, 1024), (BATCH, 1024, 128),
+              (BATCH, 1024, 0), (BATCH, ANCHORS, ANCHORS)]
 
 
 class SmokeFailure(RuntimeError):
@@ -146,6 +162,27 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn() in ms with the host out of the way:
+    `iters` calls captured in one CUDA graph, one replay timed by CUDA
+    events after a warm-up replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
@@ -279,28 +316,105 @@ def _nms_scene(g, B, K):
     return torch.cat([c - wh / 2, c + wh / 2], dim=-1)
 
 
+def _chain(n, lead=0, tail=0):
+    """`lead` lone boxes, a chain of n boxes each overlapping the next
+    with IoU 1/3 (and the one after with 0), then `tail` lone boxes: at
+    threshold 0.3 greedy keeps every other box of the chain."""
+    x = 5.0 * torch.arange(n, device='cuda')
+    link = torch.stack([x, 0 * x, x + 10, 0 * x + 10], -1)
+    x = -1000.0 - 20 * torch.arange(lead + tail, device='cuda')
+    lone = torch.stack([x, 0 * x, x + 10, 0 * x + 10], -1)
+    return torch.cat([lone[:lead], link, lone[lead:]])
+
+
+def _degenerate_scene(g, B, K):
+    """An overlap scene with copies of a higher-ranked box, zero-width
+    boxes and identical zero-area points."""
+    boxes = _nms_scene(g, B, K)
+    boxes[:, 10:20] = boxes[:, 5:6]                  # IoU ~1 with box 5
+    boxes[:, 30:40, 2] = boxes[:, 30:40, 0]          # zero width
+    boxes[:, 50:60] = torch.tensor([40.0, 40.0, 40.0, 40.0], device='cuda')
+    return boxes
+
+
 def phase_kernel2(nms) -> float:
+    """The keep mask against its plain version, bit for bit: ragged K
+    against the 32-candidate word and the 64-candidate tile, K above the
+    old 1024 limit, valid prefixes and none, degenerate boxes, chains, and
+    random-valid runs right after all-valid runs of the same shape (the
+    reused scratch holds stale set bits)."""
     g = torch.Generator(device='cuda').manual_seed(2)
-    chain = torch.tensor([[i * 5.0, 0.0, i * 5.0 + 10.0, 10.0]
-                          for i in range(64)], device='cuda')
-    cases = [('overlap K=1024 all valid', _nms_scene(g, BATCH, 1024), 1.0,
-              0.45),
-             ('overlap K=1024 half valid', _nms_scene(g, BATCH, 1024), 0.5,
-              0.45),
-             ('64-box chain', chain[None].repeat(BATCH, 1, 1), 1.0, 0.3)]
+
+    def rand(B, K, frac):
+        return torch.rand(B, K, device='cuda', generator=g) < frac
+
+    def prefix(B, K, n):
+        return (torch.arange(K, device='cuda') < n).expand(B, K)
+
+    cases = []
+    for K in (1, 33, 1000):
+        s = _nms_scene(g, BATCH, K)
+        cases += [(f'K={K} all valid', s, rand(BATCH, K, 1.0), 0.45),
+                  (f'K={K} half valid', s, rand(BATCH, K, 0.5), 0.45)]
+    s = _nms_scene(g, BATCH, 1024)
+    cases += [('overlap K=1024 all valid', s, rand(BATCH, 1024, 1.0), 0.45),
+              ('overlap K=1024 half valid (after all valid)', s,
+               rand(BATCH, 1024, 0.5), 0.45),
+              ('K=1024 valid prefix of 128', s, prefix(BATCH, 1024, 128),
+               0.45),
+              ('K=1024 no valid candidate', s, rand(BATCH, 1024, 0.0),
+               0.45)]
+    s = _nms_scene(g, BATCH, 2048)
+    cases.append(('K=2048 all valid', s, rand(BATCH, 2048, 1.0), 0.45))
+    s = _nms_scene(g, 2, ANCHORS)
+    cases += [(f'K={ANCHORS} all valid', s, rand(2, ANCHORS, 1.0), 0.45),
+              (f'K={ANCHORS} random valid (after all valid)', s,
+               rand(2, ANCHORS, 0.7), 0.45)]
+    s = _nms_scene(g, 1, 16000)   # lanes that own more than one word
+    cases.append(('K=16000 70 % valid', s, rand(1, 16000, 0.7), 0.45))
+    cases.append(('identical and zero-area boxes',
+                  _degenerate_scene(g, BATCH, 256), rand(BATCH, 256, 1.0),
+                  0.45))
+    # chains at threshold 0.3: (length, lone boxes before it in each image)
+    chains = {'64-box chain': (64, [0] * BATCH),
+              '2000-box chain, 0-3 lone boxes first': (2000, [0, 1, 2, 3])}
+    cases += [('64-box chain', _chain(64)[None].repeat(BATCH, 1, 1),
+               rand(BATCH, 64, 1.0), 0.3),
+              ('2000-box chain, 0-3 lone boxes first',
+               torch.stack([_chain(2000, b, 3 - b) for b in range(4)]),
+               rand(4, 2003, 1.0), 0.3)]
     worst = 0.0
-    for name, boxes, frac, thr in cases:
-        valid = torch.rand(boxes.shape[:2], device='cuda', generator=g) < frac
+    for name, boxes, valid, thr in cases:
         keep = nms.nms_keep(boxes, valid, thr)
         want = nms.nms_keep_plain(boxes, valid, thr)
         torch.cuda.synchronize()
         same = torch.equal(keep, want)
         worst = max(worst, (keep.float() - want.float()).abs().max().item())
-        print(f'[kernel2] {name}: B={boxes.shape[0]} keep masks '
-              f'bit-identical={same} kept={int(keep.sum())}')
+        print(f'[kernel2] {name}: B={boxes.shape[0]} K={boxes.shape[1]} '
+              f'keep masks bit-identical={same} kept={int(keep.sum())} of '
+              f'{int(valid.sum())} valid')
         require(same, f'kernel 2 keep mask differs ({name})')
-    require(bool(keep[:, ::2].all()) and not bool(keep[:, 1::2].any()),
-            'kernel 2 chain: greedy keeps every other box')
+        n, leads = chains.get(name, (0, []))
+        for b, lead in enumerate(leads):
+            link = keep[b, lead:lead + n]
+            require(bool(link[::2].all()) and not bool(link[1::2].any())
+                    and bool(keep[b, :lead].all())
+                    and bool(keep[b, lead + n:].all()),
+                    f'kernel 2 {name}: greedy keeps every other box and '
+                    f'every lone box')
+        del keep, want
+
+    # K past the scan's default 48 KB of shared memory (one word per 32
+    # candidates): a chain of 400,000 boxes, a 20 GB bitmask. The plain
+    # version's (K, K) intermediates would not fit; greedy keeps every
+    # other box.
+    K = 400_000
+    keep = nms.nms_keep(_chain(K)[None], torch.ones(1, K, dtype=torch.bool,
+                                                    device='cuda'), 0.3)[0]
+    ok = bool(keep[::2].all()) and not bool(keep[1::2].any())
+    print(f'[kernel2] {K}-box chain: B=1 keeps every other box={ok}')
+    require(ok, f'kernel 2 {K}-box chain: greedy keeps every other box')
+    del keep
     return worst
 
 
@@ -465,17 +579,29 @@ def phase_main_path(sim, nms, vocab_path, frames):
     det.conf_threshold = conf
     dets = det.detect(frames[0].cpu().numpy())
     out_bf = bf.detect_batch(frames)
+    # every anchor a candidate: K = nms_topk = 8400, above the old limit
+    cfg = det.config
+    det.config = dataclasses.replace(cfg, nms_topk=ANCHORS)
+    det.conf_threshold = -1.0
+    before = nms.launches
+    out_wide = det.detect_batch(frames)
+    wide_launches = nms.launches - before
+    det.config, det.conf_threshold = cfg, conf
     torch.cuda.synchronize()
     launches = {'similarity': sim.launches - sim.launches_bf16,
                 'similarity_bf16': sim.launches_bf16, 'nms': nms.launches}
     print(f'[main] launches on the main path (fp32 detect_batch x2, detect, '
-          f'bf16 detect_batch): {launches}')
+          f'bf16 detect_batch, fp32 detect_batch at nms_topk={ANCHORS}): '
+          f'{launches}')
     require(all(n > 0 for n in launches.values()),
             'a kernel of the main path never launched')
+    require(wide_launches == 1,
+            f'nms_topk={ANCHORS} detect_batch did not launch kernel 2 once')
 
     D = det.config.max_detections
     for name, o in (('fp32 conf 0.25', out), ('fp32 conf -1.0', out_all),
-                    ('bf16 conf 0.25', out_bf)):
+                    ('bf16 conf 0.25', out_bf),
+                    (f'fp32 conf -1.0 nms_topk={ANCHORS}', out_wide)):
         require(o['boxes'].shape == (BATCH, D, 4), 'detect_batch shape')
         require(_finite(o), 'non-finite detect_batch output')
         print(f'[main] detect_batch {name}: counts '
@@ -484,6 +610,9 @@ def phase_main_path(sim, nms, vocab_path, frames):
     require(bool(out_all['prefilter_saturated'].all()),
             'conf -1.0 must saturate the 1024-candidate prefilter')
     require(bool((out_all['count'] > 0).all()), 'conf -1.0 keeps boxes')
+    require(not bool(out_wide['prefilter_saturated'].any())
+            and bool((out_wide['count'] > 0).all()),
+            f'nms_topk={ANCHORS} holds every anchor and keeps boxes')
     require(all(np.isfinite(d['score']) for d in dets), 'detect scores')
     print(f'[main] detect on one 480x640 frame: {len(dets)} detections')
     return det, bf, launches
@@ -650,6 +779,18 @@ def _stage_ms(det, frames, sim) -> dict:
         ms['rescale + NMS'] = cuda_ms(lambda: batched_nms(
             boxes, out['scores'], out['class_ids'], **det._nms_args()),
             iters=10)
+        for topk, conf in ((det.config.nms_topk, -1.0), (ANCHORS, None),
+                           (ANCHORS, -1.0)):
+            kw = dict(det._nms_args(), topk=topk)
+            if conf is not None:
+                kw['conf_threshold'] = conf
+            ms[f'rescale + NMS (nms_topk={topk}, conf '
+               f'{kw["conf_threshold"]:g})'] = cuda_ms(lambda: batched_nms(
+                   boxes, out['scores'], out['class_ids'], **kw), iters=10)
+        # the same stage with the host out of the way (CUDA-graph replay)
+        ms['rescale + NMS, device only'] = graph_ms(lambda: batched_nms(
+            boxes, out['scores'], out['class_ids'], **det._nms_args()),
+            iters=10)
         ms['whole model forward'] = cuda_ms(
             lambda: m(canv, text, fused_scores=True), iters=10)
     ms['detect_batch'] = cuda_ms(lambda: det.detect_batch(frames), iters=10)
@@ -735,17 +876,48 @@ def phase_timing(det, bf, lvis_det, frames, sim, nms, card: str):
         res[('unprojected', dtype)] = (mw, mk, mp, bms, bby)
         del obj, t, tc
 
-    boxes = _nms_scene(g, BATCH, 1024)
-    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device='cuda')
-    mk = cuda_ms(lambda: nms.nms_keep(boxes, valid, 0.45))
-    mp = cuda_ms(lambda: nms.nms_keep_plain(boxes, valid, 0.45), iters=5)
-    # ~12 fp32 operations per IoU pair (i < j); boxes, valid, keep once
-    pairs = BATCH * 1024 * 1023 // 2
-    bms, bby = bound(12 * pairs, BATCH * 1024 * (16 + 1 + 1), FP32_CORES)
-    print(f'[time] nms keep B={BATCH} K=1024: kernel {mk:.3f} ms, '
-          f'plain {mp:.3f} ms, bound {bms:.4f} ms ({bby})  [{card}]')
-    res[('nms', torch.float32)] = (mk, mk, mp, bms, bby)
+    res[('nms', torch.float32)] = time_nms(nms, card)
     return res
+
+
+def time_nms(nms, card: str):
+    """Kernel 2 in each of NMS_SCENES: through its wrapper (CUDA events
+    around back-to-back calls, so the host's launch cost shows), alone on
+    prepared operands and its mask build and scan apart (device time, from
+    CUDA-graph replays), beside its plain
+    version (where its (B, K, K) intermediates fit) and its bound. Returns
+    the first scene's (wrapper ms, alone ms, plain ms, bound ms,
+    bound_by)."""
+    g = torch.Generator(device='cuda').manual_seed(5)
+    first = None
+    for B, K, n in NMS_SCENES:
+        boxes = _nms_scene(g, B, K)
+        valid = (torch.arange(K, device='cuda') < n).repeat(B, 1)
+        keep = torch.empty_like(valid)
+        mask = nms.scratch(B, K, 'cuda')
+        ms = {'wrapper': cuda_ms(lambda: nms.nms_keep(boxes, valid, 0.45))}
+        for name, stages in (('alone', nms.BOTH), ('build', nms.BUILD),
+                             ('scan', nms.SCAN)):
+            ms[name] = graph_ms(lambda: nms._run(boxes, valid, mask, keep,
+                                                 0.45, stages))
+        plain = (cuda_ms(lambda: nms.nms_keep_plain(boxes, valid, 0.45),
+                         iters=5) if B * K * K <= 2**28 else None)
+        # 12 fp32 operations per IoU pair with both sides valid; boxes,
+        # valid and keep once
+        pairs = B * n * (n - 1) // 2
+        bms, bby = bound(12 * pairs, B * K * (16 + 1 + 1), FP32_CORES)
+        kept = int(nms.nms_keep(boxes, valid, 0.45).sum())
+        print(f'[time] nms keep B={B} K={K} valid prefix {n}: wrapper '
+              f'{ms["wrapper"]:.4f} ms (events, host included), kernel '
+              f'alone {ms["alone"]:.4f} (graph replay; mask build '
+              f'{ms["build"]:.4f}, scan {ms["scan"]:.4f}), plain '
+              + (f'{plain:.4f} ms' if plain is not None else
+                 'not run ((B, K, K) intermediates too large)')
+              + f', bound {bms:.4f} ms ({bby}), kept {kept}  [{card}]')
+        if first is None:
+            first = (ms['wrapper'], ms['alone'], plain, bms, bby)
+        del boxes, valid, keep, mask
+    return first
 
 
 def main() -> int:

@@ -3,7 +3,11 @@
 The keep mask: `nms_keep` on CPU tensors runs its plain PyTorch version
 (fixed point over `pairwise_iou`); references are JAX `_greedy_keep`,
 `_fixpoint_keep` and `nms_keep_pallas` in interpret mode. `batched_nms`:
-the port against JAX `batched_nms` on the same scores and boxes.
+the port against JAX `batched_nms` on the same scores and boxes. The CUDA
+kernel's algorithm (`csrc/nms.cu`: the tiled bitmask build with its skips,
+then the greedy pass 32 candidates at a time) is modelled in numpy with
+every word the build leaves unwritten set to all ones, and held to JAX
+`_greedy_keep`; the kernel itself runs only on the card (`chip_smoke.py`).
 
 Tolerances: keep masks, counts, flags, class ids and the selected scores
 exact (the same float32 values are compared and gathered); boxes exact.
@@ -112,11 +116,12 @@ def _scene(rng, B, A, quantum=None):
 
 
 @pytest.mark.parametrize('case', ['plain', 'saturated', 'ties',
-                                  'class_aware'])
+                                  'class_aware', 'topk2048'])
 def test_batched_nms_matches_jax(case):
     rng = np.random.RandomState({'plain': 10, 'saturated': 11, 'ties': 12,
-                                 'class_aware': 13}[case])
-    boxes, scores, ids = _scene(rng, 2, 400,
+                                 'class_aware': 13, 'topk2048': 15}[case])
+    B, A = (1, 2500) if case == 'topk2048' else (2, 400)
+    boxes, scores, ids = _scene(rng, B, A,
                                 quantum=0.05 if case == 'ties' else None)
     kw = dict(conf_threshold=0.25, iou_threshold=0.45, topk=256,
               max_detections=40)
@@ -124,8 +129,11 @@ def test_batched_nms_matches_jax(case):
         kw.update(conf_threshold=-1.0, topk=64)
     if case == 'class_aware':
         kw.update(class_agnostic=False)
+    if case == 'topk2048':          # more candidates than 1024 per image
+        kw.update(conf_threshold=-1.0, topk=2048)
     got = _compare(boxes, scores, ids, **kw)
-    assert bool(got['prefilter_saturated'].all()) == (case == 'saturated')
+    assert bool(got['prefilter_saturated'].all()) == (
+        case in ('saturated', 'topk2048'))
     assert (got['count'] > 0).all()
 
 
@@ -145,7 +153,91 @@ def test_keep_wrapper_never_swaps_in_the_plain_version():
     valid = torch.ones((1, 8), dtype=torch.bool, device='meta')
     with pytest.raises(RuntimeError, match='no NMS kernel'):
         port_keep.nms_keep(boxes, valid, 0.45)
-    # the kernel's shape limit is checked before anything is launched
-    with pytest.raises(ValueError, match='at most 1024'):
-        port_keep._launch(torch.zeros((1, 1025, 4)),
-                          torch.ones((1, 1025), dtype=torch.bool), 0.45)
+    # the kernel's shape checks run before anything is built or launched
+    before = port_keep.launches
+    with pytest.raises(ValueError, match=r'\(B, K, 4\)'):
+        port_keep._launch(torch.zeros((1, 8, 5)),
+                          torch.ones((1, 8), dtype=torch.bool), 0.45)
+    with pytest.raises(ValueError, match='does not match'):
+        port_keep._launch(torch.zeros((2, 8, 4)),
+                          torch.ones((2, 9), dtype=torch.bool), 0.45)
+    with pytest.raises(ValueError, match='at most 65535 images'):
+        port_keep._launch(torch.zeros((65536, 1, 4), device='meta'),
+                          torch.ones((65536, 1), dtype=torch.bool,
+                                     device='meta'), 0.45)
+    assert port_keep.launches == before
+
+
+def _words(bits):
+    """(..., n) bool -> (..., ceil(n / 32)) uint32 words, bit t of word w
+    for column 32 w + t."""
+    n = bits.shape[-1]
+    pad = np.zeros(bits.shape[:-1] + (-(-n // 32) * 32,), bool)
+    pad[..., :n] = bits
+    pad = pad.reshape(bits.shape[:-1] + (-1, 32)).astype(np.uint64)
+    return (pad << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+
+
+def _kernel_model(boxes, valid, thr):
+    """`csrc/nms.cu` for one image in numpy: nms_mask's word-major
+    (W, K) bitmask with its skips, every word it does not write left all
+    ones, then nms_scan's greedy pass 32 candidates at a time."""
+    K = len(valid)
+    W, T = -(-K // 32), -(-K // 64)
+    iou = pairwise_iou(torch.from_numpy(boxes),
+                       torch.from_numpy(boxes)).numpy()
+    over = _words((iou > np.float32(thr)) & np.triu(np.ones((K, K), bool), 1))
+    mask = np.full((W, K), 0xffffffff, np.uint32)     # stale scratch
+    ok = np.zeros(T * 64, bool)
+    ok[:K] = valid
+    for rt in range(T):
+        for ct in range(rt, T):
+            if not (ok[rt * 64:][:64].any() and ok[ct * 64:][:64].any()):
+                continue                     # the tile exits at once
+            for w in (2 * ct, 2 * ct + 1):
+                for g in (2 * rt, 2 * rt + 1):   # a warp: 32 rows, 1 word
+                    rows = np.arange(g * 32, min(K, g * 32 + 32))
+                    if (w >= g and ok[w * 32:][:32].any()
+                            and ok[g * 32:][:32].any()):
+                        mask[w, rows] = np.where(valid[rows], over[rows, w],
+                                                 0)
+    alive = [int(x) for x in _words(valid)]
+    hi = max((w + 1 for w in range(W) if alive[w]), default=0)
+    for c in range(hi):
+        cand, kept = alive[c], 0
+        while cand:
+            t = (cand & -cand).bit_length() - 1
+            kept |= 1 << t
+            cand &= ~(int(mask[c, 32 * c + t]) | (1 << t))
+        alive[c] = kept
+        rows = [32 * c + t for t in range(32) if kept >> t & 1]
+        for w in range(c + 1, hi):
+            alive[w] &= ~int(np.bitwise_or.reduce(mask[w, rows]))
+    return np.array([w < hi and bool(alive[w] >> (j & 31) & 1)
+                     for j, w in ((j, j >> 5) for j in range(K))])
+
+
+@pytest.mark.parametrize('K,kind', [(200, 'all'), (300, 'half'),
+                                    (256, 'prefix'), (77, 'none'),
+                                    (33, 'all'), (131, 'chain')])
+def test_kernel_algorithm_matches_greedy(K, kind):
+    """Skipped tiles and words hold stale bits; the scan must never let
+    them reach a valid candidate (the argument in csrc/nms.cu)."""
+    rng = np.random.RandomState(K)
+    boxes = random_candidates(rng, K)
+    valid = {'all': np.ones(K, bool), 'half': rng.rand(K) < 0.5,
+             'prefix': np.arange(K) < 70, 'none': np.zeros(K, bool),
+             'chain': np.ones(K, bool)}[kind]
+    thr = 0.45
+    if kind == 'chain':
+        # a lone box, then a chain: kept rows 31, 63, ... suppress the
+        # first candidate of the next word
+        boxes = np.array([[-500.0, 0.0, -490.0, 10.0]]
+                         + [[i * 5.0, 0.0, i * 5.0 + 10.0, 10.0]
+                            for i in range(K - 1)], np.float32)
+        thr = 0.3
+    iou = jax_iou(jnp.asarray(boxes), jnp.asarray(boxes))
+    want = np.asarray(_greedy_keep(iou, jnp.asarray(valid), thr))
+    np.testing.assert_array_equal(_kernel_model(boxes, valid, thr), want)
+    if kind == 'chain':
+        assert want[1::2].all() and not want[2::2].any()

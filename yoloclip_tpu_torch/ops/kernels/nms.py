@@ -11,6 +11,13 @@ and no kept candidate ranked before it overlaps it with
 (`csrc/nms.cu`) for CUDA tensors; it never swaps one for the other. Both
 use the IoU of `ops/boxes.py::pairwise_iou` with every operation rounded
 on its own, so their keep masks are bit-identical.
+
+The kernel takes any number K of candidates: one launch builds the overlap
+bitmask of the upper triangle, in 64 x 64 candidate tiles spread over the
+whole card, into a (B, W, 32 W) uint32 scratch tensor, W = ceil(K / 32),
+that the wrapper allocates (128 KB an image at K = 1024, 8.8 MB at
+K = 8400), skipping tiles with no valid candidate; a second launch makes
+the greedy pass, one block an image, 32 candidates at a time.
 """
 
 from __future__ import annotations
@@ -23,10 +30,14 @@ import torch
 from yoloclip_tpu_torch import _build
 from yoloclip_tpu_torch.ops.boxes import pairwise_iou
 
-MAX_K = 1024   # csrc/nms.cu keeps a K x K bitmask in shared memory
-
 # Launches of the CUDA kernel (incremented only where it launches).
 launches = 0
+
+# `stages` of the C launcher: the mask build, the greedy scan, or both.
+BUILD, SCAN, BOTH = 1, 2, 3
+MAX_IMAGES = 65535     # images go on the build grid's y dimension
+
+_lib_fn = None
 
 
 def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
@@ -48,29 +59,68 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
         keep = new_keep
 
 
+def _fn():
+    """The loaded library and its C launcher, argtypes set once."""
+    global _lib_fn
+    if _lib_fn is None:
+        lib = _build.load('nms')
+        fn = lib.yc_nms_keep
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib_fn = (lib, fn)
+    return _lib_fn
+
+
+def _operand(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in `dtype`, contiguous, on a 16-byte boundary (the kernel reads a
+    box as one float4); copied only when it is not all three already."""
+    t = t.to(dtype).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
+    if boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f'NMS kernel takes boxes (B, K, 4), got '
+                         f'{tuple(boxes.shape)}')
+    if tuple(valid.shape) != tuple(boxes.shape[:2]):
+        raise ValueError(f'valid {tuple(valid.shape)} does not match boxes '
+                         f'{tuple(boxes.shape)}')
+    if boxes.shape[0] > MAX_IMAGES:
+        raise ValueError(f'NMS kernel takes at most {MAX_IMAGES} images a '
+                         f'call (got {boxes.shape[0]})')
+
+
+def scratch(B: int, K: int, device) -> torch.Tensor:
+    """The overlap bitmask the kernel fills: (B, W, 32 W) int32 words,
+    W = ceil(K / 32); left uninitialised (the kernel reads only what it
+    wrote, see csrc/nms.cu)."""
+    W = (K + 31) // 32
+    return torch.empty((B, W, 32 * W), dtype=torch.int32, device=device)
+
+
+def _run(boxes: torch.Tensor, valid: torch.Tensor, mask: torch.Tensor,
+         keep: torch.Tensor, iou_threshold: float, stages: int) -> None:
+    """Launch `stages` on prepared operands: boxes (B, K, 4) and valid
+    (B, K) from `_operand`, mask from `scratch`, keep (B, K) bool."""
+    lib, fn = _fn()
+    B, K = valid.shape
+    err = fn(boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(),
+             keep.data_ptr(), B, K, iou_threshold, stages,
+             torch.cuda.current_stream(boxes.device).cuda_stream)
+    _build.check(lib, err, 'NMS kernel launch')
+
+
 def _launch(boxes: torch.Tensor, valid: torch.Tensor,
             iou_threshold: float) -> torch.Tensor:
     global launches
+    _check(boxes, valid)
     B, K, _ = boxes.shape
-    if K > MAX_K:
-        raise ValueError(f'NMS kernel takes at most {MAX_K} candidates per '
-                         f'image (got {K}); lower nms_topk')
     keep = torch.empty((B, K), dtype=torch.bool, device=boxes.device)
     if B == 0 or K == 0:
         return keep
-    lib = _build.load('nms')
-    fn = lib.yc_nms_keep
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    b = boxes.float().contiguous()
-    if b.data_ptr() % 16:      # the kernel reads each box as one float4
-        b = b.clone()
-    v = valid.to(torch.bool).contiguous()
-    err = fn(b.data_ptr(), v.data_ptr(), keep.data_ptr(), B, K,
-             iou_threshold,
-             torch.cuda.current_stream(boxes.device).cuda_stream)
-    _build.check(lib, err, 'NMS kernel launch')
+    _run(_operand(boxes, torch.float32), _operand(valid, torch.bool),
+         scratch(B, K, boxes.device), keep, iou_threshold, BOTH)
     launches += 1
     return keep
 
