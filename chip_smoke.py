@@ -52,7 +52,38 @@ Phases, each printing its results; any failure exits non-zero:
                   (C = 1203) through their wrappers and alone, and kernel 2
                   in NMS_SCENES with its mask build and scan apart, beside
                   their plain versions and bounds (CUDA events; kernel 2
-                  alone and the NMS stage also by CUDA-graph replay).
+                  alone and the NMS stage also by CUDA-graph replay);
+ 10. native    -- the native host library (built with the kernels, g++):
+                  which backend the detector's host letterbox takes (must
+                  be native), its canvas for 480x640, 720x1280 and
+                  1080x1920 frames within 1 LSB of the numpy bilinear
+                  resize, host ms per frame at each size, alone and from
+                  8 threads;
+ 11. canvas    -- detect() at host_preprocess='auto' (the canvas path) on
+                  the card against the CPU port on the same frame, fp32,
+                  conf -1.0; kernels 1 and 2 must launch;
+ 12. server    -- DetectionServer, max_batch 32: 8 mixed-resolution
+                  requests in fp32 at conf -1.0 against detect() on each
+                  frame; then bf16 at conf 0.25: warmup() per bucket, 16
+                  client threads over 512 mixed-resolution frames, closed
+                  loop (each client waits for its answer) and open loop
+                  (each submits all 32 first): requests/s, p50/p95
+                  latency, occupancy, bucket, kernel launches;
+ 13. streaming -- StreamingDetector, 8 streams of 1080x1920 frames, 20
+                  steps in bf16 (ms/step, fps/stream); one fp32 step at
+                  conf -1.0 against detect_batch on the same frames;
+ 14. reparam   -- build_reparam_forward(..., nms=...) in fp32 at conf -1.0
+                  against the detector's model and NMS on the same
+                  canvases; img/s beside detect_batch's, fp32 and bf16;
+ 15. http, CLIs -- make_handler on a localhost ThreadingHTTPServer (POST
+                  /detect with a stdlib-encoded PNG, POST /vocab, GET
+                  /stats and /healthz), then `python -m
+                  yoloclip_tpu_torch.cli.detect`, `cli.stream --streams 2
+                  --steps 3` and `cli.warmup` (builds and loads the
+                  libraries) as subprocesses, exit 0.
+Each path that launches kernels (main path, prompts, canvas, server,
+streaming, reparam) runs with the launch counters set to 0 just before it
+and read just after; the kernels line sums them.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -64,10 +95,15 @@ import json
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+import zlib
 
 import numpy as np
 import torch
@@ -202,8 +238,10 @@ def phase_device() -> str:
 def phase_build(_build) -> None:
     t = time.time()
     reports = _build.build_all()
-    print(f'[build] similarity.cu and nms.cu built from {_build.CSRC} in '
-          f'{time.time() - t:.2f} s (parallel nvcc)')
+    print(f'[build] similarity.cu and nms.cu built from {_build.CSRC}, '
+          f'native/dataload.cpp from {_build.NATIVE}, in '
+          f'{time.time() - t:.2f} s (parallel nvcc and g++)')
+    print(f'[build] native/dataload.cpp: {reports.pop("native/dataload")}')
     for name, rep in reports.items():
         for ln in rep.splitlines():
             if 'registers' in ln or 'spill' in ln or 'Compiling entry' in ln:
@@ -556,13 +594,16 @@ def _finite(out) -> bool:
                for k in ('boxes', 'scores'))
 
 
-def _detector(vocab_path, dtype='float32'):
+def _detector(vocab_path, dtype='float32', device='cuda', **cfg_kw):
+    """Variant 'n', 640 px, the JSON vocabulary, weights from seed 0;
+    device letterbox unless cfg_kw says otherwise."""
     from yoloclip_tpu_torch.config import InferenceConfig
     from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
-    cfg = InferenceConfig(host_preprocess=False)
+    cfg = InferenceConfig(**{'host_preprocess': False, **cfg_kw})
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, dtype=dtype))
-    return YOLOCLIPDetector(cfg, vocab_path=vocab_path, device='cuda', seed=0)
+    return YOLOCLIPDetector(cfg, vocab_path=vocab_path, device=device,
+                            seed=0)
 
 
 def phase_main_path(sim, nms, vocab_path, frames):
@@ -725,17 +766,24 @@ def phase_prompts(sim, nms, frames, lvis_vocab):
     return det, launches
 
 
-def _img_per_s(det, frames, iters: int = 10) -> float:
+def _synced_ms(fn, iters: int = 10) -> float:
+    """Median wall ms of fn() followed by a synchronise, after 3 warm-up
+    calls."""
     for _ in range(3):
-        det.detect_batch(frames)
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         t = time.perf_counter()
-        det.detect_batch(frames)
+        fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-    return frames.shape[0] / statistics.median(times)
+    return statistics.median(times) * 1e3
+
+
+def _img_per_s(det, frames, iters: int = 10) -> float:
+    return frames.shape[0] / _synced_ms(lambda: det.detect_batch(frames),
+                                        iters) * 1e3
 
 
 def _stage_ms(det, frames, sim) -> dict:
@@ -920,6 +968,490 @@ def time_nms(nms, card: str):
     return first
 
 
+# ---------------------------------------------------------------------------
+# Serving: the native host library, the canvas path, the server, streaming,
+# reparam, the HTTP front end and the CLIs.
+# ---------------------------------------------------------------------------
+
+FRAME_SIZES = ((480, 640), (720, 1280), (1080, 1920))
+SERVE_CLIENTS, SERVE_REQUESTS = 16, 512
+STREAMS, STREAM_HW, STREAM_STEPS = 8, (1080, 1920), 20
+
+
+def _counts(sim, nms) -> dict:
+    return {'similarity': sim.launches - sim.launches_bf16,
+            'similarity_bf16': sim.launches_bf16, 'nms': nms.launches}
+
+
+def _zero_counts(sim, nms) -> None:
+    sim.launches = sim.launches_bf16 = nms.launches = 0
+    sim.unprojected_launches = sim.unprojected_launches_bf16 = 0
+
+
+def _mixed_frames(seed: int, n: int):
+    """n seeded uint8 frames cycling through FRAME_SIZES."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 256, FRAME_SIZES[i % 3] + (3,), dtype=np.uint8)
+            for i in range(n)]
+
+
+def _pre_nms_scores(det, canvases):
+    """The detector's pre-NMS scores (B, A) and the similarity's near-tie
+    mask (None on the fused path) on host canvases (B, th, tw, 3) uint8,
+    run as the canvas program runs them."""
+    x = torch.from_numpy(np.stack(canvases)).to(det.device).float() / 255.0
+    with torch.inference_mode():
+        out = det.model(x, det.offline_vocabulary,
+                        fused_scores=det._use_fused_similarity())
+    tie = None
+    if 'similarity' in out:
+        top2 = out['similarity'].topk(2, dim=-1).values
+        tie = ((top2[..., 0] - top2[..., 1]) < XDEV_TIE_GAP).cpu()
+    return out['scores'].float().cpu(), out['class_ids'].cpu(), tie
+
+
+def _check_detections(tag, got, want, want_scores, delta, topk):
+    """got, want: one frame's detection lists (score order) from two runs
+    whose pre-NMS scores differ by at most `delta`; want_scores: the `want`
+    run's pre-NMS scores (A,). Greedy NMS visits candidates in score
+    order, so both runs keep the same candidates among those ranked above
+    the first pair of the top-(topk + 1) whose order a difference of delta
+    could flip (scores within 2 delta): those detections must agree (class,
+    score within XDEV_SCORE_ATOL, int box within 1 px). Returns (compared,
+    total)."""
+    s = torch.sort(want_scores, descending=True).values[:topk + 1].numpy()
+    flip = np.flatnonzero(s[:-1] - s[1:] <= 2 * delta + 1e-7)
+    cut = float(s[flip[0]]) if flip.size else -np.inf
+    sure_w = [d for d in want if d['score'] > cut]
+    sure_g = [d for d in got if d['score'] > cut + delta]
+    require(len(sure_g) == len(sure_w),
+            f'{tag}: {len(sure_g)} vs {len(sure_w)} detections above the '
+            f'first possible order flip (score {cut:.6f})')
+    for a, b in zip(sure_g, sure_w):
+        require(a['class_id'] == b['class_id']
+                and abs(a['score'] - b['score']) <= XDEV_SCORE_ATOL
+                and max(abs(p - q) for p, q in zip(a['box'], b['box'])) <= 1,
+                f'{tag}: detections differ: {a} vs {b}')
+    return len(sure_w), len(want)
+
+
+def phase_native(det, card: str) -> None:
+    """The card detector's host letterbox: native, byte for byte; within 1
+    LSB of the numpy bilinear resize; host ms per frame."""
+    from yoloclip_tpu_torch import native
+    from yoloclip_tpu_torch.data.coco import _resize_numpy_bilinear
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    require(native.available(), 'the native library did not load')
+    print(f'[native] library loaded; JPEG/PNG codecs compiled in: '
+          f'{native.codecs_available()}; cv2: '
+          f'{cv2.__version__ if cv2 else "not importable"}')
+    th, tw = det.image_size
+    frames = _mixed_frames(20, 6)
+    for f in frames[:3]:
+        h, w = f.shape[:2]
+        canvas, scale = det._host_letterbox(f)
+        ncanvas, nscale = native.letterbox_u8(f, det.image_size)
+        require(np.array_equal(canvas, ncanvas) and scale == nscale,
+                'the detector host letterbox is not the native library')
+        rh, rw = int(h * scale), int(w * scale)
+        ref = _resize_numpy_bilinear(f, rw, rh)
+        lsb = int(np.abs(canvas[:rh, :rw].astype(int) - ref).max())
+        cvd = (int((canvas[:rh, :rw] != cv2.resize(f, (rw, rh))).sum())
+               if cv2 else 'not compared')
+        require(lsb <= 1 and not canvas[rh:].any()
+                and not canvas[:, rw:].any(),
+                f'native canvas {h}x{w}: {lsb} LSB from the numpy resize')
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            det._host_letterbox(f)
+            times.append(time.perf_counter() - t0)
+        print(f'[native] host letterbox backend: native (canvas '
+              f'byte-identical to native.letterbox_u8; cv2.resize differs '
+              f'in {cvd} bytes); {h}x{w} -> {rh}x{rw} in a {th}x{tw} '
+              f'canvas: max |canvas - numpy bilinear| = {lsb} LSB (tol 1); '
+              f'{statistics.median(times) * 1e3:.3f} ms per frame (median '
+              f'of 20, one thread)  [{card}]')
+    # 8 threads, each letterboxing 24 frames of 1080x1920
+    big = frames[2]
+    t0 = time.perf_counter()
+    threads = [threading.Thread(
+        target=lambda: [det._host_letterbox(big) for _ in range(24)])
+        for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    print(f'[native] 8 threads x 24 frames of 1080x1920: {192 / wall:.1f} '
+          f'frames/s ({wall / 192 * 1e3:.3f} ms per frame wall, '
+          f'{os.cpu_count()} host cores)  [{card}]')
+
+
+def phase_canvas(sim, nms, vocab_path) -> tuple:
+    """detect() on the canvas path, card vs CPU. Returns (the fp32 card
+    detector at conf -1.0 on the canvas path, the launches)."""
+    sdet = _detector(vocab_path, host_preprocess='auto', conf_threshold=-1.0)
+    cpu = _detector(vocab_path, device='cpu', host_preprocess='auto',
+                    conf_threshold=-1.0)
+    frame = _mixed_frames(30, 3)[1]                  # 720x1280
+    require(sdet._host_letterbox_available()
+            and cpu._host_letterbox_available(), 'no host letterbox')
+    _zero_counts(sim, nms)
+    got = sdet.detect(frame)
+    torch.cuda.synchronize()
+    launches = _counts(sim, nms)
+    require(launches['similarity'] > 0 and launches['nms'] > 0,
+            'the canvas path did not launch kernels 1 and 2')
+    want = cpu.detect(frame)
+    canvas, _ = sdet._host_letterbox(frame)
+    gs, gi, _ = _pre_nms_scores(sdet, [canvas])
+    ws, wi, tie = _pre_nms_scores(cpu, [canvas])
+    delta = (gs - ws).abs().max().item()
+    bad = int(((gi != wi) & ~tie).sum())
+    n, total = _check_detections('canvas detect', got, want, ws[0], delta,
+                                 sdet.config.nms_topk)
+    print(f'[canvas] detect() host_preprocess=auto on a 720x1280 frame, '
+          f'fp32 conf -1.0: card vs CPU pre-NMS max|score diff|='
+          f'{delta:.3e} (tol {XDEV_SCORE_ATOL:g}), id mismatches outside '
+          f'near-ties={bad}; {len(got)} vs {len(want)} detections, the top '
+          f'{n} (above the first possible order flip) identical; launches '
+          f'{launches}')
+    require(delta <= XDEV_SCORE_ATOL and bad == 0,
+            'canvas path: card and CPU disagree')
+    del cpu
+    return sdet, launches
+
+
+def phase_server(sim, nms, sdet, bdet, card: str) -> dict:
+    """Returns the launches of the phase."""
+    from yoloclip_tpu_torch.inference.server import DetectionServer
+    total = {k: 0 for k in ('similarity', 'similarity_bf16', 'nms')}
+
+    # fp32, conf -1.0: 8 mixed requests in one batch against detect()
+    frames = _mixed_frames(40, 8)
+    _zero_counts(sim, nms)
+    with DetectionServer(sdet, max_batch=BATCH, max_delay_ms=300.0) as srv:
+        futs = [srv.submit(f) for f in frames]
+        got = [f.result(timeout=120) for f in futs]
+        st = srv.stats()
+    torch.cuda.synchronize()
+    total = {k: total[k] + v for k, v in _counts(sim, nms).items()}
+    require(st['batches'] == 1 and st['mean_bucket'] == 8,
+            f'8 requests did not make one bucket-8 batch: {st}')
+    want = [sdet.detect(f) for f in frames]
+    canvases = [sdet._host_letterbox(f)[0] for f in frames]
+    batch_scores, _, _ = _pre_nms_scores(sdet, canvases)
+    single = [_pre_nms_scores(sdet, [c])[0][0] for c in canvases]
+    delta = max((batch_scores[i] - single[i]).abs().max().item()
+                for i in range(8))
+    compared = [_check_detections(f'server request {i}', g, w, single[i],
+                                  delta, sdet.config.nms_topk)
+                for i, (g, w) in enumerate(zip(got, want))]
+    print(f'[server] fp32 conf -1.0, 8 requests ({", ".join(f"{h}x{w}" for h, w in FRAME_SIZES)} '
+          f'mixed) in one bucket-8 batch vs detect() on each frame: '
+          f'pre-NMS max|score diff| batch vs single={delta:.3e}; '
+          f'detections compared (above the first possible order flip) / '
+          f'kept: {compared}')
+    require(delta <= XDEV_SCORE_ATOL, 'server batch vs single scores')
+
+    # bf16, conf 0.25: warmup, then 16 clients over 512 frames
+    pool = _mixed_frames(41, 24)
+    srv = DetectionServer(bdet, max_batch=BATCH, max_delay_ms=5.0)
+    seconds = srv.warmup()
+    print(f'[server] bf16 warmup() per bucket (s, synchronised): '
+          + ', '.join(f'bs={b} {t:.3f}' for b, t in seconds.items())
+          + f'  [{card}]')
+    per = SERVE_REQUESTS // SERVE_CLIENTS
+    for mode in ('closed loop', 'open loop'):
+        srv.reset_stats()
+        _zero_counts(sim, nms)
+        errors = []
+
+        def client(c):
+            try:
+                frs = [pool[(c * per + i) % len(pool)] for i in range(per)]
+                if mode == 'closed loop':
+                    for f in frs:
+                        srv.detect(f, timeout=120)
+                else:
+                    for fut in [srv.submit(f) for f in frs]:
+                        fut.result(timeout=120)
+            except Exception as e:        # reported below, fails the run
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _counts(sim, nms)
+        total = {k: total[k] + v for k, v in launches.items()}
+        st = srv.stats()
+        require(not errors and st['requests'] == SERVE_REQUESTS,
+                f'server {mode}: {errors[:1]} {st}')
+        require(launches['similarity_bf16'] > 0 and launches['nms'] > 0,
+                f'server {mode}: kernels 1 and 2 did not launch')
+        print(f'[server] bf16 conf 0.25, {SERVE_CLIENTS} client threads x '
+              f'{per} mixed-resolution frames, {mode}: '
+              f'{SERVE_REQUESTS / wall:.1f} requests/s, p50 '
+              f'{st["p50_latency_ms"]:.2f} ms, p95 '
+              f'{st["p95_latency_ms"]:.2f} ms, {st["batches"]} batches, '
+              f'mean occupancy {st["mean_occupancy"]:.2f}, mean bucket '
+              f'{st["mean_bucket"]:.2f}, launches {launches}  [{card}]')
+        if mode == 'open loop':
+            print(f'[server] open loop: {wall / st["batches"] * 1e3:.2f} ms '
+                  f'a batch of mean occupancy {st["mean_occupancy"]:.2f}')
+    _server_breakdown(srv, bdet, pool, card)
+    srv.close()
+    return total
+
+
+def _server_breakdown(srv, bdet, pool, card: str) -> None:
+    """One full bf16 batch of 32 through the server's dispatch step with
+    no other thread running, and its parts: the canvas program on
+    canvases already on the card, the upload of the pinned canvases."""
+    from yoloclip_tpu_torch.inference.server import _Request
+    reqs = []
+    for f in (pool * 2)[:BATCH]:
+        canvas, scale = bdet._host_letterbox(f)
+        reqs.append(_Request(canvas, scale, np.asarray(
+            [f.shape[1], f.shape[0]], np.float32), [], None))
+    text = bdet.offline_vocabulary
+
+    def dispatch():
+        _, done = srv._launch(reqs, BATCH, text)
+        done.synchronize()
+
+    th, tw = bdet.image_size
+    host = torch.zeros((BATCH, th, tw, 3), dtype=torch.uint8,
+                       pin_memory=True)
+    canv = host.cuda()
+    ones = torch.ones((BATCH, 2), dtype=torch.float32, device='cuda')
+    ms = {'dispatch step (assemble + upload + program + download)':
+          _synced_ms(dispatch),
+          'canvas program on canvases on the card': _synced_ms(
+              lambda: bdet._detect_canvases(canv, text, ones[:, 0], ones)),
+          'upload of 32 pinned canvases (events)': cuda_ms(
+              lambda: host.to('cuda', non_blocking=True), iters=10)}
+    print('[server] bf16 batch of 32, one thread, median of 10 synced '
+          'calls (ms): ' + ', '.join(f'{k} {v:.2f}' for k, v in ms.items())
+          + f'  [{card}]')
+
+
+def phase_streaming(sim, nms, sdet, bdet, card: str) -> dict:
+    """Returns the launches of the fp32 step and of the timed bf16 run,
+    each counted from 0 just before it and read just after it."""
+    from yoloclip_tpu_torch.cli.stream import _synthetic_source
+    from yoloclip_tpu_torch.inference.streaming import StreamingDetector
+    source = _synthetic_source(STREAMS, STREAM_HW)
+    s32 = StreamingDetector(sdet.model, sdet.offline_vocabulary, STREAMS,
+                            STREAM_HW, sdet.config)
+    frames = source(0)
+    _zero_counts(sim, nms)
+    out = s32.step(frames)
+    torch.cuda.synchronize()
+    step_launches = _counts(sim, nms)
+    want = sdet.detect_batch(frames)
+    same = all(torch.equal(out[k], want[k]) for k in want)
+    print(f'[streaming] fp32 conf -1.0, {STREAMS} x {STREAM_HW[0]}x'
+          f'{STREAM_HW[1]}: step vs detect_batch on the same frames '
+          f'identical={same} (counts {out["count"].tolist()}); launches '
+          f'{step_launches}')
+    require(same and set(out) == set(want), 'streaming step vs detect_batch')
+    sbf = StreamingDetector(bdet.model, bdet.offline_vocabulary, STREAMS,
+                            STREAM_HW, bdet.config)
+    sbf.run(source, lambda k, o: None, max_steps=3)       # first-call setup
+    counts = []
+    _zero_counts(sim, nms)
+    stats = sbf.run(source, lambda k, o: counts.append(int(o['count'].sum())),
+                    max_steps=STREAM_STEPS)
+    torch.cuda.synchronize()
+    launches = _counts(sim, nms)
+    require(stats['steps'] == STREAM_STEPS and len(counts) == STREAM_STEPS,
+            'streaming run')
+    require(launches['similarity_bf16'] > 0 and launches['nms'] > 0,
+            'streaming run: kernels 1 and 2 did not launch')
+    print(f'[streaming] bf16 conf 0.25, {STREAMS} streams x {STREAM_HW[0]}x'
+          f'{STREAM_HW[1]} synthetic, {STREAM_STEPS} steps (run(), frames '
+          f'assembled on the host, uploaded as uint8): '
+          f'{stats["mean_step_ms"]:.2f} ms/step, '
+          f'{stats["fps_per_stream"]:.1f} fps/stream '
+          f'({STREAMS * stats["fps_per_stream"]:.1f} frames/s); launches '
+          f'{launches}  [{card}]')
+    return {k: step_launches[k] + launches[k] for k in launches}
+
+
+def phase_reparam(sim, nms, sdet, det, bf, card: str) -> dict:
+    from yoloclip_tpu_torch.ops.nms import batched_nms
+    from yoloclip_tpu_torch.ops.reparam import build_reparam_forward
+    rng = np.random.RandomState(50)
+    canv = torch.from_numpy(rng.randint(0, 256, (BATCH, 640, 640, 3),
+                                        dtype=np.uint8)).cuda()
+    x = canv.float() / 255.0
+    kw = dict(sdet._nms_args(), conf_threshold=-1.0)
+    nms_kw = {'conf_threshold': -1.0, 'iou_threshold': kw['iou_threshold'],
+              'topk': kw['topk'], 'max_detections': kw['max_detections']}
+    _zero_counts(sim, nms)
+    fwd = build_reparam_forward(sdet.model, sdet.offline_vocabulary,
+                                nms=nms_kw)
+    got = fwd(x)
+    torch.cuda.synchronize()
+    launches = _counts(sim, nms)
+    with torch.inference_mode():
+        out = sdet.model(x, sdet.offline_vocabulary, fused_scores=True)
+        want = batched_nms(out['boxes'], out['scores'], out['class_ids'],
+                           **kw)
+    same = set(got) == set(want) and all(torch.equal(got[k], want[k])
+                                         for k in want)
+    print(f'[reparam] fp32 conf -1.0, bs={BATCH} 640x640 canvases: '
+          f'build_reparam_forward(nms=...) vs the detector\'s model + '
+          f'batched_nms on the same canvases identical={same}; launches '
+          f'{launches}')
+    require(same, 'reparam vs the detector path')
+    require(launches['similarity'] > 0 and launches['nms'] > 0,
+            'reparam did not launch kernels 1 and 2')
+    for name, d in (('fp32', det), ('bf16', bf)):
+        f = build_reparam_forward(d.model, d.offline_vocabulary,
+                                  nms=dict(nms_kw, conf_threshold=0.25))
+        rep_s = BATCH / _synced_ms(lambda: f(x)) * 1e3
+        det_s = _img_per_s(d, canv)
+        print(f'[reparam] {name} conf 0.25 bs={BATCH}, median of 10 synced '
+              f'calls: reparam + NMS {rep_s:.1f} img/s (float canvases on '
+              f'the card), detect_batch {det_s:.1f} img/s (uint8 640x640 '
+              f'frames on the card)  [{card}]')
+    return launches
+
+
+def _png(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG with the standard library (zlib + struct)."""
+    def chunk(kind, data):
+        return (struct.pack('>I', len(data)) + kind + data
+                + struct.pack('>I', zlib.crc32(kind + data) & 0xffffffff))
+    h, w = img.shape[:2]
+    rows = b''.join(b'\x00' + img[y].tobytes() for y in range(h))
+    return (b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(rows)) + chunk(b'IEND', b''))
+
+
+def phase_http_cli(sdet, vocab_path, tmp: str) -> None:
+    """The HTTP front end over an fp32 conf -1.0 server, then the CLIs."""
+    from http.server import ThreadingHTTPServer
+
+    from yoloclip_tpu_torch.cli.serve import decode_image_bytes, make_handler
+    from yoloclip_tpu_torch.inference.server import DetectionServer
+    srv = DetectionServer(sdet, max_batch=BATCH, max_delay_ms=5.0)
+    frame = _mixed_frames(60, 2)[1]          # 720x1280
+    png = _png(frame)
+    try:
+        decoded = decode_image_bytes(png)
+    except ImportError:
+        decoded = None
+    if decoded is None:
+        print('[http] no PNG decoder on this machine (no libpng headers, no '
+              'PIL): POST /detect was not run')
+    else:
+        require(np.array_equal(decoded, frame), 'PNG decode')
+    httpd = ThreadingHTTPServer(('127.0.0.1', 0), make_handler(srv))
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    url = f'http://127.0.0.1:{httpd.server_address[1]}'
+
+    def call(path, data=None):
+        req = urllib.request.Request(url + path, data=data,
+                                     method='POST' if data else 'GET')
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        if decoded is not None:
+            code, body = call('/detect', png)
+            want = srv.detect(frame, timeout=60)
+            require(code == 200 and want
+                    and body['detections'] == want, f'POST /detect: {code}')
+            print(f'[http] POST /detect (stdlib PNG, 720x1280): 200, '
+                  f'{len(want)} detections, equal to DetectionServer.detect')
+        code, body = call('/vocab', json.dumps(
+            {'class_names': ['tree', 'rock', 'pond']}).encode())
+        require(code == 200 and body['classes'] == 3, 'POST /vocab')
+        if decoded is not None:
+            code, body = call('/detect', png)
+            require(code == 200 and all(
+                d['class_name'] in ('tree', 'rock', 'pond')
+                for d in body['detections']), 'detect after /vocab')
+        code_bad, _ = call('/detect', b'not an image')
+        code_s, stats = call('/stats')
+        code_h, health = call('/healthz')
+        require(code_bad == 400 and code_s == 200 and code_h == 200
+                and health == {'status': 'ok'} and 'requests' in stats,
+                'GET /stats, /healthz, bad POST')
+        print(f'[http] POST /vocab 200 (3 classes), bad image 400, GET '
+              f'/stats 200 ({stats["requests"]} requests), /healthz 200')
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+
+    img_path = os.path.join(tmp, 'frame.png')
+    with open(img_path, 'wb') as f:
+        f.write(png)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    cmds = {
+        'cli.detect': ['yoloclip_tpu_torch.cli.detect', '--input', img_path,
+                       '--vocab', vocab_path, '--output',
+                       os.path.join(tmp, 'dets'), '--coco-json',
+                       os.path.join(tmp, 'dets.json')],
+        'cli.stream': ['yoloclip_tpu_torch.cli.stream', '--streams', '2',
+                       '--steps', '3'],
+        'cli.warmup': ['yoloclip_tpu_torch.cli.warmup'],
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, '-m', *argv], env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, argv in cmds.items()}
+    for name, p in procs.items():
+        try:
+            out, _ = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+        last = [ln for ln in out.splitlines() if ln.strip()][-2:]
+        print(f'[cli] python -m yoloclip_tpu_torch.{name}: exit '
+              f'{p.returncode}; ' + ' | '.join(last))
+        require(p.returncode == 0, f'{name} failed:\n{out[-3000:]}')
+    with open(os.path.join(tmp, 'dets.json')) as f:
+        entries = json.load(f)
+    print(f'[cli] the three CLIs ran in parallel in '
+          f'{time.perf_counter() - t0:.1f} s; cli.detect wrote '
+          f'{len(entries)} COCO results entries')
+
+
+def phases_serving(sim, nms, det, bf, vocab_path, tmp, card) -> list:
+    """Phases 10-15 (det, bf: the main path's fp32 and bf16 detectors).
+    Returns the launches of each path that ran kernels."""
+    phase_native(det, card)
+    sdet, canvas_launches = phase_canvas(sim, nms, vocab_path)
+    bdet = _detector(vocab_path, 'bfloat16', host_preprocess='auto')
+    paths = [canvas_launches, phase_server(sim, nms, sdet, bdet, card),
+             phase_streaming(sim, nms, sdet, bdet, card),
+             phase_reparam(sim, nms, sdet, det, bf, card)]
+    phase_http_cli(sdet, vocab_path, tmp)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this run '
@@ -950,6 +1482,12 @@ def main() -> int:
         lvis_det, prompt_launches = phase_prompts(sim, nms, frames,
                                                   lvis_vocab)
         res = phase_timing(det, bf, lvis_det, frames, sim, nms, card)
+        del lvis_det
+        paths = [main_launches, prompt_launches,
+                 *phases_serving(sim, nms, det, bf, vocab_path, tmp, card)]
+    # every path's launches, each counted from 0 just before it ran
+    launched = {k: sum(p.get(k, 0) for p in paths)
+                for k in ('similarity', 'similarity_bf16', 'nms')}
 
     require(not any(m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                         'yoloclip_tpu')
@@ -968,13 +1506,13 @@ def main() -> int:
               'yoloclip_tpu/ops/pallas/similarity.py:110')
     kernels = [
         entry('fused_projected_similarity_argmax[float32]', sim_src, k1,
-              ('similarity', f32), main_launches['similarity'], k1_err[f32]),
+              ('similarity', f32), launched['similarity'], k1_err[f32]),
         entry('fused_projected_similarity_argmax[bfloat16]', sim_src, k1,
-              ('similarity', b16), main_launches['similarity_bf16'],
+              ('similarity', b16), launched['similarity_bf16'],
               k1_err[b16]),
         entry('nms_keep', 'yoloclip_tpu_torch/csrc/nms.cu',
               'yoloclip_tpu/ops/pallas/nms.py:103', ('nms', f32),
-              main_launches['nms'], nms_err),
+              launched['nms'], nms_err),
         entry('fused_similarity_argmax[float32]', sim_src, k3,
               ('unprojected', f32),
               prompt_launches['similarity_unprojected'], k3_err[f32]),

@@ -2,7 +2,9 @@
 
 Both load the same JAX random-init weights (the port through
 `state_dict_from_jax`) and run the device letterbox path
-(`host_preprocess=False`) on the same uint8 frames. The vocabulary comes
+(`host_preprocess=False`) on the same uint8 frames; `default_pair` keeps
+the default `host_preprocess='auto'`, the host-letterbox canvas path of
+both packages. The vocabulary comes
 from the same JSON file (`pair`), or through class names and free-text
 prompts (`prompt_pair`); both pairs load the same miniature CLIP text
 tower `.npz` (width 64, 2 layers).
@@ -12,7 +14,9 @@ atol 1e-5; boxes (rescaled and clipped to the frame) atol 1e-3 px, and the
 int-truncated boxes of `detect` equal; text-tower vocabularies atol 1e-5.
 """
 
+import dataclasses
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -74,6 +78,19 @@ def pair(weights, tower_npz, tmp_path_factory):
     det = YOLOCLIPDetector(cfg, vocab_path=path, state_dict=sd,
                            text_checkpoint=tower_npz, device='cpu')
     return jdet, det, cfg, path
+
+
+@pytest.fixture(scope='module')
+def default_pair(weights, pair):
+    """Both detectors at the default host_preprocess ('auto'), serving the
+    JSON vocabulary of `pair`."""
+    _, _, variables, sd = weights
+    _, _, _, path = pair
+    jcfg, cfg = configs(conf_threshold=0.0, nms_topk=64, max_detections=16)
+    assert cfg.host_preprocess == jcfg.host_preprocess == 'auto'
+    jdet = JaxDetector(vocab_path=path, config=jcfg, variables=variables)
+    det = YOLOCLIPDetector(cfg, vocab_path=path, state_dict=sd, device='cpu')
+    return jdet, det
 
 
 @pytest.fixture(scope='module')
@@ -153,6 +170,69 @@ def test_detect_matches_jax(pair):
     assert_detections_agree(got, want)
 
 
+@pytest.mark.parametrize('host_preprocess', ['auto', True])
+def test_detect_default_config_matches_jax(default_pair, host_preprocess):
+    """At the default config both detectors letterbox on the host (the
+    native library is built here) into the canvas program; the port used
+    to letterbox on the device under 'auto' and its scores differed from
+    the JAX detector's by 3e-4."""
+    jdet, det = default_pair
+    jdet.config = dataclasses.replace(jdet.config,
+                                      host_preprocess=host_preprocess)
+    det.config = dataclasses.replace(det.config,
+                                     host_preprocess=host_preprocess)
+    img = (np.random.RandomState(3).rand(120, 200, 3) * 255).astype(np.uint8)
+    assert_detections_agree(det.detect(img), jdet.detect(img))
+    assert det._host_letterbox_available() and jdet._host_letterbox_available()
+    canvas, scale = det._host_letterbox(img)
+    jcanvas, jscale = jdet._host_letterbox(img)
+    np.testing.assert_array_equal(canvas, jcanvas)
+    assert scale == jscale
+
+
+@pytest.mark.parametrize('backend', ['cv2', 'PIL', 'numpy'])
+def test_host_letterbox_without_native_matches_jax(default_pair, backend,
+                                                   monkeypatch):
+    """Where the native library is unavailable, both packages' host
+    letterbox resizes with cv2, else PIL, else numpy; the canvases are
+    byte-identical, and with cv2 or PIL `detect()` at the default config
+    still takes the canvas path and agrees. With neither, both fall back
+    to the device letterbox."""
+    from yoloclip_tpu import native as jnative
+    from yoloclip_tpu_torch import native
+    jdet, det = default_pair
+    monkeypatch.setattr(native, 'available', lambda: False)
+    monkeypatch.setattr(jnative, 'available', lambda: False)
+    hidden = {'cv2': [], 'PIL': ['cv2'], 'numpy': ['cv2', 'PIL']}[backend]
+    for mod in hidden:
+        monkeypatch.setitem(sys.modules, mod, None)   # import raises
+    img = (np.random.RandomState(9).rand(120, 200, 3) * 255).astype(np.uint8)
+    canvas, scale = det._host_letterbox(img)
+    jcanvas, jscale = jdet._host_letterbox(img)
+    np.testing.assert_array_equal(canvas, jcanvas)
+    assert scale == jscale
+    usable = backend != 'numpy'
+    assert det._host_letterbox_available() == usable
+    assert jdet._host_letterbox_available() == usable
+    if usable:
+        for d in (jdet, det):
+            d.config = dataclasses.replace(d.config, host_preprocess='auto')
+        assert_detections_agree(det.detect(img), jdet.detect(img))
+
+
+def test_preprocess_image(default_pair, tmp_path):
+    from PIL import Image
+    jdet, det = default_pair
+    img = (np.random.RandomState(6).rand(50, 70, 3) * 255).astype(np.uint8)
+    path = str(tmp_path / 'f.png')
+    Image.fromarray(img).save(path)
+    x, orig, scale = det.preprocess_image(path)
+    jx, jorig, jscale = jdet.preprocess_image(path)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(orig, img)
+    assert scale == jscale == min(SIZE / 50, SIZE / 70)
+
+
 def test_draw_detections(pair):
     _, det, _, _ = pair
     img = (np.random.RandomState(4).rand(80, 100, 3) * 255).astype(np.uint8)
@@ -160,11 +240,20 @@ def test_draw_detections(pair):
     assert drawn.shape == img.shape and drawn.dtype == np.uint8
 
 
-def test_unported_paths_raise(pair, tmp_path):
+def test_unported_paths_raise(pair, weights, tower_npz, tmp_path):
+    """int8 and orbax checkpoints still raise; host_preprocess=True, once
+    refused here, now runs the canvas path."""
     _, det, cfg, path = pair
-    host = InferenceConfig(model=cfg.model, host_preprocess=True)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        YOLOCLIPDetector(host, vocab_path=path, device='cpu')
+    host = InferenceConfig(model=cfg.model, host_preprocess=True,
+                           conf_threshold=-1.0, nms_topk=16,
+                           max_detections=4)
+    hdet = YOLOCLIPDetector(host, vocab_path=path, state_dict=weights[3],
+                            text_checkpoint=tower_npz, device='cpu')
+    img = (np.random.RandomState(8).rand(40, 90, 3) * 255).astype(np.uint8)
+    got = hdet.detect(img)
+    assert 0 < len(got) <= 4
+    assert all(0 <= d['box'][0] <= d['box'][2] <= 90
+               and 0 <= d['box'][1] <= d['box'][3] <= 40 for d in got)
     int8 = InferenceConfig(model=ModelConfig(image_size=(SIZE, SIZE),
                                              quant='int8'))
     with pytest.raises(NotImplementedError, match='ROADMAP'):

@@ -3,8 +3,10 @@
 In a fresh interpreter: import every `yoloclip_tpu_torch` module, run a
 tiny CPU `detect_batch` from a JSON vocabulary, build a detector from class
 names with a miniature text tower and run `detect` with free-text prompts,
-then check that neither jax, jaxlib, flax nor any module of the JAX package
-(`yoloclip_tpu`) was imported.
+serve one request through a `DetectionServer` (the native host letterbox)
+and close it, run one `StreamingDetector.step`, then check that neither
+jax, jaxlib, flax nor any module of the JAX package (`yoloclip_tpu`) was
+imported.
 """
 
 import json
@@ -52,6 +54,20 @@ det = YOLOCLIPDetector(cfg, class_names=['cat', 'dog'], text_checkpoint=tower,
 dets = det.detect(np.zeros((48, 64, 3), np.uint8),
                   text_prompts=['a red car', 'café'])
 assert dets and {d['class_name'] for d in dets} <= {'a red car', 'café'}
+from yoloclip_tpu_torch import native
+from yoloclip_tpu_torch.inference.server import DetectionServer
+from yoloclip_tpu_torch.inference.streaming import StreamingDetector
+assert native.available()
+srv = DetectionServer(det, max_batch=2, max_delay_ms=1.0)
+try:
+    got = srv.detect(np.zeros((30, 50, 3), np.uint8), timeout=120)
+finally:
+    srv.close()
+assert got and {d['class_name'] for d in got} <= {'cat', 'dog'}
+sd = StreamingDetector(det.model, det.offline_vocabulary, 2, (48, 64), cfg,
+                       device='cpu')
+out = sd.step(np.zeros((2, 48, 64, 3), np.uint8))
+assert out['boxes'].shape == (2, 8, 4) and bool((out['count'] > 0).all())
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                                'yoloclip_tpu'))))

@@ -2,11 +2,14 @@
 `yoloclip_tpu/config.py`, with the same field names and defaults, so a
 configuration written for one package builds the same model in the other.
 
-The training settings and the YAML loader come with the training slice.
+`load_config` is the JAX package's YAML loader (defaults < YAML with
+`model_config:`/`dataset_config:` includes < keyword overrides). The
+training settings come with the training slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -101,6 +104,62 @@ class InferenceConfig:
     # True: refuse to serve with a degraded text pipeline (random-init
     # text tower or zero-merge tokenizer) instead of warning.
     require_text_quality: bool = False
-    # 'auto' or True: host letterbox into a fixed canvas (not ported yet);
-    # False: device letterbox.
+    # 'auto' or True: host letterbox into a fixed canvas when a host
+    # letterbox is available (inference/detector.py); False: device
+    # letterbox.
     host_preprocess: Any = 'auto'
+
+
+def _merge(cfg, overrides: Dict[str, Any]):
+    """Merge a flat dict into a (possibly nested) frozen config: keys that
+    name fields of the nested ModelConfig go there, unknown keys are
+    ignored, None values are skipped."""
+    own = {f.name for f in dataclasses.fields(cfg)}
+    updates = {}
+    model_updates = {}
+    model_fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    for k, v in overrides.items():
+        if v is None:
+            continue
+        if k in own and k != 'model':
+            if isinstance(v, list):
+                v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+            if k == 'loss_weights' and isinstance(v, dict):
+                v = tuple(v.items())
+            updates[k] = v
+        elif k in model_fields and hasattr(cfg, 'model'):
+            if isinstance(v, list):
+                v = tuple(v)
+            model_updates[k] = v
+    if model_updates and hasattr(cfg, 'model'):
+        updates['model'] = dataclasses.replace(cfg.model, **model_updates)
+    return dataclasses.replace(cfg, **updates)
+
+
+def _load_yaml_with_includes(path: str) -> Dict[str, Any]:
+    """Load a YAML config resolving `model_config:`/`dataset_config:`
+    includes (paths relative to the including file); the including file's
+    own keys override."""
+    import os
+
+    import yaml
+    with open(path) as f:
+        data = yaml.safe_load(f) or {}
+    base_dir = os.path.dirname(os.path.abspath(path))
+    merged: Dict[str, Any] = {}
+    for key in ('model_config', 'dataset_config'):
+        inc = data.pop(key, None)
+        if inc:
+            inc_path = inc if os.path.isabs(inc) else os.path.join(base_dir,
+                                                                   inc)
+            merged.update(_load_yaml_with_includes(inc_path))
+    merged.update(data)
+    return merged
+
+
+def load_config(cls, yaml_path: Optional[str] = None, **overrides):
+    """defaults < YAML (with includes) < kwargs."""
+    cfg = cls()
+    if yaml_path is not None:
+        cfg = _merge(cfg, _load_yaml_with_includes(yaml_path))
+    return _merge(cfg, overrides)

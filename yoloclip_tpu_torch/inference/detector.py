@@ -9,21 +9,32 @@ text tower and the prompt templates, or from free-text prompts per call
 on the device; `detect` returns the reference's list of detection dicts
 after ONE device-to-host copy of the packed `(max_det + 1, 6)` result.
 
+`detect` takes the host-letterbox canvas path under
+`config.host_preprocess` 'auto' (the default) or True, as the JAX detector
+does: the frame is letterboxed on the host (the native C++ library,
+`native/`; cv2 or PIL on the CPU when it is missing) into a fixed
+(th, tw, 3) uint8 canvas, which is uploaded, divided by 255 and run through
+`_detect_canvases` -- the program the serving runtime
+(`inference/server.py`) runs on its batches. On the card the letterbox is
+the native library or an error, never a substitute. host_preprocess=False
+letterboxes on the device.
+
 Not ported yet, and refused with NotImplementedError rather than replaced
-by something else: the host-letterbox canvas path, int8 and the
-space-to-depth stems.
+by something else: int8 and the space-to-depth stems.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from yoloclip_tpu_torch import native
 from yoloclip_tpu_torch.config import InferenceConfig
 from yoloclip_tpu_torch.models.yolo_clip import build_model
 from yoloclip_tpu_torch.ops.nms import batched_nms, nms_fixed
@@ -71,10 +82,24 @@ def _unpack_detections(packed: np.ndarray, names: Sequence[str]
     return dets, saturated
 
 
+def load_detector_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A detector checkpoint -> reference-layout state dict: a torch
+    `.pt`/`.pth` file holding one (or a module with `.state_dict()`)."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f'{path} is a directory: orbax checkpoints are not read by the '
+            'port (ROADMAP.md, queue A: orbax checkpoints); convert the '
+            'variables with utils.convert.state_dict_from_jax and '
+            'torch.save the state dict')
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    if hasattr(sd, 'state_dict'):
+        sd = sd.state_dict()
+    return sd
+
+
 def _imread_rgb(path: str) -> np.ndarray:
-    from PIL import Image
-    with Image.open(path) as im:
-        return np.asarray(im.convert('RGB'))
+    from yoloclip_tpu_torch.data.coco import _imread_rgb as read
+    return read(path)
 
 
 class YOLOCLIPDetector:
@@ -84,7 +109,8 @@ class YOLOCLIPDetector:
                  text_checkpoint: Optional[str] = None,
                  state_dict: Optional[dict] = None,
                  device: Union[str, torch.device] = 'cuda',
-                 seed: int = 0):
+                 seed: int = 0,
+                 model_path: Optional[str] = None):
         """config: an InferenceConfig (`yoloclip_tpu_torch.config`).
         class_names: the vocabulary, built online through the text tower
         and the prompt templates. vocab_path: a JSON vocabulary
@@ -94,23 +120,21 @@ class YOLOCLIPDetector:
         text_checkpoint: the text tower's weights (.npz or an OpenAI
         .pt/.pth); None = random init from `seed`. state_dict: detector
         weights in the reference key layout (e.g.
-        `utils.convert.state_dict_from_jax`); None = random init from
-        `seed`. device: where everything runs -- a CUDA device runs the
-        kernels, the CPU their plain versions."""
+        `utils.convert.state_dict_from_jax`); None = the file at
+        model_path (`load_detector_state_dict`) or, with neither, random
+        init from `seed`. device: where everything runs -- a CUDA device
+        runs the kernels, the CPU their plain versions."""
         cfg = config or InferenceConfig()
         if class_names is not None:
             cfg = dataclasses.replace(cfg, class_names=tuple(class_names))
-        if cfg.host_preprocess is True:
-            raise NotImplementedError(
-                'the host-letterbox canvas path is not ported yet '
-                '(ROADMAP.md, queue A: host-letterbox canvas path); use '
-                'host_preprocess=False')
         self.config = cfg
         self.device = torch.device(device)
         self.class_names = list(cfg.class_names)
         self.image_size = tuple(cfg.model.image_size)
         self.conf_threshold = cfg.conf_threshold
         self.iou_threshold = cfg.iou_threshold
+        if state_dict is None and model_path is not None:
+            state_dict = load_detector_state_dict(model_path)
         if state_dict is None:
             logger.warning('No weights given: random-init weights '
                            '(shape/latency bring-up mode)')
@@ -189,6 +213,73 @@ class YOLOCLIPDetector:
                     class_agnostic=c.class_agnostic_nms)
 
     @torch.inference_mode()
+    def _detect_canvases(self, canvases: torch.Tensor, text: torch.Tensor,
+                         scales: torch.Tensor, orig_whs: torch.Tensor
+                         ) -> torch.Tensor:
+        """Host-letterboxed uint8 canvases (B, th, tw, 3) on the device,
+        their scales (B,) and original (w, h) sizes (B, 2), float32 ->
+        packed detections (B, max_det + 1, 6) on the device. The JAX
+        package's canvas program (`_build_detect_canvas_fn`, and the
+        server's batched twin): /255, the model, boxes / scale, clip to
+        the frame, NMS, pack."""
+        x = canvases.float() / 255.0
+        out = self.model(x, text, fused_scores=self._use_fused_similarity())
+        boxes = out['boxes'] / scales[:, None, None]
+        hi = torch.cat([orig_whs, orig_whs], dim=-1)[:, None, :]
+        boxes = torch.minimum(boxes.clamp_min(0), hi)
+        return _pack_detections(batched_nms(
+            boxes, out['scores'], out['class_ids'], **self._nms_args()))
+
+    def _host_letterbox_available(self) -> bool:
+        """On the card: the native library, or the reason it failed to
+        build is raised. On the CPU, as in the JAX package: the native
+        library, else cv2 or PIL."""
+        if self.device.type == 'cuda':
+            native.require()
+            return True
+        if native.available():
+            return True
+        try:
+            import cv2  # noqa: F401
+            return True
+        except ImportError:
+            try:
+                import PIL  # noqa: F401
+                return True
+            except ImportError:
+                return False   # device letterbox only
+
+    def _host_letterbox(self, image: np.ndarray) -> Tuple[np.ndarray, float]:
+        """uint8 (H, W, 3) -> (canvas uint8 (th, tw, 3), scale) on the
+        host: the native library (always on the card), else cv2/PIL."""
+        image = np.asarray(image, np.uint8)
+        if self.device.type == 'cuda' or native.available():
+            return native.letterbox_u8(image, self.image_size)
+        h, w = image.shape[:2]
+        th, tw = self.image_size
+        scale = min(th / h, tw / w)
+        # clamp to 1px: cv2.resize rejects a zero dim for extreme aspect
+        # ratios (the device path just produces an empty paste)
+        rh, rw = max(int(h * scale), 1), max(int(w * scale), 1)
+        from yoloclip_tpu_torch.data.coco import _resize
+        canvas = np.zeros((th, tw, 3), np.uint8)
+        canvas[:rh, :rw] = _resize(image, (rw, rh))
+        return canvas, float(scale)
+
+    def preprocess_image(self, image: Union[str, np.ndarray]
+                         ) -> Tuple[torch.Tensor, np.ndarray, float]:
+        """Host-side load only; resize and normalisation happen on the
+        device. Returns (uint8 (H, W, 3) tensor on the device, the original
+        image, scale), the reference's signature."""
+        if isinstance(image, str):
+            image = _imread_rgb(image)
+        h, w = image.shape[:2]
+        th, tw = self.image_size
+        scale = min(th / h, tw / w)
+        x = torch.as_tensor(np.asarray(image), device=self.device)
+        return x, image, scale
+
+    @torch.inference_mode()
     def detect_batch(self, images: Union[np.ndarray, torch.Tensor],
                      text_prompts: Optional[Sequence[str]] = None
                      ) -> Dict[str, torch.Tensor]:
@@ -217,15 +308,29 @@ class YOLOCLIPDetector:
             image = _imread_rgb(image)
         orig = np.asarray(image)
         text, names = self._text(text_prompts)
-        with torch.inference_mode():
-            canvas, scale = letterbox(torch.as_tensor(orig, device=self.device),
-                                      self.image_size)
-            out = self.model(canvas[None], text,
-                             fused_scores=self._use_fused_similarity())
-            boxes = rescale_boxes(out['boxes'][0], scale, orig.shape[:2])
-            packed = _pack_detections(nms_fixed(
-                boxes, out['scores'][0], class_ids=out['class_ids'][0],
-                **self._nms_args()))
+        # 'auto'/True: host letterbox into the fixed canvas, the serving
+        # runtime's program; False: device letterbox
+        hp = self.config.host_preprocess
+        if hp in ('auto', True) and self._host_letterbox_available():
+            canvas, scale = self._host_letterbox(orig)
+            h, w = orig.shape[:2]
+            packed = self._detect_canvases(
+                torch.from_numpy(canvas)[None].to(self.device), text,
+                torch.tensor([scale], dtype=torch.float32,
+                             device=self.device),
+                torch.tensor([[w, h]], dtype=torch.float32,
+                             device=self.device))[0]
+        else:
+            with torch.inference_mode():
+                canvas, scale = letterbox(
+                    torch.as_tensor(orig, device=self.device),
+                    self.image_size)
+                out = self.model(canvas[None], text,
+                                 fused_scores=self._use_fused_similarity())
+                boxes = rescale_boxes(out['boxes'][0], scale, orig.shape[:2])
+                packed = _pack_detections(nms_fixed(
+                    boxes, out['scores'][0], class_ids=out['class_ids'][0],
+                    **self._nms_args()))
         packed = packed.cpu().numpy()       # the ONE device -> host copy
         detections, saturated = _unpack_detections(packed, names)
         if saturated:

@@ -13,7 +13,7 @@
 from __future__ import annotations
 
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,14 +35,19 @@ class TextGuidedCSPLayer(nn.Module):
             DarkBottleneck(c_, c_, True) for _ in range(n_bottlenecks))
         self.text_proj = nn.Linear(text_dim, c_)
 
-    def forward(self, x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
-        """x (B, Cin, H, W); text (B, N, text_dim)."""
+    def forward(self, x: torch.Tensor, text: torch.Tensor,
+                class_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, Cin, H, W); text (B, N, text_dim); class_mask (B, N) bool
+        or None: masked-out classes get -inf before the max."""
         y1 = self.cv1(x)
         proj = self.text_proj(text.to(self.text_proj.weight.dtype))
         for m in self.bottlenecks:
             y1 = m(y1)
             # max over classes of feat . projected text, then a sigmoid gate
             scores = torch.einsum('bchw,bnc->bnhw', y1, proj)
+            if class_mask is not None:
+                scores = scores.masked_fill(~class_mask[:, :, None, None],
+                                            float('-inf'))
             gate = torch.sigmoid(scores.amax(dim=1, keepdim=True).float())
             y1 = y1 * gate.to(y1.dtype)
         return self.cv3(torch.cat([y1, self.cv2(x)], dim=1))
@@ -91,11 +96,18 @@ class RepVLPAN(nn.Module):
         self.downsample_convs = nn.ModuleList(
             [ConvBlock(oc[0], oc[1], 3, 2), ConvBlock(oc[1], oc[2], 3, 2)])
 
-    def forward(self, features: Sequence[torch.Tensor], text: torch.Tensor
+    def forward(self, features: Sequence[torch.Tensor], text: torch.Tensor,
+                class_mask: Optional[torch.Tensor] = None,
+                skip_image_pool: bool = False
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-        """features (c3, c4, c5); text (B, N, text_dim) ->
-        ([n3, n4, n5], per-image text after I-Pool)."""
-        text = self.image_pooling_attention(text, features)
+        """features (c3, c4, c5); text (B, N, text_dim); class_mask (B, N)
+        bool or None -> ([n3, n4, n5], per-image text after I-Pool).
+
+        skip_image_pool=True leaves the text as it came (the reparam deploy
+        opt-in, `ops/reparam.py`); I-Pool is not computed at all, where the
+        JAX package computes it and leaves its output unused."""
+        if not skip_image_pool:
+            text = self.image_pooling_attention(text, features)
 
         lat = [conv(f) for conv, f in zip(self.lateral_convs, features)]
         p5 = lat[2]
@@ -104,9 +116,9 @@ class RepVLPAN(nn.Module):
         p3 = lat[0] + self.up_channels[1](up(p4))
         fpn = [conv(p) for conv, p in zip(self.fpn_convs, (p3, p4, p5))]
 
-        n3 = self.text_csplayers[0](fpn[0], text)
+        n3 = self.text_csplayers[0](fpn[0], text, class_mask)
         n4 = self.text_csplayers[1](fpn[1] + self.downsample_convs[0](n3),
-                                    text)
+                                    text, class_mask)
         n5 = self.text_csplayers[2](fpn[2] + self.downsample_convs[1](n4),
-                                    text)
+                                    text, class_mask)
         return [n3, n4, n5], text

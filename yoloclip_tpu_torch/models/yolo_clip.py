@@ -46,14 +46,21 @@ class YOLOCLIP(nn.Module):
         self.box_head = BoxHead(fc, cfg.hidden_dim, cfg.reg_max)
 
     def forward(self, images: torch.Tensor, text: torch.Tensor,
-                fused_scores: bool = False) -> Dict[str, torch.Tensor]:
+                fused_scores: bool = False,
+                class_mask: Optional[torch.Tensor] = None,
+                skip_image_pool: bool = False) -> Dict[str, torch.Tensor]:
         """images (B, H, W, 3) float in [0, 1] (the JAX layout; permuted
         here to a channels_last NCHW view); text (C, E) or (B, C, E).
 
         fused_scores=True scores through the folded similarity kernel per
         level and returns neither `similarity` (B, A, C) nor
         `obj_embeddings` (B, A, E): eager PyTorch has no dead-code
-        elimination, so they are not computed at all."""
+        elimination, so they are not computed at all. The kernel takes no
+        mask, so a class_mask always takes the unfused path.
+
+        class_mask: (C,) or (B, C) bool, or None; masked-out classes get
+        -inf in every text-guided CSP layer's max and in the similarity.
+        skip_image_pool: the text skips I-Pool (`RepVLPAN.forward`)."""
         cfg = self.cfg
         dt = self.box_head.box_convs[0][2].weight.dtype
         B = images.shape[0]
@@ -62,10 +69,16 @@ class YOLOCLIP(nn.Module):
         if text.dim() == 2:
             text = text[None].expand(B, -1, -1)
         text = text.float()
-        use_fused = fused_scores and cfg.cls_alpha > 0
+        if class_mask is not None:
+            class_mask = class_mask.to(device=text.device, dtype=torch.bool)
+            if class_mask.dim() == 1:
+                class_mask = class_mask[None].expand(B, -1)
+        # alpha > 0 strictly: argmax(alpha*s+beta) == argmax(s) needs it
+        use_fused = (fused_scores and class_mask is None
+                     and cfg.cls_alpha > 0)
 
         feats = self.backbone(x)
-        pan, text = self.neck(feats, text)
+        pan, text = self.neck(feats, text, class_mask, skip_image_pool)
 
         out: Dict[str, torch.Tensor] = {}
         if use_fused:
@@ -87,6 +100,9 @@ class YOLOCLIP(nn.Module):
             sims = [head.compute_similarity(o, text)
                     for head, o in zip(self.contrastive_heads, objs)]
             similarity = torch.cat(sims, dim=1)               # (B, A, C)
+            if class_mask is not None:
+                similarity = similarity.masked_fill(~class_mask[:, None, :],
+                                                    float('-inf'))
             scores, class_ids = similarity.max(dim=-1)
             class_ids = class_ids.to(torch.int32)
             out['similarity'] = similarity
