@@ -7,10 +7,11 @@ Needs one CUDA device, nvcc and the repository checkout; imports no JAX.
 Phases, each printing its results; any failure exits non-zero:
 
   1. device    -- the card's name and power limit (nvidia-smi);
-  2. build     -- compile both CUDA sources from yoloclip_tpu_torch/csrc/
-                  (one nvcc each, in parallel), ptxas's report, and the
-                  count of tensor-core (HGMMA) instructions in the SASS of
-                  each similarity instantiation (cuobjdump; none fails);
+  2. build     -- compile the three CUDA sources from yoloclip_tpu_torch/
+                  csrc/ (one nvcc each, in parallel), ptxas's report, and
+                  the count of tensor-core instructions in the SASS of each
+                  similarity (HGMMA) and int8 conv (IMMA) instantiation
+                  (cuobjdump; none fails);
   3. kernel 1  -- folded similarity max/argmax vs its plain PyTorch version,
                   fp32 (TF32 off) and bf16, at batch 32: the main-path
                   shapes, C = 1 / 80 / 1203, A ragged against the row tiles
@@ -26,6 +27,12 @@ Phases, each printing its results; any failure exits non-zero:
   5. kernel 3  -- unprojected similarity max/argmax vs its plain version,
                   the same kinds of cases at E=512 (A = 8400, 400, 1),
                   normalize_obj both ways;
+  5b. int8 conv -- the int8 conv (quantize -> s8 x s8 -> s32 -> dequant +
+                  bias + SiLU) vs its plain version, fp32 and bf16 input:
+                  the 22 int8 blocks of the deploy graph at bs=32, 640 px,
+                  Cin = 80 (variant 'x'), B = 1, a ragged 21 x 13 map, and
+                  operands all at +-127; the int32 accumulator (epilogue
+                  off) bit for bit, the fused output within INT8_TOL;
   6. text      -- the full-width CLIP text tower (12 x 512, seeded) on the
                   card vs the same weights on the CPU for 16 prompts; a
                   1203-class vocabulary build (6015 prompts) timed in fp32
@@ -75,15 +82,28 @@ Phases, each printing its results; any failure exits non-zero:
  14. reparam   -- build_reparam_forward(..., nms=...) in fp32 at conf -1.0
                   against the detector's model and NMS on the same
                   canvases; img/s beside detect_batch's, fp32 and bf16;
+ 9b. int8      -- each int8 block at bs=32 through the wrapper beside its
+                  plain version, its bound, im2col + torch._int_mm and
+                  cuDNN's bf16 conv; then quantize_int8 (8 seeded frames)
+                  on fp32 and bf16 detectors at variant 'n', 640 px,
+                  COCO-80: bf16 and fp32 detect_batch at bs=32 (22 int8
+                  launches a forward), card vs CPU at bs=2 on the same
+                  quantized state (every int8 block's input forced to the
+                  card's; the free-running difference and its rounding
+                  flips printed), img/s of float and int8 fp32 and bf16 in
+                  turns, stage times, 8 server requests vs detect();
+ 9c. stems     -- stem_s2d and stem_u8_s2d detectors against the plain
+                  stem on the same weights and frames (the JAX package's
+                  tolerances), and their detect_batch;
  15. http, CLIs -- make_handler on a localhost ThreadingHTTPServer (POST
                   /detect with a stdlib-encoded PNG, POST /vocab, GET
                   /stats and /healthz), then `python -m
                   yoloclip_tpu_torch.cli.detect`, `cli.stream --streams 2
                   --steps 3` and `cli.warmup` (builds and loads the
                   libraries) as subprocesses, exit 0.
-Each path that launches kernels (main path, prompts, canvas, server,
-streaming, reparam) runs with the launch counters set to 0 just before it
-and read just after; the kernels line sums them.
+Each path that launches kernels (main path, prompts, int8, stems, canvas,
+server, streaming, reparam) runs with the launch counters set to 0 just
+before it and read just after; the kernels line sums them.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -107,6 +127,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # Kernels 1 and 3 against their plain versions: both sum fp32 products of
 # the same fp32/bf16 inputs, in different orders; cosines are O(0.1-1).
@@ -238,9 +259,9 @@ def phase_device() -> str:
 def phase_build(_build) -> None:
     t = time.time()
     reports = _build.build_all()
-    print(f'[build] similarity.cu and nms.cu built from {_build.CSRC}, '
-          f'native/dataload.cpp from {_build.NATIVE}, in '
-          f'{time.time() - t:.2f} s (parallel nvcc and g++)')
+    print(f'[build] {", ".join(f"{k}.cu" for k in _build.KERNELS)} built '
+          f'from {_build.CSRC}, native/dataload.cpp from {_build.NATIVE}, '
+          f'in {time.time() - t:.2f} s (parallel nvcc and g++)')
     print(f'[build] native/dataload.cpp: {reports.pop("native/dataload")}')
     for name, rep in reports.items():
         for ln in rep.splitlines():
@@ -259,10 +280,21 @@ def phase_build(_build) -> None:
               f'(tensor-core) instructions')
     require(len(counts) == 4 and all(counts.values()),
             'a similarity instantiation has no tensor-core instruction')
+    lib = _build.load('int8_conv')
+    for sym in ('yc_int8_conv_f32', 'yc_int8_conv_bf16'):
+        require(hasattr(lib, sym), f'symbol {sym} missing')
+    counts = _sass_gmma(_build.BUILD_DIR / 'libint8_conv.so', 'IMMA')
+    for fn, n in counts.items():
+        print(f'[build] SASS of int8_conv_kernel<'
+              f'{"bf16" if "bfloat16" in fn else "fp32"}>: {n} IMMA '
+              f'(int8 tensor-core) instructions')
+    require(len(counts) == 2 and all(counts.values()),
+            'an int8_conv instantiation has no tensor-core instruction')
 
 
-def _sass_gmma(lib_path) -> dict:
-    """HGMMA instructions in each kernel of a built library (cuobjdump)."""
+def _sass_gmma(lib_path, op: str = 'HGMMA') -> dict:
+    """`op` instructions (HGMMA, IMMA) in each kernel of a built library
+    (cuobjdump)."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     sass = subprocess.run([tool, '-sass', str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
@@ -271,7 +303,7 @@ def _sass_gmma(lib_path) -> dict:
         if 'Function :' in ln:
             fn = ln.split('Function :')[1].strip()
             counts[fn] = 0
-        elif fn is not None and 'HGMMA' in ln:
+        elif fn is not None and op in ln:
             counts[fn] += 1
     return counts
 
@@ -594,14 +626,16 @@ def _finite(out) -> bool:
                for k in ('boxes', 'scores'))
 
 
-def _detector(vocab_path, dtype='float32', device='cuda', **cfg_kw):
+def _detector(vocab_path, dtype='float32', device='cuda', model_kw=None,
+              **cfg_kw):
     """Variant 'n', 640 px, the JSON vocabulary, weights from seed 0;
-    device letterbox unless cfg_kw says otherwise."""
+    device letterbox unless cfg_kw says otherwise; model_kw: ModelConfig
+    fields (the stems)."""
     from yoloclip_tpu_torch.config import InferenceConfig
     from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
     cfg = InferenceConfig(**{'host_preprocess': False, **cfg_kw})
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, dtype=dtype))
+        cfg.model, dtype=dtype, **(model_kw or {})))
     return YOLOCLIPDetector(cfg, vocab_path=vocab_path, device=device,
                             seed=0)
 
@@ -1010,7 +1044,8 @@ def _pre_nms_scores(det, canvases):
     return out['scores'].float().cpu(), out['class_ids'].cpu(), tie
 
 
-def _check_detections(tag, got, want, want_scores, delta, topk):
+def _check_detections(tag, got, want, want_scores, delta, topk,
+                      score_atol=XDEV_SCORE_ATOL):
     """got, want: one frame's detection lists (score order) from two runs
     whose pre-NMS scores differ by at most `delta`; want_scores: the `want`
     run's pre-NMS scores (A,). Greedy NMS visits candidates in score
@@ -1029,7 +1064,7 @@ def _check_detections(tag, got, want, want_scores, delta, topk):
             f'first possible order flip (score {cut:.6f})')
     for a, b in zip(sure_g, sure_w):
         require(a['class_id'] == b['class_id']
-                and abs(a['score'] - b['score']) <= XDEV_SCORE_ATOL
+                and abs(a['score'] - b['score']) <= score_atol
                 and max(abs(p - q) for p, q in zip(a['box'], b['box'])) <= 1,
                 f'{tag}: detections differ: {a} vs {b}')
     return len(sure_w), len(want)
@@ -1452,6 +1487,502 @@ def phases_serving(sim, nms, det, bf, vocab_path, tmp, card) -> list:
     return paths
 
 
+
+# ---------------------------------------------------------------------------
+# int8 deploy: the int8 conv kernel against its plain version, the W8A8
+# path at full width, the space-to-depth stems.
+# ---------------------------------------------------------------------------
+
+INT8_TC = 1979e12           # H100 SXM dense int8 tensor-core peak, op/s
+INT8_BLOCKS = 22            # int8 blocks of the deploy graph at variant 'n'
+INT8_CALIB = 8              # calibration frames
+# The fused output against the plain version: the pre-SiLU values are
+# bit-identical (same roundings), so only expf's last ulps and the final
+# cast differ: fp32 1e-6 relative; bf16 one bf16 ulp (2^-7 relative).
+INT8_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (2.0 ** -7, 1e-6)}
+# int8 model, card against CPU on the same quantized state. The int8 sums
+# are exact on both, but where the float layers' roundoff moves an input
+# across a .5 quantization boundary the two round it to neighbouring int8
+# values, and such flips cascade through consecutive int8 blocks (a flip
+# moves 9 x Cout outputs by a quantum times a weight). So the gate forces
+# every int8 block's CPU input to the card's: each block's output then
+# agrees within INT8_TOL, the whole model within the float XDEV
+# tolerances; the free-running difference and its flips are printed.
+# The stems against the plain stem, the JAX package's tolerances
+# (tests/test_quantize.py: s2d exact up to fp32 reassociation; the u8
+# canvas up to the /255 fold's rounding); ids exact outside near-ties.
+STEM_TOL = {'stem_s2d': dict(box=(1e-5, 1e-5), score=(1e-5, 1e-5)),
+            'stem_u8_s2d': dict(box=(1e-4, 1e-4), score=(1e-4, 1e-5))}
+STEM_TIE_GAP = 1e-5
+# Extra kernel cases beyond the deploy graph's shapes: (tag, B, Cin, Cout,
+# H, W, stride, extreme). Cin = 80 (variant 'x'; its last slice half
+# padded), one image, a ragged 21 x 13 map, and operands all at +-127 so
+# the accumulator reaches 9 Cin 127^2 (37.2 M at Cin = 256).
+INT8_EXTRA = [('x cin80 s1', 4, 80, 160, 160, 160, 1, False),
+              ('x cin80 s2', 4, 80, 160, 160, 160, 2, False),
+              ('B=1', 1, 256, 256, 80, 80, 1, False),
+              ('ragged 21x13 s1', 3, 128, 256, 21, 13, 1, False),
+              ('ragged 21x13 s2', 3, 128, 256, 21, 13, 2, False),
+              ('+-127 cin256', 2, 256, 256, 20, 20, 1, True),
+              ('+-127 cin80', 2, 80, 160, 20, 20, 2, True)]
+
+
+def eligible_shapes(size: int = 640, B: int = BATCH) -> list:
+    """(name, B, Cin, Cout, H, W, stride) of every int8 block of the deploy
+    graph at variant 'n' and `size` px: read by forward hooks on a 64-px
+    CPU run of the int8 model, scaled by size / 64."""
+    from yoloclip_tpu_torch.config import ModelConfig
+    from yoloclip_tpu_torch.models.layers import ConvBlock
+    from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP
+    m = YOLOCLIP(ModelConfig(image_size=(64, 64), quant='int8')).eval()
+    shapes = []
+
+    def hook(name):
+        def rec(mod, args):
+            _, c, h, w = args[0].shape
+            shapes.append((name, B, c, mod.wq.shape[0], h * size // 64,
+                           w * size // 64, mod.stride))
+        return rec
+    hooks = [mod.register_forward_pre_hook(hook(n))
+             for n, mod in m.named_modules()
+             if isinstance(mod, ConvBlock) and mod.mode == 'int8']
+    with torch.inference_mode():
+        m(torch.rand(1, 64, 64, 3), torch.randn(4, EMBED))
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def _int8_operands(g, B, cin, cout, H, W, dtype, extreme=False):
+    """x (B, Cin, H, W) channels_last in `dtype`, reaching +-amax so that
+    the quantized operand hits +-127; random int8 wq over [-127, 127];
+    scales and bias. extreme: every input at +amax and every weight at
+    +127 (first half of the channels) or -127."""
+    amax = 3.0
+    if extreme:
+        x = torch.full((B, cin, H, W), amax, device='cuda')
+        wq = torch.full((cout, 3, 3, cin), 127, dtype=torch.int8,
+                        device='cuda')
+        wq[cout // 2:] = -127
+    else:
+        x = torch.randn(B, cin, H, W, device='cuda', generator=g)
+        x = x * (amax / x.abs().max())
+        x[0, 0, 0, 0], x[-1, -1, -1, -1] = amax, -amax
+        wq = torch.randint(-127, 128, (cout, 3, 3, cin), dtype=torch.int8,
+                           device='cuda', generator=g)
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    wscale = 1e-3 + 1e-2 * torch.rand(cout, device='cuda', generator=g)
+    qbias = 0.1 * torch.randn(cout, device='cuda', generator=g)
+    act = torch.tensor(amax / 127.0, device='cuda')
+    return x, wq, wscale, qbias, act
+
+
+def phase_int8_kernel(i8, shapes) -> dict:
+    """The int8 conv against its plain version, fp32 and bf16 input, at
+    every deploy-graph shape (bs=32) and INT8_EXTRA: the int32
+    accumulator bit for bit, the fused output within INT8_TOL. Returns
+    the worst fused difference per input type."""
+    g = torch.Generator(device='cuda').manual_seed(7)
+    cases = [(n, B, ci, co, H, W, st, False)
+             for n, B, ci, co, H, W, st in shapes] + INT8_EXTRA
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst[dtype], lines = 0.0, []
+        for tag, B, ci, co, H, W, st, ext in cases:
+            x, wq, ws, qb, act = _int8_operands(g, B, ci, co, H, W, dtype,
+                                                ext)
+            acc = i8.int8_conv(x, wq, ws, qb, act, st, epilogue=False)
+            want_acc = i8.int8_conv_plain(x, wq, ws, qb, act, st,
+                                          epilogue=False)
+            torch.cuda.synchronize()
+            require(acc.shape == want_acc.shape
+                    and torch.equal(acc, want_acc),
+                    f'int8 conv {tag} {str(dtype)[6:]}: the int32 '
+                    f'accumulator differs from the plain version in '
+                    f'{int((acc != want_acc).sum())} places')
+            y = i8.int8_conv(x, wq, ws, qb, act, st).float()
+            want = i8.int8_conv_plain(x, wq, ws, qb, act, st).float()
+            rel, atol = INT8_TOL[dtype]
+            err = (y - want).abs()
+            require(bool((err <= rel * want.abs() + atol).all()),
+                    f'int8 conv {tag} {str(dtype)[6:]}: fused output off '
+                    f'by {err.max().item():.3e}')
+            worst[dtype] = max(worst[dtype], err.max().item())
+            lines.append(f'{tag} B={B} {ci}->{co} {H}x{W} s{st} '
+                         f'max|acc|={int(acc.abs().max())} '
+                         f'err={err.max().item():.2e}')
+            del x, wq, acc, want_acc, y, want
+        print(f'[int8] kernel vs plain, {str(dtype)[6:]} input, {len(cases)}'
+              f' cases: int32 accumulators bit-identical in all; fused '
+              f'output worst |diff| {worst[dtype]:.3e} (tol {rel:g} rel + '
+              f'{atol:g}): ' + '; '.join(lines))
+    return worst
+
+
+def _int_mm_conv(q16, w2t, stride):
+    """The conv of quantized operands as PyTorch calls: im2col (F.unfold,
+    fp16 carrying the int8 values exactly) then torch._int_mm (cuBLASLt
+    s8 x s8 -> s32). The yardstick of `library_ms`; the port never calls
+    it."""
+    B = q16.shape[0]
+    cols = F.unfold(q16, 3, padding=1, stride=stride)         # (B, 9C, L)
+    a = cols.transpose(1, 2).reshape(B * cols.shape[2], -1).to(torch.int8)
+    return torch._int_mm(a, w2t)
+
+
+def time_int8(i8, shapes, card: str) -> dict:
+    """Each deploy-graph int8 block at bs=32 through the wrapper, beside
+    its plain version, its bound, the im2col + torch._int_mm yardstick and
+    cuDNN's bf16 conv of the same shape. Returns, per input type, the sums
+    over the blocks (one forward): (ms, None, plain ms, bound ms,
+    bound_by, library ms)."""
+    g = torch.Generator(device='cuda').manual_seed(8)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tot = {'ms': 0.0, 'plain': 0.0, 'bound': 0.0, 'lib': 0.0,
+               'cudnn': 0.0, 'ops': 0.0, 'bytes': 0.0}
+        for name, B, ci, co, H, W, st in shapes:
+            x, wq, ws, qb, act = _int8_operands(g, B, ci, co, H, W, dtype)
+            ms = cuda_ms(lambda: i8.int8_conv(x, wq, ws, qb, act, st))
+            plain = cuda_ms(lambda: i8.int8_conv_plain(x, wq, ws, qb, act,
+                                                       st), iters=3,
+                            warmup=1)
+            q16 = i8.quantize_plain(x, act).half()
+            w2t = wq.permute(0, 3, 1, 2).reshape(co, -1).contiguous().t()
+            acc = i8.int8_conv(x, wq, ws, qb, act, st, epilogue=False)
+            require(torch.equal(_int_mm_conv(q16, w2t, st),
+                                acc.permute(0, 2, 3, 1).reshape(-1, co)),
+                    f'{name}: im2col + torch._int_mm disagrees')
+            lib = cuda_ms(lambda: _int_mm_conv(q16, w2t, st), iters=10)
+            xb = x.bfloat16()
+            wb = wq.permute(0, 3, 1, 2).bfloat16().contiguous(
+                memory_format=torch.channels_last)
+            cudnn = cuda_ms(lambda: F.conv2d(xb, wb, None, st, 1), iters=10)
+            Ho, Wo = (H - 1) // st + 1, (W - 1) // st + 1
+            esize = torch.finfo(dtype).bits // 8
+            ops = 2 * B * Ho * Wo * co * 9 * ci
+            nbytes = (B * H * W * ci * esize + co * 9 * ci
+                      + B * Ho * Wo * co * esize + 8 * co + 4)
+            bms, bby = bound(ops, nbytes, INT8_TC)
+            for k, v in (('ms', ms), ('plain', plain), ('bound', bms),
+                         ('lib', lib), ('cudnn', cudnn), ('ops', ops),
+                         ('bytes', nbytes)):
+                tot[k] += v
+            print(f'[time] int8 conv {str(dtype)[6:]} {name} B={B} '
+                  f'{ci}->{co} {H}x{W} s{st}: kernel {ms:.4f} ms, plain '
+                  f'{plain:.4f}, im2col + _int_mm {lib:.4f}, cuDNN bf16 '
+                  f'conv {cudnn:.4f}, bound {bms:.4f} ({bby}; '
+                  f'{ops / 1e9:.1f} GOP), {bms / ms:.0%} of bound  [{card}]')
+            del x, wq, q16, w2t, acc, xb, wb
+        bms, bby = bound(tot['ops'], tot['bytes'], INT8_TC)
+        print(f'[time] int8 conv {str(dtype)[6:]}, all {len(shapes)} blocks '
+              f'of one bs={BATCH} forward: kernel {tot["ms"]:.4f} ms, plain '
+              f'{tot["plain"]:.4f}, im2col + _int_mm {tot["lib"]:.4f}, '
+              f'cuDNN bf16 conv {tot["cudnn"]:.4f}, bound {tot["bound"]:.4f}'
+              f' (sum of per-block bounds; {tot["ops"] / 1e9:.1f} GOP, '
+              f'{tot["bytes"] / 1e6:.1f} MB: {bby}-bound in all), '
+              f'{tot["bound"] / tot["ms"]:.0%} of bound  [{card}]')
+        res[dtype] = (tot['ms'], None, tot['plain'], tot['bound'], bby,
+                      tot['lib'])
+    return res
+
+
+def _int8_counts(sim, nms, i8) -> dict:
+    return dict(_counts(sim, nms), int8_conv=i8.launches - i8.launches_bf16,
+                int8_conv_bf16=i8.launches_bf16)
+
+
+def _zero_int8(sim, nms, i8) -> None:
+    _zero_counts(sim, nms)
+    i8.launches = i8.launches_bf16 = 0
+
+
+def _int8_card_vs_cpu(card_model, cpu_model, x, text):
+    """The int8 model on the card (fused scoring) and on the CPU on the
+    same input, twice on the CPU: free-running, and with every int8
+    block's input forced to the card's (forward pre-hooks). Returns
+    (rounding flips at the int8 blocks' inputs when free-running, values
+    in all, the worst relative difference of an int8 block's output given
+    the same input, card output, free CPU output, forced CPU output)."""
+    from yoloclip_tpu_torch.models.layers import ConvBlock
+    from yoloclip_tpu_torch.ops.kernels.int8_conv import quantize_plain
+    ins, outs = {}, {}
+
+    def record(side):
+        def rec(mod, args, out):
+            ins.setdefault(side, {})[mod.name] = args[0].cpu()
+            outs.setdefault(side, {})[mod.name] = out.cpu()
+        return rec
+
+    def force(mod, args):
+        return (ins['card'][mod.name],)
+
+    blocks = {side: [(n, m) for n, m in model.named_modules()
+                     if isinstance(m, ConvBlock) and m.mode == 'int8']
+              for side, model in (('card', card_model), ('cpu', cpu_model))}
+    for side in blocks:
+        for n, m in blocks[side]:
+            m.name = n
+    with torch.inference_mode():
+        hooks = [m.register_forward_hook(record('card'))
+                 for _, m in blocks['card']]
+        got = card_model(x, text.cuda(), fused_scores=True)
+        for h in hooks:
+            h.remove()
+        hooks = [m.register_forward_hook(record('free'))
+                 for _, m in blocks['cpu']]
+        free = cpu_model(x.cpu(), text.cpu())
+        for h in hooks:
+            h.remove()
+        hooks = [m.register_forward_pre_hook(force) for _, m in blocks['cpu']]
+        hooks += [m.register_forward_hook(record('forced'))
+                  for _, m in blocks['cpu']]
+        forced = cpu_model(x.cpu(), text.cpu())
+        for h in hooks:
+            h.remove()
+    flips = total = 0
+    worst = 0.0
+    for n, m in blocks['cpu']:
+        a = quantize_plain(ins['card'][n], m.act_scale)
+        flips += int((a != quantize_plain(ins['free'][n], m.act_scale)).sum())
+        total += a.numel()
+        want = outs['forced'][n]
+        # |diff| <= rel |want| + atol with rel = atol: |diff| / (|want| + 1)
+        worst = max(worst, ((outs['card'][n] - want).abs()
+                            / (want.abs() + 1)).max().item())
+    return flips, total, worst, got, free, forced
+
+
+def _kernels_per_forward(model, x, text) -> str:
+    """CUDA kernels one fused-scoring forward launches, in all and inside
+    the ConvBlocks, from torch.profiler's device records (or 'not
+    measured' where the profiler shows none)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from yoloclip_tpu_torch.models.layers import ConvBlock
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, ConvBlock):
+            ctx = {}
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, a, ctx=ctx: ctx.update(
+                    r=record_function('convblock').__enter__())))
+            hooks.append(m.register_forward_hook(
+                lambda mod, a, o, ctx=ctx: ctx['r'].__exit__(None, None,
+                                                             None)))
+    with torch.inference_mode():
+        model(x, text, fused_scores=True)        # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(x, text, fused_scores=True)
+            torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    events = prof.events()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return 'not measured (the profiler recorded no device event)'
+
+    def in_block(e):
+        while e is not None:
+            if e.name == 'convblock':
+                return True
+            e = e.cpu_parent
+        return False
+    n_in = sum(len(e.kernels) for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.kernels and in_block(e))
+    return (f'{len(device)} device activities in all, {n_in} attributed to '
+            f'the ConvBlocks')
+
+
+def phase_int8_path(sim, nms, i8, det, bf, vocab_path, frames, card):
+    """The W8A8 path at variant 'n', 640 px, COCO-80, quantize_int8 on
+    INT8_CALIB seeded frames; bf16 and fp32 detect_batch at bs=32 (22
+    launches a forward), card vs CPU at bs=2 on the same quantized state,
+    img/s beside the float detectors (det, bf), stage times, a server.
+    Returns the launches of the path."""
+    from yoloclip_tpu_torch.inference.server import DetectionServer
+    from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP
+    from yoloclip_tpu_torch.ops.preprocess import letterbox_batch
+    rng = np.random.RandomState(70)
+    calib = torch.from_numpy(rng.randint(
+        0, 256, (INT8_CALIB, 480, 640, 3), dtype=np.uint8)).cuda()
+    q32 = _detector(vocab_path, host_preprocess='auto')
+    qbf = _detector(vocab_path, 'bfloat16')
+    secs = []
+    for d in (q32, qbf):
+        t0 = time.perf_counter()
+        d.quantize_int8(calib)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    print(f'[int8] quantize_int8 on {INT8_CALIB} seeded 480x640 frames '
+          f'(calibration forward + BN fold + quantize on the host): fp32 '
+          f'{secs[0]:.2f} s, bf16 {secs[1]:.2f} s  [{card}]')
+
+    _zero_int8(sim, nms, i8)
+    out_bf = qbf.detect_batch(frames)
+    torch.cuda.synchronize()
+    per_bf = i8.launches_bf16
+    out_32 = q32.detect_batch(frames)
+    torch.cuda.synchronize()
+    launches = _int8_counts(sim, nms, i8)
+    print(f'[int8] bf16 then fp32 detect_batch bs={BATCH}: launches '
+          f'{launches} (int8 conv a bf16 forward: {per_bf})')
+    require(per_bf == INT8_BLOCKS and launches['int8_conv'] == INT8_BLOCKS,
+            f'int8 conv launched {per_bf} / {launches["int8_conv"]} times '
+            f'a forward, not {INT8_BLOCKS}')
+    require(launches['similarity'] > 0 and launches['similarity_bf16'] > 0
+            and launches['nms'] > 0, 'int8 path: kernels 1 and 2')
+    for name, o in (('bf16', out_bf), ('fp32', out_32)):
+        require(_finite(o) and o['boxes'].shape[0] == BATCH,
+                f'int8 {name} detect_batch output')
+
+    # card vs CPU on the same quantized state, bs=2, fp32
+    cpu = YOLOCLIP(q32.model.cfg).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         q32.model.state_dict().items()})
+    with torch.inference_mode():
+        canv, _ = letterbox_batch(frames[:2], q32.image_size)
+    flips, total, worst, got, free, want = _int8_card_vs_cpu(
+        q32.model, cpu, canv, q32.offline_vocabulary)
+    top2 = want['similarity'].topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < XDEV_TIE_GAP
+    s_err = (got['scores'].cpu() - want['scores']).abs().max().item()
+    bad = int(((got['class_ids'].cpu() != want['class_ids']) & ~tie).sum())
+    gb, wb = got['boxes'].cpu(), want['boxes']
+    box_ok = torch.allclose(gb, wb, rtol=XDEV_BOX_RTOL, atol=XDEV_BOX_ATOL)
+    f_err = (got['scores'].cpu() - free['scores']).abs()
+    f_box = ((gb - free['boxes']).abs() / free['boxes'].abs().clamp_min(1))
+    print(f'[int8] bs=2 fp32 card vs CPU, same quantized state, every int8 '
+          f'block\'s input forced to the card\'s: int8 block outputs within '
+          f'{worst:.2e} relative (tol {INT8_TOL[torch.float32][0]:g}); '
+          f'max|score diff|={s_err:.3e} (tol {XDEV_SCORE_ATOL:g}), id '
+          f'mismatches outside near-ties={bad}, boxes within rtol '
+          f'{XDEV_BOX_RTOL:g} atol {XDEV_BOX_ATOL:g}={box_ok}. Free-running '
+          f'(not gated): {flips} of {total} int8 inputs ({flips / total:.2e})'
+          f' round to a neighbouring value, max|score diff| '
+          f'{f_err.max().item():.3e} (median {f_err.median().item():.2e}), '
+          f'box rel err max {f_box.max().item():.2e}')
+    require(worst <= INT8_TOL[torch.float32][0] and s_err <= XDEV_SCORE_ATOL
+            and bad == 0 and box_ok, 'int8 model: card and CPU disagree')
+    del cpu, got, want, free
+
+    # throughput beside the float detectors, in turns
+    rates = {}
+    for name, d in (('float fp32', det), ('int8 fp32', q32),
+                    ('int8 bf16', qbf), ('float bf16', bf)):
+        rates[name] = _img_per_s(d, frames)
+    print(f'[time] detect_batch bs={BATCH} 640px COCO-80, median of 10 '
+          f'synced calls, in this order: ' + ', '.join(
+              f'{k} {v:.1f} img/s' for k, v in rates.items())
+          + f'  [{card}]')
+    with torch.inference_mode():
+        canv, _ = letterbox_batch(frames[:2], q32.image_size)
+    for name, d in (('float fp32', det), ('float bf16', bf),
+                    ('int8 fp32', q32), ('int8 bf16', qbf)):
+        print(f'[int8] CUDA kernels of one bs=2 forward, {name}: '
+              f'{_kernels_per_forward(d.model, canv, d.offline_vocabulary)}')
+    for name, d in (('int8 fp32', q32), ('int8 bf16', qbf)):
+        ms = _stage_ms(d, frames, sim)
+        print(f'[stages] {name}, bs={BATCH}, 640 px, device ms of each '
+              f'stage alone: ' + ', '.join(f'{k} {v:.3f}'
+                                            for k, v in ms.items())
+              + f'  [{card}]')
+
+    # the server with the int8 detector: 8 mixed requests vs detect()
+    q32.conf_threshold = -1.0
+    reqs = _mixed_frames(71, 8)
+    _zero_int8(sim, nms, i8)
+    with DetectionServer(q32, max_batch=BATCH, max_delay_ms=300.0) as srv:
+        futs = [srv.submit(f) for f in reqs]
+        served = [f.result(timeout=120) for f in futs]
+    torch.cuda.synchronize()
+    srv_launches = _int8_counts(sim, nms, i8)
+    require(srv_launches['int8_conv'] == INT8_BLOCKS,
+            f'int8 server batch: {srv_launches}')
+    # the served detections are the canvas program's on the same batch
+    from yoloclip_tpu_torch.inference.detector import _unpack_detections
+    lbs = [q32._host_letterbox(f) for f in reqs]
+    canvases = [c for c, _ in lbs]
+    packed = q32._detect_canvases(
+        torch.from_numpy(np.stack(canvases)).cuda(), q32.offline_vocabulary,
+        torch.tensor([sc for _, sc in lbs], device='cuda'),
+        torch.tensor([[f.shape[1], f.shape[0]] for f in reqs],
+                     dtype=torch.float32, device='cuda')).cpu().numpy()
+    require(all(g_ == _unpack_detections(packed[i], q32.class_names)[0]
+                for i, g_ in enumerate(served)),
+            'int8 server: detections differ from the canvas program on the '
+            'same batch')
+    batch_scores, _, _ = _pre_nms_scores(q32, canvases)
+    single = [_pre_nms_scores(q32, [c])[0][0] for c in canvases]
+    delta = max((batch_scores[i] - single[i]).abs().max().item()
+                for i in range(len(reqs)))
+    # int8 rounding flips between the batch and a single frame can move a
+    # score by more than float noise: the measured delta bounds it
+    compared = [_check_detections(f'int8 server request {i}', g_, w_,
+                                  single[i], delta, q32.config.nms_topk,
+                                  max(XDEV_SCORE_ATOL, delta))
+                for i, (g_, w_) in enumerate(
+                    zip(served, [q32.detect(f) for f in reqs]))]
+    print(f'[int8] server, fp32 int8 detector, conf -1.0: 8 mixed requests '
+          f'in one batch: identical to the canvas program on the same batch;'
+          f' vs detect() on each frame: pre-NMS max|score diff| batch vs '
+          f'single={delta:.3e} (int8 rounding flips), detections compared '
+          f'(above the first possible order flip) / kept: {compared}; '
+          f'launches {srv_launches}')
+    return {k: launches[k] + srv_launches[k] for k in launches}
+
+
+def phase_stems(sim, nms, vocab_path, frames) -> dict:
+    """stem_s2d and stem_u8_s2d detectors (fp32, the same seeded weights)
+    against the plain stem on the same frames: pre-NMS outputs within
+    STEM_TOL, ids exact outside near-ties; detect_batch runs. Returns the
+    launches of the two detect_batch calls."""
+    from yoloclip_tpu_torch.ops.preprocess import (letterbox_batch,
+                                                   letterbox_batch_u8_s2d)
+    base = _detector(vocab_path)
+    text = base.offline_vocabulary
+    with torch.inference_mode():
+        canv, _ = letterbox_batch(frames, base.image_size)
+        want = base.model(canv, text)
+    top2 = want['similarity'].topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < STEM_TIE_GAP
+    del base
+    total = {}
+    for flag in ('stem_s2d', 'stem_u8_s2d'):
+        d = _detector(vocab_path, model_kw={flag: True})
+        with torch.inference_mode():
+            x = (letterbox_batch_u8_s2d(frames, d.image_size)[0]
+                 if flag == 'stem_u8_s2d' else canv)
+            got = d.model(x, text)
+        tol = STEM_TOL[flag]
+        box_ok = torch.allclose(got['boxes'], want['boxes'],
+                                rtol=tol['box'][0], atol=tol['box'][1])
+        score_ok = torch.allclose(got['scores'], want['scores'],
+                                  rtol=tol['score'][0], atol=tol['score'][1])
+        bad = int(((got['class_ids'] != want['class_ids']) & ~tie).sum())
+        s_err = (got['scores'] - want['scores']).abs().max().item()
+        _zero_counts(sim, nms)
+        out = d.detect_batch(frames)
+        torch.cuda.synchronize()
+        launches = _counts(sim, nms)
+        print(f'[stems] {flag} vs the plain stem, fp32, bs={BATCH}: '
+              f'max|score diff|={s_err:.3e}, scores within rtol '
+              f'{tol["score"][0]:g} atol {tol["score"][1]:g}={score_ok}, '
+              f'boxes within rtol {tol["box"][0]:g} atol {tol["box"][1]:g}'
+              f'={box_ok}, id mismatches outside near-ties={bad}; '
+              f'detect_batch launches {launches}')
+        require(box_ok and score_ok and bad == 0 and _finite(out)
+                and launches['similarity'] > 0 and launches['nms'] > 0,
+                f'{flag} disagrees with the plain stem')
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        del d, got, out
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this run '
@@ -1459,6 +1990,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from yoloclip_tpu_torch import _build
+    from yoloclip_tpu_torch.ops.kernels import int8_conv as i8
     from yoloclip_tpu_torch.ops.kernels import nms, similarity as sim
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1469,6 +2001,8 @@ def main() -> int:
     k1_err = phase_kernel1(sim)
     nms_err = phase_kernel2(nms)
     k3_err = phase_kernel3(sim)
+    shapes = eligible_shapes()
+    i8_err = phase_int8_kernel(i8, shapes)
     lvis_vocab = phase_text(card)
 
     rng = np.random.RandomState(0)
@@ -1483,22 +2017,28 @@ def main() -> int:
                                                   lvis_vocab)
         res = phase_timing(det, bf, lvis_det, frames, sim, nms, card)
         del lvis_det
-        paths = [main_launches, prompt_launches,
+        res_i8 = time_int8(i8, shapes, card)
+        int8_launches = phase_int8_path(sim, nms, i8, det, bf, vocab_path,
+                                        frames, card)
+        stem_launches = phase_stems(sim, nms, vocab_path, frames)
+        paths = [main_launches, prompt_launches, int8_launches,
+                 stem_launches,
                  *phases_serving(sim, nms, det, bf, vocab_path, tmp, card)]
     # every path's launches, each counted from 0 just before it ran
     launched = {k: sum(p.get(k, 0) for p in paths)
-                for k in ('similarity', 'similarity_bf16', 'nms')}
+                for k in ('similarity', 'similarity_bf16', 'nms',
+                          'int8_conv', 'int8_conv_bf16')}
 
     require(not any(m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                         'yoloclip_tpu')
                     for m in sys.modules), 'the port imported JAX')
 
-    def entry(name, source, replaces, key, n, err):
-        ms, _, plain, bms, bby = res[key]
+    def entry(name, source, replaces, timing, n, err):
+        ms, _, plain, bms, bby, *lib = timing
         return {'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, 'launches': n, 'max_abs_err': err,
                 'ms': ms, 'plain_ms': plain, 'bound_ms': bms,
-                'bound_by': bby, 'library_ms': None}
+                'bound_by': bby, 'library_ms': lib[0] if lib else None}
 
     f32, b16 = torch.float32, torch.bfloat16
     sim_src = 'yoloclip_tpu_torch/csrc/similarity.cu'
@@ -1506,20 +2046,28 @@ def main() -> int:
               'yoloclip_tpu/ops/pallas/similarity.py:110')
     kernels = [
         entry('fused_projected_similarity_argmax[float32]', sim_src, k1,
-              ('similarity', f32), launched['similarity'], k1_err[f32]),
+              res[('similarity', f32)], launched['similarity'],
+              k1_err[f32]),
         entry('fused_projected_similarity_argmax[bfloat16]', sim_src, k1,
-              ('similarity', b16), launched['similarity_bf16'],
+              res[('similarity', b16)], launched['similarity_bf16'],
               k1_err[b16]),
         entry('nms_keep', 'yoloclip_tpu_torch/csrc/nms.cu',
-              'yoloclip_tpu/ops/pallas/nms.py:103', ('nms', f32),
+              'yoloclip_tpu/ops/pallas/nms.py:103', res[('nms', f32)],
               launched['nms'], nms_err),
         entry('fused_similarity_argmax[float32]', sim_src, k3,
-              ('unprojected', f32),
+              res[('unprojected', f32)],
               prompt_launches['similarity_unprojected'], k3_err[f32]),
         entry('fused_similarity_argmax[bfloat16]', sim_src, k3,
-              ('unprojected', b16),
+              res[('unprojected', b16)],
               prompt_launches['similarity_unprojected_bf16'], k3_err[b16]),
     ]
+    for dt in (f32, b16):
+        kernels.append(entry(
+            f'int8_conv[{str(dt)[6:]}]',
+            'yoloclip_tpu_torch/csrc/int8_conv.cu',
+            'yoloclip_tpu/models/layers.py:269', res_i8[dt],
+            launched['int8_conv' if dt == f32 else 'int8_conv_bf16'],
+            i8_err[dt]))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """The port's CLIs on the CPU (`python -m yoloclip_tpu_torch.cli.<name>`,
 driven in-process through `main(argv)`): detect on a PNG with a COCO
-results file, stream, warmup and demo; and the port's copy of
-`load_config` against the JAX package's on a small YAML with an include.
+results file, stream, warmup and demo, each also with --int8 where the
+JAX CLI has it; and the port's copy of `load_config` against the JAX
+package's on a small YAML with an include.
 """
 
 import json
@@ -90,8 +91,15 @@ def test_detect_cli_prompts_and_int8(files):
                         '--text_prompts', 'a cat,a dog', '--conf', '-1',
                         '--device', 'cpu', '--text-checkpoint', tower,
                         '--output', str(d / 'prompts')]) == 0
-    with pytest.raises(NotImplementedError, match='ROADMAP.*int8 deploy'):
-        detect.main(['--input', png, '--int8', '--device', 'cpu'])
+    # --int8: calibrated on the input, the W8A8 graph on the CPU
+    results = d / 'int8.json'
+    assert detect.main(['--input', png, '--config', cfg, '--classes', 'a,b',
+                        '--int8', '--conf', '-1', '--device', 'cpu',
+                        '--text-checkpoint', tower, '--output',
+                        str(d / 'int8'), '--coco-json', str(results)]) == 0
+    entries = json.loads(results.read_text())
+    assert len(entries) == 5 and all(e['category_id'] in (0, 1)
+                                     for e in entries)
 
 
 def test_stream_cli(files, caplog):
@@ -102,8 +110,11 @@ def test_stream_cli(files, caplog):
                         '96x160', '--conf', '-1',
                         '--device', 'cpu', '--text-checkpoint', tower]) == 0
     assert '2 streams x 2 steps' in caplog.text
-    with pytest.raises(NotImplementedError, match='ROADMAP.*int8 deploy'):
-        stream.main(['--int8', '--device', 'cpu'])
+    caplog.clear()
+    assert stream.main(['--int8', '--streams', '2', '--steps', '1',
+                        '--frame-size', '96x160', '--conf', '-1',
+                        '--device', 'cpu', '--text-checkpoint', tower]) == 0
+    assert '2 streams x 1 steps' in caplog.text
 
 
 def test_stream_image_dir_source(files):
@@ -114,16 +125,21 @@ def test_stream_image_dir_source(files):
     assert batch.shape == (3, 64, 80, 3) and batch.dtype == np.uint8
 
 
-def test_warmup_cli(caplog):
+def test_warmup_cli(files, caplog):
     from yoloclip_tpu_torch import _build
     from yoloclip_tpu_torch.cli import warmup
+    _, tower, _, _, _ = files
     caplog.set_level('INFO')
     assert warmup.main(['--device', 'cpu']) == 0
     assert 'native/dataload.cpp built and loaded' in caplog.text
     assert 'csrc/' not in caplog.text          # no nvcc on the CPU route
     assert _build._native_out('dataload').exists()
-    with pytest.raises(NotImplementedError, match='ROADMAP.*int8 deploy'):
-        warmup.main(['--int8', '--device', 'cpu'])
+    for extra in ([], ['--stem-u8-s2d']):
+        caplog.clear()
+        assert warmup.main(['--int8', '--device', 'cpu', '--image-size',
+                            '64', '--text-checkpoint', tower] + extra) == 0
+        assert 'quantize_int8 calibration' in caplog.text
+        assert 'int8 detect_batch bs=2 @64px' in caplog.text
 
 
 def test_demo_cli(files):

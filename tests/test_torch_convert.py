@@ -1,12 +1,15 @@
 """The port's own copies of the JAX package's framework-neutral modules:
-the flax -> torch key map and the config dataclasses.
+the flax -> torch key map, the config dataclasses, and the int8 deploy
+graph's helpers (`quant_eligible` and its thresholds, `space_to_depth2`,
+`s2d_kernel3`).
 
 Exact: the same keys, the same arrays bit for bit, the same field names
-and defaults.
+and defaults, the same predicate on every width.
 """
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -78,3 +81,26 @@ def test_config_fields_and_defaults_match_jax():
         assert p.feature_channels() == j.feature_channels()
         assert p.num_anchors() == j.num_anchors()
         assert p.level_shapes() == j.level_shapes()
+
+
+def test_int8_helpers_match_jax():
+    from yoloclip_tpu.models import layers as jl
+    from yoloclip_tpu_torch.models import layers
+    assert (layers.INT8_MIN_CH, layers.INT8_MAX_CH) == (jl.INT8_MIN_CH,
+                                                        jl.INT8_MAX_CH)
+    widths = (3, 8, 16, 32, 48, 63, 64, 80, 96, 127, 128, 160, 256, 320)
+    for k in (1, 3, 5):
+        for cin in widths:
+            for cout in widths:
+                assert layers.quant_eligible(k, cin, cout) == \
+                    jl.quant_eligible(k, cin, cout), (k, cin, cout)
+    rng = np.random.RandomState(6)
+    x = rng.rand(2, 6, 8, 5).astype(np.float32)
+    np.testing.assert_array_equal(
+        layers.space_to_depth2(torch.from_numpy(x)).numpy(),
+        np.asarray(jl.space_to_depth2(jnp.asarray(x))))
+    for c in (3, 5):
+        w = rng.randn(3, 3, c, 7).astype(np.float32)
+        np.testing.assert_array_equal(
+            layers.s2d_kernel3(torch.from_numpy(w)).numpy(),
+            np.asarray(jl.s2d_kernel3(jnp.asarray(w))))

@@ -241,8 +241,9 @@ def test_draw_detections(pair):
 
 
 def test_unported_paths_raise(pair, weights, tower_npz, tmp_path):
-    """int8 and orbax checkpoints still raise; host_preprocess=True, once
-    refused here, now runs the canvas path."""
+    """Orbax checkpoints still raise; host_preprocess=True and
+    quant='int8', once refused here, now run (an int8 config from a seed:
+    random float layers, untrained int8 blocks)."""
     _, det, cfg, path = pair
     host = InferenceConfig(model=cfg.model, host_preprocess=True,
                            conf_threshold=-1.0, nms_topk=16,
@@ -255,9 +256,12 @@ def test_unported_paths_raise(pair, weights, tower_npz, tmp_path):
     assert all(0 <= d['box'][0] <= d['box'][2] <= 90
                and 0 <= d['box'][1] <= d['box'][3] <= 40 for d in got)
     int8 = InferenceConfig(model=ModelConfig(image_size=(SIZE, SIZE),
-                                             quant='int8'))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        YOLOCLIPDetector(int8, vocab_path=path, device='cpu')
+                                             quant='int8'),
+                           conf_threshold=-1.0, nms_topk=16,
+                           max_detections=4)
+    qdet = YOLOCLIPDetector(int8, vocab_path=path, device='cpu')
+    got = qdet.detect(img)
+    assert 0 < len(got) <= 4 and all(np.isfinite(d['score']) for d in got)
     with pytest.raises(NotImplementedError, match='ROADMAP'):   # orbax dir
         YOLOCLIPDetector(cfg, vocab_path=path, text_checkpoint=str(tmp_path),
                          device='cpu')

@@ -4,7 +4,9 @@ In a fresh interpreter: import every `yoloclip_tpu_torch` module, run a
 tiny CPU `detect_batch` from a JSON vocabulary, build a detector from class
 names with a miniature text tower and run `detect` with free-text prompts,
 serve one request through a `DetectionServer` (the native host letterbox)
-and close it, run one `StreamingDetector.step`, then check that neither
+and close it, run one `StreamingDetector.step`, quantize the detector to
+the int8 deploy graph (`quantize_int8`) and run a `detect_batch`, then
+check that neither
 jax, jaxlib, flax nor any module of the JAX package (`yoloclip_tpu`) was
 imported.
 """
@@ -68,6 +70,10 @@ sd = StreamingDetector(det.model, det.offline_vocabulary, 2, (48, 64), cfg,
                        device='cpu')
 out = sd.step(np.zeros((2, 48, 64, 3), np.uint8))
 assert out['boxes'].shape == (2, 8, 4) and bool((out['count'] > 0).all())
+det.quantize_int8(np.random.RandomState(1).randint(0, 256, (2, 48, 64, 3),
+                                                   dtype=np.uint8))
+out = det.detect_batch(np.zeros((2, 48, 64, 3), np.uint8))
+assert det.config.model.quant == 'int8' and out['boxes'].shape == (2, 8, 4)
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                                'yoloclip_tpu'))))

@@ -1,11 +1,16 @@
 """The port's `inference/streaming.py::StreamingDetector` on the CPU: one
 `step` against JAX `StreamingDetector.step` (2 streams, variant 'n',
 128 px, the same JAX random-init weights and numpy frames), then the
-pipelined `run`'s ordering and stats.
+pipelined `run`'s ordering and stats; and one `step` of a detector's
+int8 deploy graph (`quantize_int8`, also with the uint8 space-to-depth
+stem) against that detector's `detect_batch` on the same frames.
 
 Tolerances: counts, validity, saturation flags and class ids exact;
 scores atol 1e-5; boxes (rescaled and clipped to the frame) atol 1e-3 px.
 """
+
+import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +24,7 @@ from yoloclip_tpu.inference.streaming import (
     StreamingDetector as JaxStreamingDetector)
 from yoloclip_tpu.models.yolo_clip import YOLOCLIP as JaxYOLOCLIP
 from yoloclip_tpu_torch.config import InferenceConfig, ModelConfig
+from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
 from yoloclip_tpu_torch.inference.streaming import StreamingDetector
 from yoloclip_tpu_torch.models.yolo_clip import build_model
 from yoloclip_tpu_torch.utils.convert import state_dict_from_jax
@@ -98,3 +104,29 @@ def test_mesh_not_ported(setup):
     with pytest.raises(NotImplementedError, match='ROADMAP.*multi-device'):
         StreamingDetector(model, text, 2, HW, cfg, device='cpu',
                           mesh=object())
+
+
+@pytest.mark.parametrize('stem_u8_s2d', [False, True])
+def test_step_int8_matches_detect_batch(setup, tmp_path, stem_u8_s2d):
+    """A quantized detector's model and vocabulary behind one streaming
+    step give exactly its detect_batch on the same frames (both run the
+    same CPU ops); under stem_u8_s2d both letterbox to the uint8
+    space-to-depth canvas."""
+    _, cfg, variables, _, text = setup
+    path = str(tmp_path / 'vocab.json')
+    with open(path, 'w') as f:
+        json.dump({n: v.tolist() for n, v in zip('abc', text)}, f)
+    icfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, stem_u8_s2d=stem_u8_s2d))
+    det = YOLOCLIPDetector(icfg, vocab_path=path, device='cpu',
+                           state_dict=state_dict_from_jax(variables,
+                                                          cfg.model))
+    det.quantize_int8(frames(20))
+    sd = StreamingDetector(det.model, det.offline_vocabulary, 2, HW,
+                           det.config, device='cpu')
+    f = frames(21)
+    got, want = sd.step(f), det.detect_batch(f)
+    assert det.config.model.quant == 'int8' and set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert (got['count'] > 0).all()

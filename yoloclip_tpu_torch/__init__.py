@@ -17,6 +17,11 @@ nvcc at first use (`_build.py`):
   * `ops/kernels/nms.py` -- the exact greedy NMS keep mask (replaces
     `yoloclip_tpu/ops/pallas/nms.py::nms_keep_pallas`).
 
+The W8A8 int8 deploy graph (`ops/quantize.py`) adds one kernel with no
+Pallas twin: `ops/kernels/int8_conv.py` (`csrc/int8_conv.cu`), the
+quantize -> s8 x s8 -> s32 conv -> dequant + bias + SiLU of an eligible
+ConvBlock, which replaces the XLA int8 conv of the JAX package's ConvBlock.
+
 Each kernel wrapper runs its plain PyTorch version for CPU tensors only;
 for CUDA tensors it launches the kernel or raises.
 

@@ -38,13 +38,16 @@ _GXX_FLAGS = ['-O3', '-march=native', '-fPIC', '-shared', '-std=c++17',
               '-Wall']
 _CODEC_LIBS = ['-ljpeg', '-lpng']
 
-# Per-source extra flags. nms.cu must not contract its IoU arithmetic into
-# FMAs: its keep mask is compared bit for bit with the plain PyTorch
-# version, whose elementwise ops each round separately.
+# Per-source extra flags. nms.cu and int8_conv.cu must not contract their
+# arithmetic into FMAs: the keep mask and the int8 conv's pre-SiLU values
+# are compared bit for bit with the plain PyTorch versions, whose
+# elementwise ops each round separately.
 _EXTRA_FLAGS: Dict[str, List[str]] = {
     'similarity': [],
     'nms': ['-fmad=false'],
+    'int8_conv': ['-fmad=false'],
 }
+KERNELS = tuple(_EXTRA_FLAGS)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -150,7 +153,7 @@ def load_native(name: str = 'dataload') -> ctypes.CDLL:
         return lib
 
 
-def build_all(names: Sequence[str] = ('similarity', 'nms'),
+def build_all(names: Sequence[str] = KERNELS,
               native: Sequence[str] = ('dataload',)) -> Dict[str, str]:
     """Compile every kernel source and native library from scratch, one
     nvcc or g++ per source, all started together, then load them. Call

@@ -8,8 +8,8 @@ Usage:
     python -m yoloclip_tpu_torch.cli.detect --input images/ \
         --text_prompts "a red car,a person" --coco-json dets.json
 
---int8 is not ported yet (ROADMAP.md, queue A: int8 deploy) and raises
-NotImplementedError.
+--int8 serves the W8A8 deploy graph, its activation scales calibrated on
+up to the first 8 inputs (each letterboxed to the model canvas first).
 """
 
 from __future__ import annotations
@@ -47,7 +47,10 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument('--backbone', type=str, default=None,
                    help='Backbone variant (n/s/m/l/x)')
     p.add_argument('--int8', action='store_true',
-                   help='the W8A8 deploy graph (not ported yet)')
+                   help='serve the W8A8 selective-int8 deploy graph '
+                        '(activation scales calibrated on up to the first '
+                        '8 input images; with a single input, calibration '
+                        'is single-image and correspondingly weaker)')
     p.add_argument('--text-checkpoint', type=str, default=None,
                    help='Converted CLIP text-tower weights (.npz/.pt)')
     p.add_argument('--device', type=str, default='cuda',
@@ -63,9 +66,6 @@ def parse_args(argv: Optional[List[str]] = None):
 def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
-    if args.int8:
-        raise NotImplementedError('--int8 is not ported yet (ROADMAP.md, '
-                                  'queue A: int8 deploy)')
 
     from yoloclip_tpu_torch.config import InferenceConfig, load_config
     from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
@@ -108,6 +108,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                        if f.lower().endswith(exts))
     else:
         paths = [args.input]
+
+    if args.int8:
+        if not paths:
+            logger.warning('--int8: no input images found, nothing to do')
+            return 1
+        import numpy as np
+
+        from yoloclip_tpu_torch.data.coco import _imread_rgb
+        # inputs may differ in size: letterbox each to the model canvas
+        calib = np.stack([detector._host_letterbox(_imread_rgb(p))[0]
+                          for p in paths[:8]])
+        detector.quantize_int8(calib)
 
     os.makedirs(cfg.output_dir, exist_ok=True)
     coco_results = []

@@ -8,6 +8,9 @@ Counterpart of `yoloclip_tpu/cli/serve.py`.
     python -m yoloclip_tpu_torch.cli.serve --device cpu --image-size 128 \
         --classes cat,dog --conf -1 --port 18231
 
+    # serve COCO-80 int8 (calibrated on a directory of images):
+    python -m yoloclip_tpu_torch.cli.serve --int8 --calib-dir samples/
+
     # query it:
     curl -s -X POST --data-binary @dog.jpg localhost:8000/detect
     curl -s localhost:8000/stats
@@ -26,10 +29,11 @@ Concurrent requests from `ThreadingHTTPServer`'s per-client threads block
 on futures from ONE `DetectionServer` (`inference/server.py`), which
 coalesces them into device batches.
 
-Not ported yet, and refused with NotImplementedError: --int8 and
---stem-u8-s2d (ROADMAP.md, queue A: int8 deploy), --devices and --spatial
-(queue A: multi-device), and an orbax checkpoint directory as --model
-(queue A: orbax checkpoints).
+--int8 serves the W8A8 deploy graph, its activation scales calibrated on
+up to 16 images of --calib-dir; --stem-u8-s2d the uint8 space-to-depth
+stem layout. Not ported yet, and refused with NotImplementedError:
+--devices and --spatial (ROADMAP.md, queue A: multi-device), and an orbax
+checkpoint directory as --model (queue A: orbax checkpoints).
 """
 
 from __future__ import annotations
@@ -135,10 +139,6 @@ def make_handler(server):
 
 def build_server(args):
     """args -> (DetectionServer, detector). Split out for tests."""
-    if args.int8 or getattr(args, 'stem_u8_s2d', False):
-        raise NotImplementedError(
-            '--int8 and --stem-u8-s2d are not ported yet (ROADMAP.md, '
-            'queue A: int8 deploy)')
     if args.devices or int(getattr(args, 'spatial', 1) or 1) > 1:
         raise NotImplementedError(
             '--devices and --spatial are not ported yet (ROADMAP.md, '
@@ -153,13 +153,31 @@ def build_server(args):
     cfg = InferenceConfig(
         model=ModelConfig(backbone_variant=args.variant,
                           image_size=(args.image_size, args.image_size),
-                          dtype='bfloat16'),
+                          dtype='bfloat16', stem_u8_s2d=args.stem_u8_s2d),
         class_names=tuple(classes),
         conf_threshold=args.conf, iou_threshold=args.iou)
     detector = YOLOCLIPDetector(cfg, vocab_path=args.vocab or None,
                                 model_path=args.model,
                                 text_checkpoint=args.text_checkpoint,
                                 device=args.device)
+    if args.int8:
+        if not args.calib_dir:
+            raise SystemExit('--int8 needs --calib-dir (a directory of '
+                             'representative images for activation '
+                             'calibration)')
+        import os
+
+        from yoloclip_tpu_torch.data.coco import _imread_rgb
+        exts = ('.jpg', '.jpeg', '.png')
+        paths = sorted(
+            os.path.join(args.calib_dir, f)
+            for f in os.listdir(args.calib_dir)
+            if f.lower().endswith(exts))[:16]
+        if not paths:
+            raise SystemExit(f'no jpg/png files in {args.calib_dir}')
+        detector.quantize_int8(np.stack(
+            [detector._host_letterbox(_imread_rgb(p))[0] for p in paths]))
+        logger.info('int8 deploy path calibrated on %d images', len(paths))
     return DetectionServer(detector, max_batch=args.max_batch,
                            max_delay_ms=args.max_delay_ms,
                            bucket_batches=not args.no_bucket), detector
@@ -183,12 +201,15 @@ def parse_args(argv=None):
                     help="'cuda' (the kernels) or 'cpu' (their plain "
                          'versions)')
     ap.add_argument('--int8', action='store_true',
-                    help='the W8A8 deploy configuration (not ported yet)')
+                    help='serve the W8A8 deploy configuration')
+    ap.add_argument('--calib-dir', default=None,
+                    help='directory of images for int8 calibration')
     ap.add_argument('--max-batch', type=int, default=32)
     ap.add_argument('--max-delay-ms', type=float, default=5.0)
     ap.add_argument('--stem-u8-s2d', action='store_true',
-                    help='the uint8 space-to-depth stem layout (not ported '
-                         'yet)')
+                    help='serve the uint8 space-to-depth stem layout (the '
+                         'canvas program space-to-depths the uint8 canvas '
+                         'on the card; /255 folded into the stem kernel)')
     ap.add_argument('--no-bucket', action='store_true',
                     help='always dispatch max_batch-shaped batches instead '
                          'of padding to the smallest power-of-two bucket')
@@ -212,9 +233,9 @@ def main(argv=None) -> int:
     server.reset_stats()
     logger.info('warmup: %s', ', '.join(f'bs={b} {s:.2f}s'
                                         for b, s in seconds.items()))
-    logger.info('serving %d classes (%s, bf16) on %s:%d',
-                len(detector.class_names), args.variant, args.host,
-                args.port)
+    logger.info('serving %d classes (%s, %s) on %s:%d',
+                len(detector.class_names), args.variant,
+                'int8' if args.int8 else 'bf16', args.host, args.port)
 
     httpd = ThreadingHTTPServer((args.host, args.port),
                                 make_handler(server))

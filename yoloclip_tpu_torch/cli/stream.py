@@ -18,8 +18,9 @@
 
 This fronts `inference/streaming.py`: one batch per step over all streams
 (device letterbox -> forward -> batched NMS), frame acquisition
-double-buffered against device work. --int8 is not ported yet
-(ROADMAP.md, queue A: int8 deploy) and raises NotImplementedError.
+double-buffered against device work. --int8 serves the W8A8 deploy graph,
+calibrated on the first frame batch of the sources (a video or image
+directory source advances past it).
 """
 
 from __future__ import annotations
@@ -132,11 +133,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="'cuda' (the kernels) or 'cpu' (their plain "
                          'versions)')
     ap.add_argument('--int8', action='store_true',
-                    help='the W8A8 deploy graph (not ported yet)')
+                    help='serve the W8A8 selective-int8 deploy graph '
+                         '(calibrated on the first frames of each stream)')
     args = ap.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError('--int8 is not ported yet (ROADMAP.md, '
-                                  'queue A: int8 deploy)')
 
     from yoloclip_tpu_torch.config import InferenceConfig
     from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
@@ -163,6 +162,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         n_streams = args.streams
         source = _synthetic_source(n_streams, (h, w))
 
+    if args.int8:
+        first = source(0)
+        if first is None:
+            raise SystemExit('--int8 calibration failed: the frame source '
+                             'produced no frames (empty/corrupt input?)')
+        det.quantize_int8(first)      # keeps det.config.model in step
     sd = StreamingDetector(det.model, det.offline_vocabulary, n_streams,
                            frame_hw=(h, w), config=det.config,
                            device=args.device)

@@ -54,8 +54,10 @@ class ModelConfig:
     cls_beta: float = 0.0
     image_size: Tuple[int, int] = (640, 640)
     dtype: str = 'float32'         # compute dtype: 'float32' | 'bfloat16'
-    # Not ported yet (the model raises for anything but the defaults):
-    quant: str = 'none'            # 'none'|'calib'|'calib_pct'|'int8'
+    # 'none' | 'int8' (the W8A8 deploy graph, ops/quantize.py); the JAX
+    # package's 'calib'/'calib_pct' graphs are forward hooks here
+    # (ops/quantize.py::calibrate_amax), so the model refuses them.
+    quant: str = 'none'
     stem_s2d: bool = False         # stem as a 2x2 conv over space-to-depth
     stem_u8_s2d: bool = False      # uint8 space-to-depth canvas input
 

@@ -19,8 +19,12 @@ does: the frame is letterboxed on the host (the native C++ library,
 the native library or an error, never a substitute. host_preprocess=False
 letterboxes on the device.
 
-Not ported yet, and refused with NotImplementedError rather than replaced
-by something else: int8 and the space-to-depth stems.
+`quantize_int8` swaps the model for its W8A8 int8 deploy graph
+(`ops/quantize.py`), folded from the fp32 weights the detector was built
+from; under `ModelConfig.stem_u8_s2d` every path feeds the model the uint8
+space-to-depth canvas. In bf16 only the convs, linears and attention are
+cast (`models/yolo_clip.py::cast_compute_dtype`): BatchNorm and the obj_2
+projection stay fp32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,10 +40,13 @@ import torch
 
 from yoloclip_tpu_torch import native
 from yoloclip_tpu_torch.config import InferenceConfig
-from yoloclip_tpu_torch.models.yolo_clip import build_model
+from yoloclip_tpu_torch.models.layers import space_to_depth2
+from yoloclip_tpu_torch.models.yolo_clip import (build_model,
+                                                 cast_compute_dtype)
 from yoloclip_tpu_torch.ops.nms import batched_nms, nms_fixed
-from yoloclip_tpu_torch.ops.preprocess import (letterbox, letterbox_batch,
+from yoloclip_tpu_torch.ops.preprocess import (letterbox_batch_for,
                                                rescale_boxes)
+from yoloclip_tpu_torch.ops.quantize import float_state, quantize_model
 from yoloclip_tpu_torch.text.encoder import CLIPTextEncoder
 from yoloclip_tpu_torch.text.vocab import VocabularyBuilder
 from yoloclip_tpu_torch.utils.visualize import draw_detections
@@ -140,9 +147,12 @@ class YOLOCLIPDetector:
                            '(shape/latency bring-up mode)')
         dtype = (torch.bfloat16 if cfg.model.dtype == 'bfloat16'
                  else torch.float32)
-        self.model = build_model(cfg.model, state_dict, seed).to(
-            device=self.device, dtype=dtype,
-            memory_format=torch.channels_last)
+        model = build_model(cfg.model, state_dict, seed)
+        # the fp32 weights the model is built from: quantize_int8 folds
+        # from these, never from the compute-dtype model
+        self._float_state = float_state(model)
+        self.model = cast_compute_dtype(model.to(self.device), dtype)
+        self.quantized = False
         self.text_encoder = CLIPTextEncoder(
             cfg.model.clip_model, cfg.model.embed_dim,
             checkpoint_path=text_checkpoint, seed=seed,
@@ -161,6 +171,45 @@ class YOLOCLIPDetector:
             self.load_offline_vocabulary(vocab_path)
         elif class_names is not None or cfg.use_offline_vocab:
             self.set_offline_vocabulary(self.class_names)
+
+    def quantize_int8(self, calib_images, calibration: str = 'max') -> None:
+        """Swap the model for its W8A8 int8 deploy graph (`ops/quantize.py`),
+        as the JAX detector's `quantize_int8` does.
+
+        calib_images: (N, H, W, 3) uint8/float frames of one size (or one
+        frame), letterboxed to the model canvas (the uint8 space-to-depth
+        canvas under stem_u8_s2d) to calibrate the activation scales
+        against the offline vocabulary, else the class names through the
+        text tower, else 80 unit-normal rows from a generator seeded 0.
+        calibration: 'max' or 'percentile'. The weights fold from the fp32
+        state the detector was built from. The whole serve graph stays
+        (I-Pool included, in float), so prompts and vocabulary swaps keep
+        working. Irreversible: a second call raises."""
+        if self.quantized:
+            raise RuntimeError('detector is already quantized (the swap is '
+                               'irreversible); build a new YOLOCLIPDetector '
+                               'to requantize from float weights')
+        imgs = torch.as_tensor(calib_images, device=self.device)
+        if imgs.dim() == 3:
+            imgs = imgs[None]
+        canvases, _ = letterbox_batch_for(self.config.model)(
+            imgs, self.image_size)
+        if self.offline_vocabulary is not None:
+            text = self.offline_vocabulary
+        elif self.class_names:
+            text = self.text_encoder(self.class_names)
+        else:
+            text = torch.randn((80, self.config.model.embed_dim),
+                               generator=torch.Generator().manual_seed(0))
+            text = (text / text.norm(dim=-1, keepdim=True)).to(self.device)
+        self.model = quantize_model(self.model, self._float_state,
+                                    [(canvases, text)], calibration)
+        # keep config.model in step, so callers passing self.config on
+        # (the stream CLI) see the int8 graph
+        self.config = dataclasses.replace(
+            self.config, model=dataclasses.replace(self.config.model,
+                                                   quant='int8'))
+        self.quantized = True
 
     def _check_text_quality(self) -> None:
         issues = self.text_encoder.quality_issues()
@@ -221,8 +270,12 @@ class YOLOCLIPDetector:
         packed detections (B, max_det + 1, 6) on the device. The JAX
         package's canvas program (`_build_detect_canvas_fn`, and the
         server's batched twin): /255, the model, boxes / scale, clip to
-        the frame, NMS, pack."""
-        x = canvases.float() / 255.0
+        the frame, NMS, pack. Under stem_u8_s2d the model takes the
+        canvases space-to-depth'd, as uint8."""
+        if self.config.model.stem_u8_s2d:
+            x = space_to_depth2(canvases)
+        else:
+            x = canvases.float() / 255.0
         out = self.model(x, text, fused_scores=self._use_fused_similarity())
         boxes = out['boxes'] / scales[:, None, None]
         hi = torch.cat([orig_whs, orig_whs], dim=-1)[:, None, :]
@@ -289,7 +342,8 @@ class YOLOCLIPDetector:
         text, _ = self._text(text_prompts)
         images = torch.as_tensor(images, device=self.device)
         h, w = images.shape[1], images.shape[2]
-        canvases, scale = letterbox_batch(images, self.image_size)
+        canvases, scale = letterbox_batch_for(self.config.model)(
+            images, self.image_size)
         out = self.model(canvases, text,
                          fused_scores=self._use_fused_similarity())
         boxes = rescale_boxes(out['boxes'], scale, (h, w))
@@ -322,10 +376,10 @@ class YOLOCLIPDetector:
                              device=self.device))[0]
         else:
             with torch.inference_mode():
-                canvas, scale = letterbox(
-                    torch.as_tensor(orig, device=self.device),
+                canvas, scale = letterbox_batch_for(self.config.model)(
+                    torch.as_tensor(orig, device=self.device)[None],
                     self.image_size)
-                out = self.model(canvas[None], text,
+                out = self.model(canvas, text,
                                  fused_scores=self._use_fused_similarity())
                 boxes = rescale_boxes(out['boxes'][0], scale, orig.shape[:2])
                 packed = _pack_detections(nms_fixed(

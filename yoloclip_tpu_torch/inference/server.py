@@ -29,6 +29,10 @@ detection-dict list (the schema of `YOLOCLIPDetector.detect`).
   * Vocabulary hot swap: `set_vocabulary` encodes the class names once and
     swaps the (text, names) pair in one assignment; the next batch scores
     against it.
+  * A quantized detector (`quantize_int8`) serves unchanged. Under
+    `stem_u8_s2d` the host canvases and their upload stay (B, th, tw, 3)
+    uint8; the canvas program space-to-depths them on the card for the
+    stem, which takes 0..255 directly.
 
 Not ported yet, and refused with NotImplementedError: `mesh=` and
 `spatial=` (ROADMAP.md, queue A: multi-device).

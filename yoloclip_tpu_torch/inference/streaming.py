@@ -8,6 +8,10 @@
     each step's result comes down with non_blocking copies into pinned
     memory behind a CUDA event, so handing step k-1's result to
     `on_result` never waits for step k.
+  * Any model a detector serves runs unchanged, the int8 deploy graph
+    (`YOLOCLIPDetector.quantize_int8`) included; under
+    `config.model.stem_u8_s2d` the letterbox makes the uint8
+    space-to-depth canvas.
 
 Not ported yet, and refused with NotImplementedError: `mesh=` (ROADMAP.md,
 queue A: multi-device).
@@ -26,7 +30,8 @@ import torch
 from yoloclip_tpu_torch.config import InferenceConfig
 from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP
 from yoloclip_tpu_torch.ops.nms import batched_nms
-from yoloclip_tpu_torch.ops.preprocess import letterbox_batch, rescale_boxes
+from yoloclip_tpu_torch.ops.preprocess import (letterbox_batch_for,
+                                               rescale_boxes)
 
 
 class StreamingDetector:
@@ -54,7 +59,8 @@ class StreamingDetector:
     @torch.inference_mode()
     def _step(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         c = self.cfg
-        canvases, scale = letterbox_batch(frames, c.model.image_size)
+        canvases, scale = letterbox_batch_for(c.model)(frames,
+                                                       c.model.image_size)
         out = self.model(canvases, self.text, fused_scores=self.fused)
         boxes = rescale_boxes(out['boxes'], scale, self.frame_hw)
         # the JAX step passes no class_agnostic: class-agnostic NMS

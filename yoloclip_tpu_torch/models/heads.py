@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from yoloclip_tpu_torch.models.layers import ConvBlock
@@ -25,33 +26,41 @@ from yoloclip_tpu_torch.models.layers import ConvBlock
 class Proj1x1(nn.Conv2d):
     """1x1 conv with bias whose weights are also retrievable as a matrix,
     so the composite can fold the projection into the text side of the
-    similarity (`ops/kernels/similarity.py`)."""
+    similarity (`ops/kernels/similarity.py`). Its parameters stay fp32
+    (the compute-dtype cast skips them) and are cast at use, so the fold
+    reads the fp32 kernel, as in the JAX package."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
     def weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(kernel (Cin, Cout), bias (Cout,)) in fp32."""
         return self.weight[:, :, 0, 0].t().float(), self.bias.float()
 
 
-def _tower(cin: int, hidden: int, cout: int) -> nn.Sequential:
-    return nn.Sequential(ConvBlock(cin, hidden, 3),
-                         ConvBlock(hidden, hidden, 3),
+def _tower(cin: int, hidden: int, cout: int,
+           quant: str = 'none') -> nn.Sequential:
+    return nn.Sequential(ConvBlock(cin, hidden, 3, quant=quant),
+                         ConvBlock(hidden, hidden, 3, quant=quant),
                          nn.Conv2d(hidden, cout, 1))
 
 
 class TextContrastiveHead(nn.Module):
     def __init__(self, cin: int, embed_dim: int = 512, hidden_dim: int = 256,
                  reg_max: int = 16, cls_alpha: float = 1.0,
-                 cls_beta: float = 0.0, with_aux_box: bool = False):
+                 cls_beta: float = 0.0, with_aux_box: bool = False,
+                 quant: str = 'none'):
         super().__init__()
         self.cls_alpha, self.cls_beta = cls_alpha, cls_beta
         self.obj_embed_conv = nn.Sequential(
-            ConvBlock(cin, hidden_dim, 3), ConvBlock(hidden_dim, hidden_dim, 3),
+            ConvBlock(cin, hidden_dim, 3, quant=quant),
+            ConvBlock(hidden_dim, hidden_dim, 3, quant=quant),
             Proj1x1(hidden_dim, embed_dim))
         if with_aux_box:   # weights only: the composite never runs it
-            self.box_conv = _tower(cin, hidden_dim, 4 * (reg_max + 1))
+            self.box_conv = _tower(cin, hidden_dim, 4 * (reg_max + 1), quant)
 
     def forward(self, x: torch.Tensor, return_hidden: bool = False):
         """x (B, C, H, W) -> obj (B, E, H, W); with return_hidden=True
@@ -84,10 +93,11 @@ def compute_similarity(obj: torch.Tensor, text: torch.Tensor,
 
 class BoxHead(nn.Module):
     def __init__(self, in_channels: Sequence[int], hidden_dim: int = 256,
-                 reg_max: int = 16):
+                 reg_max: int = 16, quant: str = 'none'):
         super().__init__()
         self.box_convs = nn.ModuleList(
-            _tower(c, hidden_dim, 4 * (reg_max + 1)) for c in in_channels)
+            _tower(c, hidden_dim, 4 * (reg_max + 1), quant)
+            for c in in_channels)
 
     def forward(self, features: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """list of (B, C, H, W) -> list of raw (B, 4*(reg_max+1), H, W)."""

@@ -25,14 +25,14 @@ from yoloclip_tpu_torch.models.layers import (ConvBlock, DarkBottleneck,
 
 class TextGuidedCSPLayer(nn.Module):
     def __init__(self, cin: int, cout: int, n_bottlenecks: int,
-                 text_dim: int):
+                 text_dim: int, quant: str = 'none'):
         super().__init__()
         c_ = cout // 2
-        self.cv1 = ConvBlock(cin, c_, 1)
-        self.cv2 = ConvBlock(cin, c_, 1)
-        self.cv3 = ConvBlock(2 * c_, cout, 1)
+        self.cv1 = ConvBlock(cin, c_, 1, quant=quant)
+        self.cv2 = ConvBlock(cin, c_, 1, quant=quant)
+        self.cv3 = ConvBlock(2 * c_, cout, 1, quant=quant)
         self.bottlenecks = nn.ModuleList(
-            DarkBottleneck(c_, c_, True) for _ in range(n_bottlenecks))
+            DarkBottleneck(c_, c_, True, quant) for _ in range(n_bottlenecks))
         self.text_proj = nn.Linear(text_dim, c_)
 
     def forward(self, x: torch.Tensor, text: torch.Tensor,
@@ -80,21 +80,23 @@ class ImagePoolingAttention(nn.Module):
 class RepVLPAN(nn.Module):
     def __init__(self, in_channels: Sequence[int],
                  out_channels: Sequence[int], text_dim: int = 512,
-                 n_bottlenecks: int = 1):
+                 n_bottlenecks: int = 1, quant: str = 'none'):
         super().__init__()
-        ic, oc = in_channels, out_channels
+        ic, oc, q = in_channels, out_channels, quant
         self.image_pooling_attention = ImagePoolingAttention(ic, text_dim)
         self.lateral_convs = nn.ModuleList(
-            ConvBlock(ic[i], ic[i], 1) for i in range(3))
+            ConvBlock(ic[i], ic[i], 1, quant=q) for i in range(3))
         self.up_channels = nn.ModuleList(
-            [ConvBlock(ic[2], ic[1], 1), ConvBlock(ic[1], ic[0], 1)])
+            [ConvBlock(ic[2], ic[1], 1, quant=q),
+             ConvBlock(ic[1], ic[0], 1, quant=q)])
         self.fpn_convs = nn.ModuleList(
-            ConvBlock(ic[i], oc[i], 3) for i in range(3))
+            ConvBlock(ic[i], oc[i], 3, quant=q) for i in range(3))
         self.text_csplayers = nn.ModuleList(
-            TextGuidedCSPLayer(oc[i], oc[i], n_bottlenecks, text_dim)
+            TextGuidedCSPLayer(oc[i], oc[i], n_bottlenecks, text_dim, q)
             for i in range(3))
         self.downsample_convs = nn.ModuleList(
-            [ConvBlock(oc[0], oc[1], 3, 2), ConvBlock(oc[1], oc[2], 3, 2)])
+            [ConvBlock(oc[0], oc[1], 3, 2, quant=q),
+             ConvBlock(oc[1], oc[2], 3, 2, quant=q)])
 
     def forward(self, features: Sequence[torch.Tensor], text: torch.Tensor,
                 class_mask: Optional[torch.Tensor] = None,

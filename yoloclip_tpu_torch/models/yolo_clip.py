@@ -4,7 +4,9 @@
 backbone -> RepVL-PAN (text fused both ways) -> per-level contrastive heads
 scored against the per-image text -> separate BoxHead with the DFL decode.
 Text is an input, (C, E) or (B, C, E); the text tower is not part of the
-graph. Scores are raw cosine values (no sigmoid).
+graph. Scores are raw cosine values (no sigmoid). `cfg.quant='int8'` builds
+the W8A8 deploy graph (`ops/quantize.py` makes its state dict);
+`cfg.stem_s2d` / `cfg.stem_u8_s2d` the space-to-depth stems.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from yoloclip_tpu_torch.config import ModelConfig
 from yoloclip_tpu_torch.models.backbone import YOLOv8Backbone
 from yoloclip_tpu_torch.models.heads import (BoxHead, TextContrastiveHead,
                                              decode_boxes, flatten_levels)
-from yoloclip_tpu_torch.models.layers import MultiHeadAttention
+from yoloclip_tpu_torch.models.heads import Proj1x1
+from yoloclip_tpu_torch.models.layers import MultiHeadAttention, _ConvKernel
 from yoloclip_tpu_torch.models.neck import RepVLPAN
 from yoloclip_tpu_torch.ops.kernels.similarity import (
     fused_projected_similarity_argmax)
@@ -31,26 +34,29 @@ class YOLOCLIP(nn.Module):
         """with_aux_box: build the contrastive heads' auxiliary box towers
         (weights only) -- set it when the state dict carries them."""
         super().__init__()
-        if cfg.quant != 'none' or cfg.stem_s2d or cfg.stem_u8_s2d:
-            raise NotImplementedError(
-                'int8 and the space-to-depth stems are not ported yet '
-                '(ROADMAP.md, queue A: int8 deploy)')
+        if cfg.quant not in ('none', 'int8'):
+            raise ValueError(
+                f"ModelConfig.quant must be 'none' or 'int8', got "
+                f"{cfg.quant!r}: calibration runs the float model under "
+                'forward hooks (ops/quantize.py::calibrate_amax)')
         self.cfg = cfg
-        fc = cfg.feature_channels()
+        fc, q = cfg.feature_channels(), cfg.quant
         self.backbone = YOLOv8Backbone(cfg)
-        self.neck = RepVLPAN(fc, fc, cfg.embed_dim, cfg.neck_bottlenecks)
+        self.neck = RepVLPAN(fc, fc, cfg.embed_dim, cfg.neck_bottlenecks, q)
         self.contrastive_heads = nn.ModuleList(
             TextContrastiveHead(c, cfg.embed_dim, cfg.hidden_dim, cfg.reg_max,
-                                cfg.cls_alpha, cfg.cls_beta, with_aux_box)
+                                cfg.cls_alpha, cfg.cls_beta, with_aux_box, q)
             for c in fc)
-        self.box_head = BoxHead(fc, cfg.hidden_dim, cfg.reg_max)
+        self.box_head = BoxHead(fc, cfg.hidden_dim, cfg.reg_max, q)
 
     def forward(self, images: torch.Tensor, text: torch.Tensor,
                 fused_scores: bool = False,
                 class_mask: Optional[torch.Tensor] = None,
                 skip_image_pool: bool = False) -> Dict[str, torch.Tensor]:
         """images (B, H, W, 3) float in [0, 1] (the JAX layout; permuted
-        here to a channels_last NCHW view); text (C, E) or (B, C, E).
+        here to a channels_last NCHW view), or under cfg.stem_u8_s2d the
+        (B, H/2, W/2, 12) uint8 space-to-depth canvas; text (C, E) or
+        (B, C, E).
 
         fused_scores=True scores through the folded similarity kernel per
         level and returns neither `similarity` (B, A, C) nor
@@ -132,11 +138,11 @@ def init_weights(model: YOLOCLIP, generator: torch.Generator) -> None:
     scale and overlap like real candidates."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.Linear, _ConvKernel)):
                 fan_in = m.weight[0].numel()
                 m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
                                  generator=generator)
-                if m.bias is not None:
+                if getattr(m, 'bias', None) is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.weight.fill_(1.0)
@@ -152,6 +158,25 @@ def init_weights(model: YOLOCLIP, generator: torch.Generator) -> None:
         prior = -torch.arange(nbins, dtype=torch.float32).repeat(4)
         for tower in model.box_head.box_convs:
             tower[2].bias.copy_(prior)
+
+
+def cast_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast the convs (weights also to channels_last), the linears and the
+    attention projections to the compute dtype, in place. Everything else
+    stays fp32, as the JAX package keeps it (`param_dtype=float32`):
+    BatchNorm's affine and statistics, the obj_2 projection (`Proj1x1`, so
+    the folded similarity reads the fp32 kernel), the s2d stems' kernels,
+    the folded `wf`/`fbias` and the int8 scales; those are cast at use."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d) and not isinstance(m, Proj1x1):
+                m.to(dtype=dtype, memory_format=torch.channels_last)
+            elif isinstance(m, nn.Linear):
+                m.to(dtype=dtype)
+            elif isinstance(m, MultiHeadAttention):
+                m.in_proj_weight.data = m.in_proj_weight.data.to(dtype)
+                m.in_proj_bias.data = m.in_proj_bias.data.to(dtype)
+    return model
 
 
 def build_model(cfg: ModelConfig, state_dict: Optional[dict] = None,

@@ -12,8 +12,9 @@ package:
   MultiHeadAttention               -> the same packed in_proj layout
 
 `state_dict_from_jax` gives the detector's state dict in the original
-repo's module layout; `text_state_dict_from_flax` gives the CLIP text
-tower's in the OpenAI layout.
+repo's module layout; `quant_state_dict_from_jax` the int8 deploy model's
+from the JAX package's `quantize_variables` output; and
+`text_state_dict_from_flax` the CLIP text tower's in the OpenAI layout.
 """
 
 from __future__ import annotations
@@ -169,6 +170,46 @@ def state_dict_from_jax(variables: Dict[str, Any],
         if tkey.endswith('.bn.running_var'):
             out[tkey[:-len('running_var')] + 'num_batches_tracked'] = (
                 torch.tensor(0, dtype=torch.long))
+    return out
+
+
+def quant_state_dict_from_jax(qvariables: Dict[str, Any],
+                              cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's int8 deploy variables ({'params'} from
+    `ops/quantize.py::quantize_variables`, no batch_stats) -> the state dict
+    of the port's `YOLOCLIP(quant='int8')`. Each ConvBlock scope holds
+    either {wq (k, k, I, O) int8, wscale, qbias, act_scale}, which become
+    `wq` in the kernel's (O, k, k, I) layout and the fp32 scales, or the
+    BN-folded {wf (k, k, I, O), fbias}, which become `wf` (O, I, k, k) and
+    `fbias`; every other entry converts as in `state_dict_from_jax`."""
+    out: Dict[str, torch.Tensor] = {}
+    for tkey, fpath, transform in build_key_map(cfg):
+        if tkey.endswith(('.bn.weight', '.bn.bias', '.bn.running_mean',
+                          '.bn.running_var')):
+            continue
+        if tkey.endswith('.conv.weight') and fpath[-2:] == ('conv',
+                                                             'kernel'):
+            try:
+                node = _get(qvariables, fpath[:-2])
+            except KeyError:
+                continue
+            tp = tkey[:-len('.conv.weight')]
+            if 'wq' in node:
+                wq = np.asarray(node['wq'], np.int8)
+                out[f'{tp}.wq'] = torch.from_numpy(
+                    np.ascontiguousarray(wq.transpose(3, 0, 1, 2)))
+                for k in ('wscale', 'qbias', 'act_scale'):
+                    out[f'{tp}.{k}'] = _tensor(node[k])
+            else:
+                out[f'{tp}.wf'] = _tensor(_to_torch_layout(
+                    np.asarray(node['wf']), 'conv'))
+                out[f'{tp}.fbias'] = _tensor(node['fbias'])
+            continue
+        try:
+            arr = np.asarray(_get(qvariables, fpath))
+        except KeyError:
+            continue
+        out[tkey] = _tensor(_to_torch_layout(arr, transform))
     return out
 
 
