@@ -10,7 +10,7 @@ Phases, each printing its results; any failure exits non-zero:
   2. build     -- compile the three CUDA sources from yoloclip_tpu_torch/
                   csrc/ (one nvcc each, in parallel), ptxas's report, and
                   the count of tensor-core instructions in the SASS of each
-                  similarity (HGMMA) and int8 conv (IMMA) instantiation
+                  similarity (HGMMA) and int8 conv (IGMMA) instantiation
                   (cuobjdump; none fails);
   3. kernel 1  -- folded similarity max/argmax vs its plain PyTorch version,
                   fp32 (TF32 off) and bf16, at batch 32: the main-path
@@ -30,9 +30,12 @@ Phases, each printing its results; any failure exits non-zero:
   5b. int8 conv -- the int8 conv (quantize -> s8 x s8 -> s32 -> dequant +
                   bias + SiLU) vs its plain version, fp32 and bf16 input:
                   the 22 int8 blocks of the deploy graph at bs=32, 640 px,
-                  Cin = 80 (variant 'x'), B = 1, a ragged 21 x 13 map, and
-                  operands all at +-127; the int32 accumulator (epilogue
-                  off) bit for bit, the fused output within INT8_TOL;
+                  Cin = 80 (variant 'x') and 16, B = 1, a ragged 21 x 13
+                  map, 1 x 1 maps, maps narrower and shorter than a tile at
+                  both strides, Cout = 8 and 136, a 160 x 160 map,
+                  operands all at +-127 and inputs on the rounding
+                  boundaries; the int32 accumulator (epilogue off) bit for
+                  bit, the fused output within INT8_TOL;
   6. text      -- the full-width CLIP text tower (12 x 512, seeded) on the
                   card vs the same weights on the CPU for 16 prompts; a
                   1203-class vocabulary build (6015 prompts) timed in fp32
@@ -83,7 +86,8 @@ Phases, each printing its results; any failure exits non-zero:
                   against the detector's model and NMS on the same
                   canvases; img/s beside detect_batch's, fp32 and bf16;
  9b. int8      -- each int8 block at bs=32 through the wrapper beside its
-                  plain version, its bound, im2col + torch._int_mm and
+                  plain version, its bound, im2col + torch._int_mm,
+                  torch._int_mm alone on the prebuilt im2col operand and
                   cuDNN's bf16 conv; then quantize_int8 (8 seeded frames)
                   on fp32 and bf16 detectors at variant 'n', 640 px,
                   COCO-80: bf16 and fp32 detect_batch at bs=32 (22 int8
@@ -283,17 +287,20 @@ def phase_build(_build) -> None:
     lib = _build.load('int8_conv')
     for sym in ('yc_int8_conv_f32', 'yc_int8_conv_bf16'):
         require(hasattr(lib, sym), f'symbol {sym} missing')
-    counts = _sass_gmma(_build.BUILD_DIR / 'libint8_conv.so', 'IMMA')
+    counts = _sass_gmma(_build.BUILD_DIR / 'libint8_conv.so', 'IGMMA')
     for fn, n in counts.items():
-        print(f'[build] SASS of int8_conv_kernel<'
-              f'{"bf16" if "bfloat16" in fn else "fp32"}>: {n} IMMA '
-              f'(int8 tensor-core) instructions')
-    require(len(counts) == 2 and all(counts.values()),
-            'an int8_conv instantiation has no tensor-core instruction')
+        print(f'[build] SASS of int8_conv_wgmma<'
+              f'{"bf16" if "bfloat16" in fn else "fp32"}, '
+              f'{"256" if "Li256E" in fn else "128"}>: {n} IGMMA (int8 '
+              f'wgmma) instructions')
+    require(len(counts) == 4 and all(counts.values())
+            and {'bfloat16' in fn for fn in counts} == {True, False},
+            'an int8_conv instantiation (fp32 or bf16 input, 128 or 256 '
+            'channels a block) has no int8 wgmma instruction')
 
 
 def _sass_gmma(lib_path, op: str = 'HGMMA') -> dict:
-    """`op` instructions (HGMMA, IMMA) in each kernel of a built library
+    """`op` instructions (HGMMA, IGMMA) in each kernel of a built library
     (cuobjdump)."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     sass = subprocess.run([tool, '-sass', str(lib_path)],
@@ -1515,16 +1522,35 @@ STEM_TOL = {'stem_s2d': dict(box=(1e-5, 1e-5), score=(1e-5, 1e-5)),
             'stem_u8_s2d': dict(box=(1e-4, 1e-4), score=(1e-4, 1e-5))}
 STEM_TIE_GAP = 1e-5
 # Extra kernel cases beyond the deploy graph's shapes: (tag, B, Cin, Cout,
-# H, W, stride, extreme). Cin = 80 (variant 'x'; its last slice half
-# padded), one image, a ragged 21 x 13 map, and operands all at +-127 so
-# the accumulator reaches 9 Cin 127^2 (37.2 M at Cin = 256).
-INT8_EXTRA = [('x cin80 s1', 4, 80, 160, 160, 160, 1, False),
-              ('x cin80 s2', 4, 80, 160, 160, 160, 2, False),
-              ('B=1', 1, 256, 256, 80, 80, 1, False),
-              ('ragged 21x13 s1', 3, 128, 256, 21, 13, 1, False),
-              ('ragged 21x13 s2', 3, 128, 256, 21, 13, 2, False),
-              ('+-127 cin256', 2, 256, 256, 20, 20, 1, True),
-              ('+-127 cin80', 2, 80, 160, 20, 20, 2, True)]
+# H, W, stride, operands). Cin = 80 (variant 'x'; its last 32-channel
+# chunk half padded) and Cin = 16 (a single half chunk), one image, a
+# ragged 21 x 13 map, a 1 x 1 map, maps narrower or shorter than the
+# kernel's 8 x 16 output tile at both strides, Cout = 8 (one column
+# group) and 136 (past a 128-channel pass), a 160 x 160 map, operands
+# all at +-127 so the accumulator reaches 9 Cin 127^2 (37.2 M at
+# Cin = 256), and inputs on and within 3 ulps of the rounding boundaries
+# (m + 1/2) act_scale, where the kernel's quotient must round as IEEE
+# division does.
+INT8_EXTRA = [('x cin80 s1', 4, 80, 160, 160, 160, 1, 'random'),
+              ('x cin80 s2', 4, 80, 160, 160, 160, 2, 'random'),
+              ('B=1', 1, 256, 256, 80, 80, 1, 'random'),
+              ('ragged 21x13 s1', 3, 128, 256, 21, 13, 1, 'random'),
+              ('ragged 21x13 s2', 3, 128, 256, 21, 13, 2, 'random'),
+              ('+-127 cin256', 2, 256, 256, 20, 20, 1, '+-127'),
+              ('+-127 cin80', 2, 80, 160, 20, 20, 2, '+-127'),
+              ('1x1 s1', 2, 64, 128, 1, 1, 1, 'random'),
+              ('1x1 s2', 2, 64, 128, 1, 1, 2, 'random'),
+              ('narrow 40x3 s1', 2, 128, 256, 40, 3, 1, 'random'),
+              ('narrow 40x3 s2', 2, 128, 256, 40, 3, 2, 'random'),
+              ('short 3x40 s1', 2, 128, 256, 3, 40, 1, 'random'),
+              ('short 3x40 s2', 2, 128, 256, 3, 40, 2, 'random'),
+              ('cin16 s1', 3, 16, 64, 24, 24, 1, 'random'),
+              ('cin16 s2', 3, 16, 64, 24, 24, 2, 'random'),
+              ('cout8 s1', 2, 64, 8, 20, 20, 1, 'random'),
+              ('cout136 s2', 2, 96, 136, 30, 30, 2, 'random'),
+              ('map 160x160', 4, 64, 128, 160, 160, 1, 'random'),
+              ('ties s1', 4, 256, 256, 40, 40, 1, 'ties'),
+              ('ties s2', 4, 80, 136, 41, 27, 2, 'ties')]
 
 
 def eligible_shapes(size: int = 640, B: int = BATCH) -> list:
@@ -1553,13 +1579,27 @@ def eligible_shapes(size: int = 640, B: int = BATCH) -> list:
     return shapes
 
 
-def _int8_operands(g, B, cin, cout, H, W, dtype, extreme=False):
+def _int8_operands(g, B, cin, cout, H, W, dtype, kind='random'):
     """x (B, Cin, H, W) channels_last in `dtype`, reaching +-amax so that
     the quantized operand hits +-127; random int8 wq over [-127, 127];
-    scales and bias. extreme: every input at +amax and every weight at
-    +127 (first half of the channels) or -127."""
+    scales and bias. kind '+-127': every input at +amax and every weight
+    at +127 (first half of the channels) or -127; 'ties': every input
+    (m + 1/2) act_scale for a random m in [-128, 127], moved by -3 to 3
+    ulps."""
     amax = 3.0
-    if extreme:
+    act = torch.tensor(amax / 127.0, device='cuda')
+    if kind == 'ties':
+        m = torch.randint(-128, 128, (B, cin, H, W), device='cuda',
+                          generator=g).float()
+        x = (m + 0.5) * act
+        for _ in range(3):
+            step = torch.randint(-1, 2, x.shape, device='cuda', generator=g)
+            x = torch.where(step > 0, torch.nextafter(x, x + 1),
+                            torch.where(step < 0, torch.nextafter(x, x - 1),
+                                        x))
+        wq = torch.randint(-127, 128, (cout, 3, 3, cin), dtype=torch.int8,
+                           device='cuda', generator=g)
+    elif kind == '+-127':
         x = torch.full((B, cin, H, W), amax, device='cuda')
         wq = torch.full((cout, 3, 3, cin), 127, dtype=torch.int8,
                         device='cuda')
@@ -1573,7 +1613,6 @@ def _int8_operands(g, B, cin, cout, H, W, dtype, extreme=False):
     x = x.to(dtype).contiguous(memory_format=torch.channels_last)
     wscale = 1e-3 + 1e-2 * torch.rand(cout, device='cuda', generator=g)
     qbias = 0.1 * torch.randn(cout, device='cuda', generator=g)
-    act = torch.tensor(amax / 127.0, device='cuda')
     return x, wq, wscale, qbias, act
 
 
@@ -1583,14 +1622,14 @@ def phase_int8_kernel(i8, shapes) -> dict:
     accumulator bit for bit, the fused output within INT8_TOL. Returns
     the worst fused difference per input type."""
     g = torch.Generator(device='cuda').manual_seed(7)
-    cases = [(n, B, ci, co, H, W, st, False)
+    cases = [(n, B, ci, co, H, W, st, 'random')
              for n, B, ci, co, H, W, st in shapes] + INT8_EXTRA
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         worst[dtype], lines = 0.0, []
-        for tag, B, ci, co, H, W, st, ext in cases:
+        for tag, B, ci, co, H, W, st, kind in cases:
             x, wq, ws, qb, act = _int8_operands(g, B, ci, co, H, W, dtype,
-                                                ext)
+                                                kind)
             acc = i8.int8_conv(x, wq, ws, qb, act, st, epilogue=False)
             want_acc = i8.int8_conv_plain(x, wq, ws, qb, act, st,
                                           epilogue=False)
@@ -1624,26 +1663,35 @@ def _int_mm_conv(q16, w2t, stride):
     fp16 carrying the int8 values exactly) then torch._int_mm (cuBLASLt
     s8 x s8 -> s32). The yardstick of `library_ms`; the port never calls
     it."""
+    return torch._int_mm(_im2col(q16, stride), w2t)
+
+
+def _im2col(q16, stride):
+    """The (B Ho Wo, 9 Cin) int8 im2col operand of `_int_mm_conv`."""
     B = q16.shape[0]
     cols = F.unfold(q16, 3, padding=1, stride=stride)         # (B, 9C, L)
-    a = cols.transpose(1, 2).reshape(B * cols.shape[2], -1).to(torch.int8)
-    return torch._int_mm(a, w2t)
+    return cols.transpose(1, 2).reshape(B * cols.shape[2], -1).to(
+        torch.int8)
 
 
 def time_int8(i8, shapes, card: str) -> dict:
-    """Each deploy-graph int8 block at bs=32 through the wrapper, beside
-    its plain version, its bound, the im2col + torch._int_mm yardstick and
-    cuDNN's bf16 conv of the same shape. Returns, per input type, the sums
-    over the blocks (one forward): (ms, None, plain ms, bound ms,
-    bound_by, library ms)."""
+    """Each deploy-graph int8 block at bs=32 through the wrapper and alone
+    (CUDA-graph replay: the wrapper's host work hides the small blocks'
+    device time), beside its plain version, its bound, the im2col +
+    torch._int_mm yardstick, torch._int_mm alone on the prebuilt im2col
+    operand (cuBLASLt's tensor-core time for the same products, without
+    the im2col copy) and cuDNN's bf16 conv of the same shape. Returns, per
+    input type, the sums over the blocks (one forward): (ms, alone ms,
+    plain ms, bound ms, bound_by, library ms)."""
     g = torch.Generator(device='cuda').manual_seed(8)
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
-        tot = {'ms': 0.0, 'plain': 0.0, 'bound': 0.0, 'lib': 0.0,
-               'cudnn': 0.0, 'ops': 0.0, 'bytes': 0.0}
+        tot = {'ms': 0.0, 'alone': 0.0, 'plain': 0.0, 'bound': 0.0,
+               'lib': 0.0, 'mm': 0.0, 'cudnn': 0.0, 'ops': 0.0, 'bytes': 0.0}
         for name, B, ci, co, H, W, st in shapes:
             x, wq, ws, qb, act = _int8_operands(g, B, ci, co, H, W, dtype)
             ms = cuda_ms(lambda: i8.int8_conv(x, wq, ws, qb, act, st))
+            alone = graph_ms(lambda: i8.int8_conv(x, wq, ws, qb, act, st))
             plain = cuda_ms(lambda: i8.int8_conv_plain(x, wq, ws, qb, act,
                                                        st), iters=3,
                             warmup=1)
@@ -1654,6 +1702,8 @@ def time_int8(i8, shapes, card: str) -> dict:
                                 acc.permute(0, 2, 3, 1).reshape(-1, co)),
                     f'{name}: im2col + torch._int_mm disagrees')
             lib = cuda_ms(lambda: _int_mm_conv(q16, w2t, st), iters=10)
+            cols = _im2col(q16, st)
+            mm = cuda_ms(lambda: torch._int_mm(cols, w2t), iters=10)
             xb = x.bfloat16()
             wb = wq.permute(0, 3, 1, 2).bfloat16().contiguous(
                 memory_format=torch.channels_last)
@@ -1664,26 +1714,33 @@ def time_int8(i8, shapes, card: str) -> dict:
             nbytes = (B * H * W * ci * esize + co * 9 * ci
                       + B * Ho * Wo * co * esize + 8 * co + 4)
             bms, bby = bound(ops, nbytes, INT8_TC)
-            for k, v in (('ms', ms), ('plain', plain), ('bound', bms),
-                         ('lib', lib), ('cudnn', cudnn), ('ops', ops),
-                         ('bytes', nbytes)):
+            for k, v in (('ms', ms), ('alone', alone), ('plain', plain),
+                         ('bound', bms),
+                         ('lib', lib), ('mm', mm), ('cudnn', cudnn),
+                         ('ops', ops), ('bytes', nbytes)):
                 tot[k] += v
             print(f'[time] int8 conv {str(dtype)[6:]} {name} B={B} '
-                  f'{ci}->{co} {H}x{W} s{st}: kernel {ms:.4f} ms, plain '
-                  f'{plain:.4f}, im2col + _int_mm {lib:.4f}, cuDNN bf16 '
-                  f'conv {cudnn:.4f}, bound {bms:.4f} ({bby}; '
-                  f'{ops / 1e9:.1f} GOP), {bms / ms:.0%} of bound  [{card}]')
-            del x, wq, q16, w2t, acc, xb, wb
+                  f'{ci}->{co} {H}x{W} s{st}: kernel {ms:.4f} ms (alone '
+                  f'{alone:.4f}), plain '
+                  f'{plain:.4f}, im2col + _int_mm {lib:.4f}, _int_mm alone '
+                  f'{mm:.4f}, cuDNN bf16 conv {cudnn:.4f}, bound {bms:.4f} '
+                  f'({bby}; {ops / 1e9:.1f} GOP), {bms / ms:.0%} of bound '
+                  f'({bms / alone:.0%} alone)  '
+                  f'[{card}]')
+            del x, wq, q16, w2t, acc, xb, wb, cols
         bms, bby = bound(tot['ops'], tot['bytes'], INT8_TC)
         print(f'[time] int8 conv {str(dtype)[6:]}, all {len(shapes)} blocks '
-              f'of one bs={BATCH} forward: kernel {tot["ms"]:.4f} ms, plain '
+              f'of one bs={BATCH} forward: kernel {tot["ms"]:.4f} ms (alone '
+              f'{tot["alone"]:.4f}), plain '
               f'{tot["plain"]:.4f}, im2col + _int_mm {tot["lib"]:.4f}, '
-              f'cuDNN bf16 conv {tot["cudnn"]:.4f}, bound {tot["bound"]:.4f}'
+              f'_int_mm alone {tot["mm"]:.4f}, cuDNN bf16 conv '
+              f'{tot["cudnn"]:.4f}, bound {tot["bound"]:.4f}'
               f' (sum of per-block bounds; {tot["ops"] / 1e9:.1f} GOP, '
               f'{tot["bytes"] / 1e6:.1f} MB: {bby}-bound in all), '
-              f'{tot["bound"] / tot["ms"]:.0%} of bound  [{card}]')
-        res[dtype] = (tot['ms'], None, tot['plain'], tot['bound'], bby,
-                      tot['lib'])
+              f'{tot["bound"] / tot["ms"]:.0%} of bound ('
+              f'{tot["bound"] / tot["alone"]:.0%} alone)  [{card}]')
+        res[dtype] = (tot['ms'], tot['alone'], tot['plain'], tot['bound'],
+                      bby, tot['lib'])
     return res
 
 

@@ -153,16 +153,39 @@ def _conv_int64(q, w, stride):
     return out
 
 
-@pytest.mark.parametrize('cin,stride', [(80, 1), (80, 2), (128, 1),
-                                        (128, 2), (256, 1), (256, 2)])
-def test_int8_conv_plain_exact(cin, stride):
+def _taps_max(H, W, stride):
+    """The most 3x3 taps (pad 1) that land inside an H x W map for any
+    output pixel at `stride`."""
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    rows = max(sum(0 <= oy * stride + d < H for d in (-1, 0, 1))
+               for oy in range(Ho))
+    cols = max(sum(0 <= ox * stride + d < W for d in (-1, 0, 1))
+               for ox in range(Wo))
+    return rows * cols
+
+
+# (cin, stride, map): the deploy graph's widths on a 9 x 7 map, then the
+# CUDA kernel's edges at Cin = 16 (one half-filled 32-byte K slice): a
+# 1 x 1 map, a map shorter and a map narrower than its 8 x 16 output tile,
+# and a ragged 21 x 13 map.
+_PLAIN_CASES = [pytest.param(cin, stride, (9, 7), id=f'{cin}-{stride}')
+                for cin in (80, 128, 256) for stride in (1, 2)] + [
+    pytest.param(16, stride, hw, id=f'16-{stride}-{hw[0]}x{hw[1]}')
+    for hw in ((9, 7), (1, 1), (3, 17), (21, 13)) for stride in (1, 2)]
+
+
+@pytest.mark.parametrize('cin,stride,hw', _PLAIN_CASES)
+def test_int8_conv_plain_exact(cin, stride, hw):
     """The plain int8 conv's int32 accumulator equals an int64 numpy conv
     and JAX's int8 conv_general_dilated (int32 output) bit for bit, with
     operands at +-127 (the first half of the output channels sums
-    9 Cin 127^2 in the interior, past fp32's exact 2^24 at Cin >= 128)."""
-    rng = np.random.RandomState(cin + stride)
+    taps Cin 127^2 at the pixel that sees the most taps, 9 in the
+    interior, past fp32's exact 2^24 at Cin >= 128)."""
+    H, W = hw
+    rng = np.random.RandomState(cin + stride + 100 * H + W
+                                if hw != (9, 7) else cin + stride)
     cout, amax = 32, 2.0
-    x = rng.uniform(-amax, amax, (2, 9, 7, cin)).astype(np.float32)
+    x = rng.uniform(-amax, amax, (2, H, W, cin)).astype(np.float32)
     x[0] = amax                                  # every q at +127
     x[1, 0, 0, :3] = (-amax, amax, -amax)
     wq = rng.randint(-127, 128, (cout, 3, 3, cin)).astype(np.int8)
@@ -176,8 +199,10 @@ def test_int8_conv_plain_exact(cin, stride):
     q = np.clip(np.round(x / act), -127, 127).astype(np.int8)
     want = _conv_int64(q, wq, stride)
     assert acc.dtype == np.int32
-    assert np.abs(want).max() == 9 * cin * 127 ** 2 > (2 ** 24 if cin >= 128
-                                                      else 0)
+    assert acc.shape == (2, (H - 1) // stride + 1, (W - 1) // stride + 1,
+                         cout)
+    assert np.abs(want).max() == _taps_max(H, W, stride) * cin * 127 ** 2 > (
+        2 ** 24 if cin >= 128 else 0)
     np.testing.assert_array_equal(acc, want)
     jacc = jax.lax.conv_general_dilated(
         jnp.asarray(q), jnp.asarray(wq.transpose(1, 2, 3, 0)),

@@ -21,9 +21,13 @@ int32 accumulator comes back instead (the bit-exactness check only).
 The plain version quantizes with torch.round, convolves in float64, where
 every sum of int8 products is exact (at most 9 * Cin * 127^2, 37 M at
 Cin = 256, past fp32's 2^24), and applies the same epilogue, each
-operation rounded on its own; the kernel divides with IEEE division and
-rounds each epilogue operation on its own too, so its accumulator is
-bit-identical and its pre-SiLU value equal to the plain version's.
+operation rounded on its own; the kernel quantizes to exactly what IEEE
+division and ties-to-even rounding give and rounds each epilogue
+operation on its own too, so its accumulator is bit-identical and its
+pre-SiLU value equal to the plain version's. The kernel (an s8 wgmma
+implicit GEMM: each block quantizes its tile's input halo once into
+shared memory, then runs all 9 taps of up to 256 output channels from
+it) is one launch a call.
 """
 
 from __future__ import annotations
