@@ -105,9 +105,24 @@ Phases, each printing its results; any failure exits non-zero:
                   yoloclip_tpu_torch.cli.detect`, `cli.stream --streams 2
                   --steps 3` and `cli.warmup` (builds and loads the
                   libraries) as subprocesses, exit 0.
+ 16. training  -- YOLOCLIPTrainer at variant 'n', 640 px, from seeded
+                  weights on synthetic arrays (the card has no image
+                  decoder): one compat fp32 AdamW step at bs=2 against the
+                  same step in float64 on the CPU (loss parts, gradients,
+                  BatchNorm buffers, parameters); at bs=16 with the 80
+                  COCO prompts a sample, step ms, img/s and peak memory
+                  for compat fp32, clean fp32 and clean bf16; evaluate
+                  with NMS on 32 images (kernel 2); a torch.profiler
+                  breakdown of one clean step (top 10 kernels, idle
+                  share); the overfit twin of tests/test_convergence.py
+                  (121 clean steps at 128 px, bs=4), served from its
+                  checkpoint by YOLOCLIPDetector (kernels 1 and 2): one
+                  box per image, class 0, IoU >= 0.5; then cli.eval on
+                  those images written as PNG files, where the machine
+                  can decode them (it says so where it cannot).
 Each path that launches kernels (main path, prompts, int8, stems, canvas,
-server, streaming, reparam) runs with the launch counters set to 0 just
-before it and read just after; the kernels line sums them.
+server, streaming, reparam, training) runs with the launch counters set to
+0 just before it and read just after; the kernels line sums them.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2040,6 +2055,381 @@ def phase_stems(sim, nms, vocab_path, frames) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Training and evaluation (YOLOCLIPTrainer at variant 'n', 640 px).
+# ---------------------------------------------------------------------------
+
+# One train step, card (cuDNN, TF32 off) against the same step on the
+# CPU in float64 (the losses themselves compute in fp32) from one seeded
+# state. The CPU's own fp32 train step is no reference at 640 px: its
+# train-mode BatchNorm statistics over 819,200 values a channel put its
+# stem 2.8e-5 from float64 and its last layers 8.5e-4, where the card's
+# sit 2.4e-7 and 2.3e-5 away (an NVIDIA H100 80GB HBM3 at 700 W).
+# Gradients get a relative L2 tolerance (cuDNN's backward convs reduce in
+# another order); Adam's first step moves each element by
+# lr * g / (|g| + eps), i.e. +-lr, so an element whose gradient is within
+# rounding of 0 flips by 2 lr: the card's parameters are held against the
+# CPU's AdamW on the card's own gradients.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
+TRAIN_BUF_ATOL, TRAIN_PARAM_ATOL = 1e-5, 1e-6
+TRAIN_BS, TRAIN_WARMUP, TRAIN_STEPS, EVAL_IMAGES = 16, 3, 10, 32
+OVERFIT_STEPS = 120
+
+
+def _train_batch(n: int, seed: int, size: int = 640, classes: int = 80):
+    """A synthetic detection batch at full width, numpy: 2-8 objects of
+    32-256 px per image, `classes` class ids, 100 target slots, and every
+    image's prompts the 80 COCO names (a (n, 128, 512) text bucket)."""
+    from yoloclip_tpu_torch.config import COCO_CLASS_NAMES
+    from yoloclip_tpu_torch.data.synth import make_synth_detection_set
+    batch = make_synth_detection_set(n, seed, image_size=size,
+                                     max_objects=100, num_classes=classes,
+                                     min_side=32, max_side=256,
+                                     objects=(2, 8))
+    names = COCO_CLASS_NAMES[:classes]
+    batch['text_prompts'] = [[f'a photo of a {c}' for c in names]] * n
+    return batch
+
+
+def _train_cfg(size: int = 640, **kw):
+    from yoloclip_tpu_torch.config import ModelConfig, TrainingConfig
+    dtype = kw.pop('dtype', 'float32')
+    return TrainingConfig(model=ModelConfig(image_size=(size, size),
+                                            dtype=dtype), **kw)
+
+
+def _seeded_model(cfg, seed: int = 0):
+    from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP, init_weights
+    model = YOLOCLIP(cfg.model)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+def phase_train_step_xdev() -> None:
+    """One compat fp32 AdamW step at variant 'n', 640 px, bs=2 on the card
+    against the same step in float64 on the CPU, from one seeded state on
+    the same batch and text."""
+    import copy
+
+    from yoloclip_tpu_torch.train import train_state as ts
+    cfg = _train_cfg()
+    batch = _train_batch(2, 1)
+    g = torch.Generator().manual_seed(1)
+    text = torch.randn((2, 128, EMBED), generator=g)
+    text[:, 80:] = 0.0
+    before = copy.deepcopy(_seeded_model(cfg).state_dict())
+    states, parts = {}, {}
+    for key, dev, dt in (('card', 'cuda', torch.float32),
+                         ('ref', 'cpu', torch.float64)):
+        m = _seeded_model(cfg).to(dev, dt)
+        st = ts.TrainState(m, ts.make_optimizer(cfg, m.parameters()))
+        ts.set_learning_rate(st, cfg.learning_rate)
+        b = {k: torch.from_numpy(batch[k]).to(dev) for k in
+             ('images', 'boxes', 'class_ids', 'valid_mask')}
+        b['images'] = b['images'].to(dt)
+        t = time.perf_counter()
+        parts[key] = ts.make_train_step(cfg)(st, b, text.to(dev, dt))
+        torch.cuda.synchronize()
+        states[key] = (st, time.perf_counter() - t)
+    loss_err = max(abs(parts['card'][k].item() - parts['ref'][k].item())
+                   / max(abs(parts['ref'][k].item()), 1e-12)
+                   for k in parts['ref'] if parts['ref'][k].item() != 0)
+    cu, cp = states['card'][0].model, states['ref'][0].model
+    grads_cpu = {k: p.grad for k, p in cp.named_parameters()}
+    top = max(float(g.norm()) for g in grads_cpu.values())
+    grad_err, worst = 0.0, ''
+    for k, p in cu.named_parameters():
+        w = grads_cpu[k]
+        if float(w.norm()) > 1e-6 * top:
+            e = float((p.grad.cpu().double() - w).norm() / w.norm())
+            if e > grad_err:
+                grad_err, worst = e, k
+    sd_cu, sd_cp = cu.state_dict(), cp.state_dict()
+    buf_err = max((sd_cu[k].cpu().double() - sd_cp[k]).abs().max().item()
+                  for k in sd_cp if k.endswith(('running_mean',
+                                                'running_var')))
+    # the CPU's AdamW applied to the card's gradients
+    ref = _seeded_model(cfg)
+    ref.load_state_dict(before)
+    opt = ts.make_optimizer(cfg, ref.parameters())
+    for (k, p), q in zip(ref.named_parameters(), cu.parameters()):
+        p.grad = q.grad.detach().cpu()
+    opt.step()
+    sd_ref = ref.state_dict()
+    names = [k for k, _ in cu.named_parameters()]
+    param_err = max((sd_cu[k].cpu() - sd_ref[k]).abs().max().item()
+                    for k in names)
+    direct = max((sd_cu[k].cpu().double() - sd_cp[k]).abs().max().item()
+                 for k in names)
+    flips = sum(int(((p.grad.cpu() > 0) != (grads_cpu[k] > 0)).sum())
+                for k, p in cu.named_parameters())
+    print(f'[train xdev] compat fp32 bs=2 640 px one AdamW step, card '
+          f'({states["card"][1]:.1f} s with warm-up) vs the CPU in float64 '
+          f'({states["ref"][1]:.1f} s): loss parts max rel {loss_err:.3e} '
+          f'(tol {TRAIN_LOSS_RTOL:g}); gradients max rel L2 {grad_err:.3e} '
+          f'(tol {TRAIN_GRAD_RTOL:g}, {worst}); BatchNorm buffers max abs '
+          f'{buf_err:.3e} (tol {TRAIN_BUF_ATOL:g}); parameters vs the CPU '
+          f'AdamW on the card gradients max abs {param_err:.3e} (tol '
+          f'{TRAIN_PARAM_ATOL:g}); parameters card vs CPU step max abs '
+          f'{direct:.3e} with {flips} gradient elements of opposite sign')
+    require(loss_err <= TRAIN_LOSS_RTOL, 'card and CPU losses disagree')
+    require(grad_err <= TRAIN_GRAD_RTOL, 'card and CPU gradients disagree')
+    require(buf_err <= TRAIN_BUF_ATOL, 'card and CPU BatchNorm buffers')
+    require(param_err <= TRAIN_PARAM_ATOL, 'card AdamW vs the CPU AdamW')
+
+
+def _step_breakdown(trainer, batch, card: str, tag: str) -> None:
+    """torch.profiler over one train step: the top 10 CUDA kernels by
+    device time and the device's idle share of the step's host span."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    trainer.train_epoch([batch], 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function('train_step'):
+            trainer.train_epoch([batch], 1)
+            torch.cuda.synchronize()
+    events = prof.events()
+    step = [e for e in events if e.name == 'train_step']
+    # user annotations (record_function, Optimizer.step) also show on the
+    # device timeline: only kernels and copies count
+    marks = {e.name for e in events if e.is_user_annotation}
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation and e.name not in marks]
+    if not step or not dev:
+        print('[train breakdown] not measured (the profiler recorded no '
+              'device event)')
+        return
+    t0, t1 = step[0].time_range.start, step[0].time_range.end
+    spans = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1))
+                   for e in dev if e.time_range.end > t0
+                   and e.time_range.start < t1)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    by_name = {}
+    for e in dev:
+        by_name.setdefault(e.name, [0.0, 0])
+        by_name[e.name][0] += e.time_range.end - e.time_range.start
+        by_name[e.name][1] += 1
+    total = sum(v[0] for v in by_name.values())
+    print(f'[train breakdown] {tag} bs={TRAIN_BS} 640 px, one step: '
+          f'host span {(t1 - t0) / 1e3:.2f} ms, device busy '
+          f'{busy / 1e3:.2f} ms, idle share {1 - busy / (t1 - t0):.3f}, '
+          f'{len(dev)} device activities, {total / 1e3:.2f} ms summed '
+          f'({card})')
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:10]:
+        print(f'[train breakdown]   {us / 1e3:8.3f} ms  {n:5d}x  '
+              f'{100 * us / total:5.1f} %  {name[:110]}')
+
+
+def phase_training(nms, text_encoder, tmp: str, card: str) -> None:
+    """YOLOCLIPTrainer at bs=16, 640 px, COCO-80 prompts: step ms, img/s
+    and peak memory for compat fp32, clean fp32 and clean bf16; evaluate
+    with NMS on 32 images (kernel 2); the step breakdown of clean fp32 and
+    bf16."""
+    from yoloclip_tpu_torch.data.loader import device_prefetch
+    from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
+    batch = next(device_prefetch(iter([_train_batch(TRAIN_BS, 2)]), 'cuda'))
+    val = list(device_prefetch(iter([_train_batch(TRAIN_BS, 3 + i)
+                                     for i in range(EVAL_IMAGES
+                                                    // TRAIN_BS)]),
+                               'cuda'))
+    for assigner, dtype in (('compat', 'float32'),
+                            ('topk_center', 'float32'),
+                            ('topk_center', 'bfloat16')):
+        cfg = _train_cfg(assigner=assigner, dtype=dtype, eval_with_nms=True,
+                         batch_size=TRAIN_BS,
+                         output_dir=os.path.join(tmp, 'train'))
+        trainer = YOLOCLIPTrainer(_seeded_model(cfg), text_encoder, cfg,
+                                  device='cuda')
+        trainer.train_epoch([batch] * TRAIN_WARMUP, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        losses = trainer.train_epoch([batch] * TRAIN_STEPS, 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) / TRAIN_STEPS * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        require(all(np.isfinite(v) for v in losses.values()),
+                f'non-finite {assigner} {dtype} training loss')
+        print(f'[train] {assigner} {dtype} bs={TRAIN_BS} 640 px: '
+              f'{ms:.2f} ms/step, {TRAIN_BS / ms * 1e3:.1f} img/s, peak '
+              f'{peak:.2f} GiB, loss {losses["loss"]:.4f} ({card})')
+        if (assigner, dtype) == ('topk_center', 'float32'):
+            before = nms.launches
+            t = time.perf_counter()
+            metrics = trainer.evaluate(val)
+            ms = (time.perf_counter() - t) * 1e3
+            n = nms.launches - before
+            print(f'[train] evaluate eval_with_nms=True on {EVAL_IMAGES} '
+                  f'images: {ms:.1f} ms, mAP50 {metrics["mAP50"]:.4f}, '
+                  f'mAP50-95 {metrics["mAP50_95"]:.4f}, loss '
+                  f'{metrics["loss"]:.4f}, NMS kernel launches {n}')
+            require(n == EVAL_IMAGES // TRAIN_BS,
+                    'evaluate did not launch kernel 2 once a batch')
+            require(np.isfinite(metrics['loss']), 'evaluate loss')
+        if assigner == 'topk_center':
+            _step_breakdown(trainer, batch, card, f'clean {dtype}')
+        del trainer
+
+
+def phase_overfit(tmp: str) -> None:
+    """The twin of tests/test_convergence.py on the card: 121 clean steps
+    at 128 px, bs=4, on 4 images of one white square, the lr on the
+    trainer's OneCycle curve (step units, peak 2e-3 at the first step);
+    the loss must fall below 0.25 of the first step's; the checkpoint,
+    served by YOLOCLIPDetector at conf 0.25 (kernels 1 and 2), must find
+    exactly the square in each image, class 0, IoU >= 0.5. (The JAX test
+    holds the lr at 2e-3: its detections then hang on the last steps'
+    oscillation, and a 1e-6 change of its initial weights turns one
+    image's one box into two; annealed, six of six initial states passed
+    on the CPU.)"""
+    from yoloclip_tpu_torch.config import InferenceConfig
+    from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
+    from yoloclip_tpu_torch.ops.boxes import pairwise_iou
+    from yoloclip_tpu_torch.train import train_state as ts
+    from yoloclip_tpu_torch.utils.checkpoint import save_checkpoint
+    cfg = _train_cfg(128, max_objects=4, batch_size=4,
+                     assigner='topk_center')
+    B = 4
+    img = np.zeros((B, 128, 128, 3), np.float32)
+    boxes = np.zeros((B, 4, 4), np.float32)
+    valid = np.zeros((B, 4), bool)
+    rs = np.random.RandomState(0)
+    for b in range(B):
+        x0, y0 = rs.randint(10, 60), rs.randint(10, 60)
+        w, h = rs.randint(30, 50), rs.randint(30, 50)
+        img[b, y0:y0 + h, x0:x0 + w] = 1.0
+        boxes[b, 0] = [x0, y0, x0 + w, y0 + h]
+        valid[b, 0] = True
+    batch = {'images': torch.from_numpy(img).cuda(),
+             'boxes': torch.from_numpy(boxes).cuda(),
+             'class_ids': torch.zeros((B, 4), dtype=torch.int32,
+                                      device='cuda'),
+             'valid_mask': torch.from_numpy(valid).cuda()}
+    text = torch.randn((2, EMBED), generator=torch.Generator().manual_seed(0))
+    text = text / text.norm(dim=-1, keepdim=True)
+    state = ts.create_train_state(_seeded_model(cfg), cfg, 'cuda')
+    step = ts.make_train_step(cfg)
+    sched = ts.make_onecycle_schedule(2e-3, OVERFIT_STEPS + 1, 1)
+    textb = text[None].expand(B, -1, -1).cuda()
+    t = time.perf_counter()
+    ts.set_learning_rate(state, sched(0))
+    first = step(state, batch, textb)['loss'].item()
+    for i in range(1, OVERFIT_STEPS + 1):
+        ts.set_learning_rate(state, sched(i))
+        parts = step(state, batch, textb)
+    last = parts['loss'].item()
+    secs = time.perf_counter() - t
+    path = os.path.join(tmp, 'overfit.pt')
+    save_checkpoint(path, state.model.state_dict(), step=state.step)
+    vocab = os.path.join(tmp, 'overfit_vocab.json')
+    with open(vocab, 'w') as f:
+        json.dump({'square': text[0].tolist(), 'other': text[1].tolist()}, f)
+    det = YOLOCLIPDetector(
+        InferenceConfig(model=cfg.model, conf_threshold=0.25,
+                        iou_threshold=0.45, nms_topk=256, max_detections=8,
+                        host_preprocess=False),
+        vocab_path=vocab, model_path=path, device='cuda', seed=0)
+    out = det.detect_batch(torch.from_numpy(
+        (img * 255).astype(np.uint8)).cuda())
+    ious = []
+    for b in range(B):
+        require(int(out['count'][b]) == 1,
+                f'overfit image {b}: {int(out["count"][b])} detections')
+        require(int(out['class_ids'][b][0]) == 0, f'overfit image {b} class')
+        ious.append(float(pairwise_iou(
+            out['boxes'][b][:1].cpu(), torch.from_numpy(boxes[b, :1]))[0, 0]))
+    print(f'[overfit] {OVERFIT_STEPS + 1} clean steps at 128 px bs=4 in '
+          f'{secs:.1f} s: loss {first:.4f} -> {last:.4f} (must fall below '
+          f'{0.25 * first:.4f}); detect_batch: one box per image, class 0, '
+          f'IoU {", ".join(f"{i:.3f}" for i in ious)}')
+    require(last < 0.25 * first, 'overfit loss did not fall below 0.25x')
+    require(min(ious) >= 0.5, 'overfit detection IoU below 0.5')
+    return img, boxes, path, vocab
+
+
+def phase_eval_cli(img, boxes, ckpt: str, vocab: str, tmp: str) -> None:
+    """`python -m yoloclip_tpu_torch.cli.eval` (in process) on the overfit
+    images written as PNG files with their squares as COCO ground truth,
+    the overfit checkpoint served through detect() (kernels 1 and 2) --
+    where this machine can decode a PNG file; otherwise it says so."""
+    import contextlib
+    import io
+
+    from yoloclip_tpu_torch.data.coco import _imread_rgb
+    root = os.path.join(tmp, 'eval_cli')
+    os.makedirs(root, exist_ok=True)
+    frames = (img * 255).astype(np.uint8)
+    images, anns = [], []
+    for i, frame in enumerate(frames):
+        with open(os.path.join(root, f'{i}.png'), 'wb') as f:
+            f.write(_png(frame))
+        images.append({'id': i, 'file_name': f'{i}.png', 'width': 128,
+                       'height': 128})
+        x0, y0, x1, y1 = (float(v) for v in boxes[i, 0])
+        anns.append({'id': i + 1, 'image_id': i, 'category_id': 1,
+                     'bbox': [x0, y0, x1 - x0, y1 - y0],
+                     'area': (x1 - x0) * (y1 - y0), 'iscrowd': 0})
+    anno = os.path.join(root, 'anno.json')
+    with open(anno, 'w') as f:
+        json.dump({'images': images, 'annotations': anns,
+                   'categories': [{'id': 1, 'name': 'square'},
+                                  {'id': 2, 'name': 'other'}]}, f)
+    cfg = os.path.join(root, 'cfg.yaml')
+    with open(cfg, 'w') as f:
+        f.write('image_size: [128, 128]\nnms_topk: 256\nmax_detections: 8\n')
+    try:
+        import yaml  # noqa: F401
+        decoded = _imread_rgb(os.path.join(root, '0.png'))
+    except (ImportError, FileNotFoundError) as e:
+        print(f'[eval cli] no PNG file decoder or YAML reader on this '
+              f'machine ({type(e).__name__}: {e}): cli.eval was not run')
+        return
+    require(np.array_equal(decoded, frames[0]), 'PNG file decode')
+    from yoloclip_tpu_torch.cli.eval import main as eval_main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = eval_main(['--anno', anno, '--images', root, '--config', cfg,
+                        '--model', ckpt, '--vocab', vocab, '--conf',
+                        '0.25', '--device', 'cuda'])
+    lines = out.getvalue().strip().splitlines()
+    print(f'[eval cli] overfit checkpoint on its 4 images: '
+          f'{" | ".join(lines)}')
+    require(rc == 0 and any(ln.startswith('mAP@50:') for ln in lines),
+            'cli.eval failed')
+    map50 = float(lines[-1].split()[1])
+    require(map50 >= 0.5, f'cli.eval mAP@50 {map50} on the overfit images')
+
+
+def phases_training(sim, nms, tmp: str, card: str) -> dict:
+    """The training phases; returns the launches of the training path (the
+    timed steps, evaluate and the overfit detector), counted from 0."""
+    from yoloclip_tpu_torch.text.encoder import CLIPTextEncoder
+    phase_train_step_xdev()
+    encoder = CLIPTextEncoder(device='cuda', seed=0)
+    _zero_counts(sim, nms)
+    phase_training(nms, encoder, tmp, card)
+    phase_eval_cli(*phase_overfit(tmp), tmp)
+    torch.cuda.synchronize()
+    launches = _counts(sim, nms)
+    print(f'[train] launches on the training path (evaluate, overfit '
+          f'detect_batch, cli.eval where it ran): {launches}')
+    require(launches['nms'] > 0 and launches['similarity'] > 0,
+            'the training path did not launch kernels 1 and 2')
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this run '
@@ -2081,6 +2471,8 @@ def main() -> int:
         paths = [main_launches, prompt_launches, int8_launches,
                  stem_launches,
                  *phases_serving(sim, nms, det, bf, vocab_path, tmp, card)]
+        del det, bf
+        paths.append(phases_training(sim, nms, tmp, card))
     # every path's launches, each counted from 0 just before it ran
     launched = {k: sum(p.get(k, 0) for p in paths)
                 for k in ('similarity', 'similarity_bf16', 'nms',

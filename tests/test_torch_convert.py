@@ -83,6 +83,29 @@ def test_config_fields_and_defaults_match_jax():
         assert p.level_shapes() == j.level_shapes()
 
 
+def test_training_config_matches_jax(tmp_path):
+    """TrainingConfig: the same fields and defaults, the same overlay of a
+    YAML file (nested model keys, a loss_weights mapping) and keyword
+    overrides, the same loss_weight()."""
+    want = _defaults(jax_config.TrainingConfig)
+    got = _defaults(port_config.TrainingConfig)
+    assert list(got) == list(want)
+    assert dataclasses.asdict(got.pop('model')) == dataclasses.asdict(
+        want.pop('model'))
+    assert got == want
+    path = tmp_path / 'train.yaml'
+    path.write_text('image_size: [128, 96]\nbackbone_variant: s\n'
+                    'loss_weights: {contrastive: 2.0, iou: 3.0, dfl: 0.5}\n'
+                    'class_names: [cat, dog]\nassigner: topk_center\n'
+                    'ema_decay: 0.999\ngrad_accum_steps: 2\n')
+    p = port_config.load_config(port_config.TrainingConfig, str(path),
+                                max_epochs=3, dtype='bfloat16')
+    j = jax_config.load_config(jax_config.TrainingConfig, str(path),
+                               max_epochs=3, dtype='bfloat16')
+    assert dataclasses.asdict(p) == dataclasses.asdict(j)
+    assert p.loss_weight('iou') == j.loss_weight('iou') == 3.0
+
+
 def test_int8_helpers_match_jax():
     from yoloclip_tpu.models import layers as jl
     from yoloclip_tpu_torch.models import layers

@@ -5,8 +5,9 @@ tiny CPU `detect_batch` from a JSON vocabulary, build a detector from class
 names with a miniature text tower and run `detect` with free-text prompts,
 serve one request through a `DetectionServer` (the native host letterbox)
 and close it, run one `StreamingDetector.step`, quantize the detector to
-the int8 deploy graph (`quantize_int8`) and run a `detect_batch`, then
-check that neither
+the int8 deploy graph (`quantize_int8`) and run a `detect_batch`, take
+one training step and one `evaluate` (with NMS) through YOLOCLIPTrainer on
+a synthetic batch, then check that neither
 jax, jaxlib, flax nor any module of the JAX package (`yoloclip_tpu`) was
 imported.
 """
@@ -74,6 +75,24 @@ det.quantize_int8(np.random.RandomState(1).randint(0, 256, (2, 48, 64, 3),
                                                    dtype=np.uint8))
 out = det.detect_batch(np.zeros((2, 48, 64, 3), np.uint8))
 assert det.config.model.quant == 'int8' and out['boxes'].shape == (2, 8, 4)
+from yoloclip_tpu_torch.config import TrainingConfig
+from yoloclip_tpu_torch.data.synth import make_synth_detection_set
+from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP, init_weights
+from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
+tcfg = TrainingConfig(model=ModelConfig(image_size=(64, 64)), max_objects=8,
+                      output_dir=os.path.join(sys.argv[1], 'run'),
+                      eval_with_nms=True, ema_decay=0.9)
+model = YOLOCLIP(tcfg.model)
+init_weights(model, torch.Generator().manual_seed(0))
+trainer = YOLOCLIPTrainer(model, det.text_encoder, tcfg, device='cpu')
+batch = make_synth_detection_set(2, 0, image_size=64, max_objects=8,
+                                 min_side=8, max_side=24)
+batch['text_prompts'] = [['a cat', 'a dog']] * 2
+batch['class_ids'] %= 2
+losses = trainer.train_epoch([batch], 1)
+metrics = trainer.evaluate([batch])
+assert trainer.state.step == 1 and np.isfinite(losses['loss'])
+assert np.isfinite(metrics['loss']) and 'mAP50' in metrics
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                                'yoloclip_tpu'))))

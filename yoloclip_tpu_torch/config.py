@@ -1,10 +1,10 @@
-"""Model and inference settings. The port's own copy of the dataclasses in
-`yoloclip_tpu/config.py`, with the same field names and defaults, so a
-configuration written for one package builds the same model in the other.
+"""Model, inference and training settings. The port's own copy of the
+dataclasses in `yoloclip_tpu/config.py`, with the same field names and
+defaults, so a configuration written for one package builds the same model
+and the same training run in the other.
 
 `load_config` is the JAX package's YAML loader (defaults < YAML with
-`model_config:`/`dataset_config:` includes < keyword overrides). The
-training settings come with the training slice.
+`model_config:`/`dataset_config:` includes < keyword overrides).
 """
 
 from __future__ import annotations
@@ -110,6 +110,68 @@ class InferenceConfig:
     # letterbox is available (inference/detector.py); False: device
     # letterbox.
     host_preprocess: Any = 'auto'
+
+
+@dataclass(frozen=True)
+class TrainingConfig:
+    """Training settings (`train/trainer.py`)."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    # dataset
+    train_anno_path: str = 'data/coco/annotations/instances_train2017.json'
+    train_img_dir: str = 'data/coco/train2017'
+    val_anno_path: str = 'data/coco/annotations/instances_val2017.json'
+    val_img_dir: str = 'data/coco/val2017'
+    class_names: Tuple[str, ...] = tuple(COCO_CLASS_NAMES)
+    max_objects: int = 100
+    mosaic_prob: float = 0.5
+    # training
+    batch_size: int = 16
+    num_workers: int = 8
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-4
+    max_epochs: int = 100
+    warmup_epochs: int = 5
+    save_interval: int = 10
+    eval_interval: int = 5
+    # loss
+    temperature: float = 0.1
+    iou_type: str = 'ciou'
+    label_smoothing: float = 0.1
+    loss_weights: Tuple[Tuple[str, float], ...] = (
+        ('contrastive', 1.0), ('iou', 5.0), ('dfl', 1.0))
+    # 'compat': only the first `max_objects` anchors train, paired index-wise
+    # with the padded ground truth, as the original trainer does;
+    # 'topk_center': the center-distance assigner (train/assign.py).
+    assigner: str = 'compat'
+    # topk_center score objective: 'bce' (assigned anchors above,
+    # background below the 0.25 deploy threshold) or 'softmax' (CE over
+    # the labeled anchors only).
+    contrastive_type: str = 'bce'
+    # optimizer
+    optimizer_type: str = 'AdamW'
+    lr_scheduler_type: str = 'OneCycleLR'
+    # EMA of the parameters (0 disables), decay ramped as
+    # decay * (1 - exp(-step / ema_warmup_steps)); evaluation and the
+    # best/final checkpoints' served weights use it.
+    ema_decay: float = 0.0
+    ema_warmup_steps: int = 2000
+    # >1 splits each batch into that many equal micro-batches whose
+    # gradients average to the full-batch mean; batch_size must divide.
+    grad_accum_steps: int = 1
+    output_dir: str = 'outputs/'
+    seed: int = 42
+    # data-parallel shards; only 1 is ported (ROADMAP.md, queue A item 5)
+    data_parallel: int = 1
+    # False: evaluate the raw first max_objects anchors with no NMS or
+    # confidence filter, as the original trainer does; True: real
+    # detections (confidence filter + class-agnostic NMS).
+    eval_with_nms: bool = False
+    eval_conf_threshold: float = 0.25
+    eval_iou_threshold: float = 0.45
+
+    def loss_weight(self, key: str) -> float:
+        return dict(self.loss_weights)[key]
 
 
 def _merge(cfg, overrides: Dict[str, Any]):

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -49,6 +48,8 @@ from yoloclip_tpu_torch.ops.preprocess import (letterbox_batch_for,
 from yoloclip_tpu_torch.ops.quantize import float_state, quantize_model
 from yoloclip_tpu_torch.text.encoder import CLIPTextEncoder
 from yoloclip_tpu_torch.text.vocab import VocabularyBuilder
+from yoloclip_tpu_torch.utils.checkpoint import (is_training_checkpoint,
+                                                 load_checkpoint)
 from yoloclip_tpu_torch.utils.visualize import draw_detections
 
 logger = logging.getLogger(__name__)
@@ -91,17 +92,16 @@ def _unpack_detections(packed: np.ndarray, names: Sequence[str]
 
 def load_detector_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A detector checkpoint -> reference-layout state dict: a torch
-    `.pt`/`.pth` file holding one (or a module with `.state_dict()`)."""
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f'{path} is a directory: orbax checkpoints are not read by the '
-            'port (ROADMAP.md, queue A: orbax checkpoints); convert the '
-            'variables with utils.convert.state_dict_from_jax and '
-            'torch.save the state dict')
-    sd = torch.load(path, map_location='cpu', weights_only=True)
-    if hasattr(sd, 'state_dict'):
-        sd = sd.state_dict()
-    return sd
+    `.pt`/`.pth` file holding one (or a module with `.state_dict()`), or a
+    training checkpoint (`utils/checkpoint.py`), whose EMA parameters are
+    served when it tracked them (over its BatchNorm buffers), as the JAX
+    detector serves `ema_params`."""
+    ckpt = load_checkpoint(path)
+    if is_training_checkpoint(ckpt):
+        return {**ckpt['model'], **(ckpt.get('ema') or {})}
+    if hasattr(ckpt, 'state_dict'):
+        ckpt = ckpt.state_dict()
+    return ckpt
 
 
 def _imread_rgb(path: str) -> np.ndarray:

@@ -81,13 +81,17 @@ class TextContrastiveHead(nn.Module):
 def compute_similarity(obj: torch.Tensor, text: torch.Tensor,
                        cls_alpha: float = 1.0,
                        cls_beta: float = 0.0) -> torch.Tensor:
-    """obj (B, E, H, W), text (B, C, E) -> (B, H*W, C) fp32 raw cosine."""
+    """obj (B, E, H, W), text (B, C, E) -> (B, H*W, C) fp32 raw cosine,
+    also under a bf16 autocast (the bf16 train step)."""
     B, E = obj.shape[:2]
-    o = obj.permute(0, 2, 3, 1).reshape(B, -1, E).float()
-    o = o / torch.linalg.vector_norm(o, dim=-1, keepdim=True).clamp_min(1e-12)
-    t = text.float()
-    t = t / torch.linalg.vector_norm(t, dim=-1, keepdim=True).clamp_min(1e-12)
-    sim = torch.matmul(o, t.transpose(1, 2))
+    with torch.autocast(obj.device.type, enabled=False):
+        o = obj.permute(0, 2, 3, 1).reshape(B, -1, E).float()
+        o = o / torch.linalg.vector_norm(o, dim=-1,
+                                         keepdim=True).clamp_min(1e-12)
+        t = text.float()
+        t = t / torch.linalg.vector_norm(t, dim=-1,
+                                         keepdim=True).clamp_min(1e-12)
+        sim = torch.matmul(o, t.transpose(1, 2))
     return cls_alpha * sim + cls_beta
 
 

@@ -10,7 +10,8 @@ deploy graph (`quant='int8'`, `ops/quantize.py`), the BN-folded float conv
 {wf, fbias} or, for a block that passes `quant_eligible`, the int8 conv
 {wq, wscale, qbias, act_scale} through the hand-written kernel
 (`ops/kernels/int8_conv.py`). The JAX package's int8-stored `QT` edges are
-not ported: they are off at its default threshold.
+not ported: they are off at its default threshold. BatchNorm trains by
+flax's rule (`BatchNorm2d`).
 """
 
 from __future__ import annotations
@@ -90,6 +91,31 @@ class _ConvKernel(nn.Module):
             torch.empty(cout, cin, kernel_size, kernel_size))
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d (eps 1e-5) whose train mode follows flax's
+    `BatchNorm(momentum=0.9)`, as the JAX package trains: it normalises
+    with the biased batch statistics (as torch does) and updates the
+    running buffers as ra = 0.9 ra + 0.1 batch_stat with the BIASED batch
+    variance (torch's own update uses the unbiased one), the statistics
+    reduced in fp32 whatever the input dtype. Eval mode is nn.BatchNorm2d's;
+    `num_batches_tracked` stays as loaded."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+
 class ConvBlock(nn.Module):
     """Conv (no bias, padding k//2) + BatchNorm (eps 1e-5) + SiLU.
 
@@ -125,7 +151,7 @@ class ConvBlock(nn.Module):
                          if s2d or s2d_pre else
                          nn.Conv2d(cin, cout, kernel_size, stride, self.pad,
                                    bias=False))
-            self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
+            self.bn = BatchNorm2d(cout)
         elif quant == 'int8' and quant_eligible(kernel_size, cin, cout):
             # the wq path has no s2d rewrite; the stem never gets here
             # (cin = 3 fails quant_eligible): keep that explicit
@@ -236,7 +262,8 @@ class SPPF(nn.Module):
 class MultiHeadAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameter layout (batch first, packed
     in_proj = [q; k; v], out_proj), computed as plain matmuls and softmax.
-    The scores and the softmax are fp32 whatever the compute dtype."""
+    The scores (accumulated in fp32) and the softmax are fp32 whatever the
+    compute dtype."""
 
     def __init__(self, embed_dim: int, num_heads: int = 8):
         super().__init__()
@@ -260,7 +287,11 @@ class MultiHeadAttention(nn.Module):
         q = F.linear(query, wq, bq).reshape(B, Lq, H, hd).transpose(1, 2)
         k = F.linear(key, wk, bk).reshape(B, Lk, H, hd).transpose(1, 2)
         v = F.linear(value, wv, bv).reshape(B, Lk, H, hd).transpose(1, 2)
-        scores = torch.matmul(q, k.transpose(2, 3)).float() / math.sqrt(hd)
+        # fp32 scores from the compute-dtype operands (their products are
+        # exact in fp32), as JAX's preferred_element_type=float32 einsum
+        with torch.autocast(q.device.type, enabled=False):
+            scores = torch.matmul(q.float(), k.float().transpose(2, 3))
+        scores = scores / math.sqrt(hd)
         if attn_mask is not None:
             scores = scores + attn_mask.float()
         attn = torch.softmax(scores, dim=-1).to(v.dtype)

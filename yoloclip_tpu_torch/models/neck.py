@@ -44,11 +44,15 @@ class TextGuidedCSPLayer(nn.Module):
         for m in self.bottlenecks:
             y1 = m(y1)
             # max over classes of feat . projected text, then a sigmoid gate
-            scores = torch.einsum('bchw,bnc->bnhw', y1, proj)
+            # fp32 scores from the compute-dtype operands, as JAX's
+            # preferred_element_type=float32 einsum
+            with torch.autocast(y1.device.type, enabled=False):
+                scores = torch.einsum('bchw,bnc->bnhw', y1.float(),
+                                      proj.float())
             if class_mask is not None:
                 scores = scores.masked_fill(~class_mask[:, :, None, None],
                                             float('-inf'))
-            gate = torch.sigmoid(scores.amax(dim=1, keepdim=True).float())
+            gate = torch.sigmoid(scores.amax(dim=1, keepdim=True))
             y1 = y1 * gate.to(y1.dtype)
         return self.cv3(torch.cat([y1, self.cv2(x)], dim=1))
 
