@@ -105,6 +105,11 @@ Phases, each printing its results; any failure exits non-zero:
                   yoloclip_tpu_torch.cli.detect`, `cli.stream --streams 2
                   --steps 3` and `cli.warmup` (builds and loads the
                   libraries) as subprocesses, exit 0.
+ 15b. profile -- utils/profiling.py on 10 bf16 detect_batch calls at bs=32:
+                  trace() writes a Chrome trace that must hold kernel 1 and
+                  kernel 2 events, the device's idle share read from it,
+                  the top kernels; StageTimer over the stages;
+                  memory_stats();
  16. training  -- YOLOCLIPTrainer at variant 'n', 640 px, from seeded
                   weights on synthetic arrays (the card has no image
                   decoder): one compat fp32 AdamW step at bs=2 against the
@@ -120,9 +125,27 @@ Phases, each printing its results; any failure exits non-zero:
                   box per image, class 0, IoU >= 0.5; then cli.eval on
                   those images written as PNG files, where the machine
                   can decode them (it says so where it cannot).
+ 17. ddp       -- parallel/ on the one card: two ranks on cuda:0 through
+                  gloo (NCCL refuses two ranks on one device) take a compat
+                  fp32 and a clean bf16 step at global bs=16 (8 a rank),
+                  held against the 1-process step on the card (loss parts,
+                  gradients, BatchNorm buffers; parameters against AdamW on
+                  the ranks' gradients; the ranks' parameters identical);
+                  one NCCL rank against the step without DDP; evaluate
+                  with NMS on 32 images under the two ranks (the same
+                  metrics on both, kernel 2 in each) and
+                  make_sharded_inference with the folded scoring on each
+                  rank's rows (kernels 1 and 2 in each);
+ 18. dp serve  -- a DetectionServer and a StreamingDetector over two
+                  replicas on cuda:0, fp32 conf -1.0, against the
+                  single-device canvas program / step on each replica's
+                  share (equal); one `serve --devices cuda:0,cuda:0 --int8`
+                  batch (the int8 kernel on both replicas).
 Each path that launches kernels (main path, prompts, int8, stems, canvas,
-server, streaming, reparam, training) runs with the launch counters set to
-0 just before it and read just after; the kernels line sums them.
+server, streaming, reparam, profile, training, the ddp ranks, dp serve)
+runs with the launch counters set to 0 just before it and read just after;
+the kernels line sums them. Two ranks or replicas on one card show
+correctness, not scaling.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1285,7 +1308,8 @@ def _server_breakdown(srv, bdet, pool, card: str) -> None:
 
     def dispatch():
         _, done = srv._launch(reqs, BATCH, text)
-        done.synchronize()
+        for ev in done:
+            ev.synchronize()
 
     th, tw = bdet.image_size
     host = torch.zeros((BATCH, th, tw, 3), dtype=torch.uint8,
@@ -2179,57 +2203,34 @@ def phase_train_step_xdev() -> None:
 
 
 def _step_breakdown(trainer, batch, card: str, tag: str) -> None:
-    """torch.profiler over one train step: the top 10 CUDA kernels by
-    device time and the device's idle share of the step's host span."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """torch.profiler over one train step (`utils/profiling.py`): the top
+    10 CUDA kernels by device time and the device's idle share of the
+    step's host span."""
+    from yoloclip_tpu_torch.utils.profiling import (annotate, device_summary,
+                                                    trace)
     trainer.train_epoch([batch], 1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function('train_step'):
+    with trace(os.path.join(trainer.output_dir, 'trace')) as prof:
+        with annotate('train_step'):
             trainer.train_epoch([batch], 1)
             torch.cuda.synchronize()
-    events = prof.events()
-    step = [e for e in events if e.name == 'train_step']
-    # user annotations (record_function, Optimizer.step) also show on the
-    # device timeline: only kernels and copies count
-    marks = {e.name for e in events if e.is_user_annotation}
-    dev = [e for e in events
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.is_user_annotation and e.name not in marks]
-    if not step or not dev:
+    summary = device_summary(prof, span='train_step')
+    if summary['idle_share'] is None:
         print('[train breakdown] not measured (the profiler recorded no '
               'device event)')
         return
-    t0, t1 = step[0].time_range.start, step[0].time_range.end
-    spans = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1))
-                   for e in dev if e.time_range.end > t0
-                   and e.time_range.start < t1)
-    busy, cur_s, cur_e = 0.0, None, None
-    for a, b in spans:
-        if cur_e is None or a > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    by_name = {}
-    for e in dev:
-        by_name.setdefault(e.name, [0.0, 0])
-        by_name[e.name][0] += e.time_range.end - e.time_range.start
-        by_name[e.name][1] += 1
+    by_name = summary['kernels']
     total = sum(v[0] for v in by_name.values())
     print(f'[train breakdown] {tag} bs={TRAIN_BS} 640 px, one step: '
-          f'host span {(t1 - t0) / 1e3:.2f} ms, device busy '
-          f'{busy / 1e3:.2f} ms, idle share {1 - busy / (t1 - t0):.3f}, '
-          f'{len(dev)} device activities, {total / 1e3:.2f} ms summed '
-          f'({card})')
-    for name, (us, n) in sorted(by_name.items(),
+          f'host span {summary["span_ms"]:.2f} ms, device busy '
+          f'{summary["busy_ms"]:.2f} ms, idle share '
+          f'{summary["idle_share"]:.3f}, '
+          f'{sum(v[1] for v in by_name.values())} device activities, '
+          f'{total:.2f} ms summed ({card})')
+    for name, (ms, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:10]:
-        print(f'[train breakdown]   {us / 1e3:8.3f} ms  {n:5d}x  '
-              f'{100 * us / total:5.1f} %  {name[:110]}')
+        print(f'[train breakdown]   {ms:8.3f} ms  {n:5d}x  '
+              f'{100 * ms / total:5.1f} %  {name[:110]}')
 
 
 def phase_training(nms, text_encoder, tmp: str, card: str) -> None:
@@ -2430,6 +2431,504 @@ def phases_training(sim, nms, tmp: str, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism (yoloclip_tpu_torch/parallel/) on the one card. Two
+# ranks share cuda:0 through gloo (NCCL refuses two ranks on one device);
+# one rank runs through NCCL. Two ranks on one card show correctness, not
+# scaling: their step times include gloo's host round trips of every
+# gradient bucket, and multi-card scaling is not measured.
+# ---------------------------------------------------------------------------
+
+# Global batch of the [ddp] steps (8 a rank); (tag, assigner, dtype).
+DDP_BS = 16
+DDP_STEPS = (('compat fp32', 'compat', 'float32'),
+             ('clean bf16', 'topk_center', 'bfloat16'))
+DDP_TIMED = 3
+# 2 ranks against 1 process, both on the card. fp32: PR 8's card-vs-
+# float64 gate (TRAIN_*): the two runs differ by rounding only (the global
+# statistics combined per rank, the loss sums split in two). bf16: every
+# conv input is rounded to 8 bits, so where the two runs' statistics
+# differ by rounding some of those roundings flip by one bf16 ulp, and a
+# small gradient tensor (e.g. a text projection's bias) can move by its
+# own size: loss parts are held within 2^-8 relative; gradients (relative
+# L2 over all of them) and buffers are held against the fp32 step: the
+# 2-rank bf16 step no further from it than DDP_BF16_FACTOR x the 1-process
+# bf16 step.
+DDP_TOL = {'float32': (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_BUF_ATOL),
+           'bfloat16': (2.0 ** -8, None, None)}
+DDP_BF16_FACTOR = 1.5
+DDP_TIMEOUT_S = 600
+
+
+def _ddp_batch():
+    """The [ddp] global batch: DDP_BS synthetic 640 px images and their
+    (DDP_BS, 128, 512) text, 80 prompts a sample (the rest zero)."""
+    batch = _train_batch(DDP_BS, 2)
+    g = torch.Generator().manual_seed(2)
+    text = torch.randn((DDP_BS, 128, EMBED), generator=g)
+    text[:, 80:] = 0.0
+    arrays = {k: batch[k] for k in ('images', 'boxes', 'class_ids',
+                                    'valid_mask')}
+    return arrays, text, batch['text_prompts']
+
+
+def _params_equal_over_ranks(model, group) -> bool:
+    import torch.distributed as dist
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    lo, hi = flat.clone(), flat.clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    return bool(torch.equal(lo, hi))
+
+
+def _ddp_rank(rank: int, world: int, rendezvous: str, out_dir: str,
+              backend: str) -> None:
+    """One rank of the [ddp] phase on cuda:0: each DDP_STEPS step on its
+    rows of the global batch (world 1: the fp32 step only), then with two
+    ranks `evaluate` with NMS (kernel 2) on DDP_EVAL_IMAGES images and
+    `make_sharded_inference` with the folded scoring (kernel 1) on its
+    rows. Writes out_dir/rank{rank}.pt."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from yoloclip_tpu_torch.ops.kernels import nms, similarity as sim
+    from yoloclip_tpu_torch.parallel import multihost
+    from yoloclip_tpu_torch.parallel.mesh import create_mesh
+    from yoloclip_tpu_torch.parallel.train_step import (
+        make_sharded_inference, make_sharded_train_step, place_batch)
+    from yoloclip_tpu_torch.train import train_state as ts
+    from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
+    multihost.initialize(f'file://{rendezvous}', world, rank,
+                         device='cuda:0', backend=backend,
+                         timeout_s=DDP_TIMEOUT_S)
+    mesh = create_mesh()
+    out = {'backend': backend, 'mesh': repr(mesh)}
+    arrays, text, prompts = _ddp_batch()
+    for tag, assigner, dtype in DDP_STEPS[:1 if world == 1 else None]:
+        cfg = _train_cfg(assigner=assigner, dtype=dtype, batch_size=DDP_BS)
+        state = ts.create_train_state(_seeded_model(cfg), cfg, 'cuda:0')
+        ts.set_learning_rate(state, cfg.learning_rate)
+        step = make_sharded_train_step(cfg, mesh)(state)
+        local = place_batch(dict(arrays, text=text), mesh)
+        t = local.pop('text')
+        parts = {k: float(v) for k, v in step(state, local, t).items()}
+        res = {'parts': parts,
+               'identical': _params_equal_over_ranks(state.model,
+                                                     mesh.group)}
+        if rank == 0:   # copies: the timed steps below go on in place
+            res['grads'] = {k: p.grad.detach().to('cpu', copy=True)
+                            for k, p in state.model.named_parameters()}
+            res['state'] = {k: v.detach().to('cpu', copy=True) for k, v in
+                            state.model.state_dict().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DDP_TIMED):
+            step(state, local, t)
+        torch.cuda.synchronize()
+        res['ms'] = (time.perf_counter() - t0) / DDP_TIMED * 1e3
+        out[tag] = res
+        del step, state
+    if world > 1:
+        from yoloclip_tpu_torch.ops.nms import batched_nms
+        from yoloclip_tpu_torch.text.encoder import CLIPTextEncoder
+        cfg = _train_cfg(eval_with_nms=True, batch_size=DDP_BS,
+                         output_dir=os.path.join(out_dir, 'train'))
+        trainer = YOLOCLIPTrainer(_seeded_model(cfg),
+                                  CLIPTextEncoder(device='cuda:0', seed=0),
+                                  cfg, mesh=mesh)
+        val = [_train_batch(DDP_BS, 3 + i)
+               for i in range(EVAL_IMAGES // DDP_BS)]
+        nms.launches = sim.launches = sim.launches_bf16 = 0
+        t0 = time.perf_counter()
+        out['eval'] = trainer.evaluate(val)
+        out['eval_ms'] = (time.perf_counter() - t0) * 1e3
+        out['eval_nms_launches'] = nms.launches
+        # kernel 1 on this rank's rows: the folded scoring over one
+        # shared vocabulary, against the model's own unfolded scores
+        vocab = torch.randn((80, EMBED), generator=torch.Generator(
+            ).manual_seed(4))
+        vocab = (vocab / vocab.norm(dim=-1, keepdim=True)).cuda()
+        model = trainer.model.eval()
+        run = make_sharded_inference(model, mesh)
+        images = torch.from_numpy(val[0]['images'])
+        launched = {}
+        _zero_counts(sim, nms)
+        (fused,) = run(images, vocab, fused_scores=True)
+        det = batched_nms(fused['boxes'], fused['scores'], fused['class_ids'],
+                          0.25, 0.45, topk=1024, max_detections=100)
+        torch.cuda.synchronize()
+        launched.update(_counts(sim, nms))
+        (plain,) = run(images, vocab)
+        out['infer'] = {
+            'launches': launched, 'rows': int(fused['scores'].shape[0]),
+            'score_diff': float((fused['scores'] - plain['scores'])
+                                .abs().max()),
+            'finite': bool(torch.isfinite(det['scores']).all())}
+    torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
+    multihost.shutdown()
+
+
+def _run_ranks(world: int, backend: str, out_dir: str) -> list:
+    """Spawn `world` [ddp] ranks, wait for them (failing the run past
+    DDP_TIMEOUT_S or on any rank's error) and load their results."""
+    import torch.multiprocessing as mp
+    rdv = os.path.join(out_dir, f'rendezvous_{backend}_{world}')
+    ctx = mp.start_processes(_ddp_rank, args=(world, rdv, out_dir, backend),
+                             nprocs=world, join=False, start_method='spawn')
+    deadline = time.perf_counter() + DDP_TIMEOUT_S + 120
+    try:
+        while not ctx.join(timeout=5):
+            require(time.perf_counter() < deadline,
+                    f'[ddp] {backend} ranks did not finish in time')
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(os.path.join(out_dir, f'rank{r}.pt'),
+                       weights_only=False) for r in range(world)]
+
+
+def _single_card_step(tag, assigner, dtype):
+    """The 1-process step on the card over the [ddp] global batch: (loss
+    parts, gradients, state dict, the step's ms over DDP_TIMED more)."""
+    from yoloclip_tpu_torch.train import train_state as ts
+    cfg = _train_cfg(assigner=assigner, dtype=dtype, batch_size=DDP_BS)
+    state = ts.create_train_state(_seeded_model(cfg), cfg, 'cuda')
+    ts.set_learning_rate(state, cfg.learning_rate)
+    arrays, text, _ = _ddp_batch()
+    b = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+    step = ts.make_train_step(cfg)
+    parts = {k: float(v) for k, v in step(state, b, text.cuda()).items()}
+    grads = {k: p.grad.detach().to('cpu', copy=True)
+             for k, p in state.model.named_parameters()}
+    sd = {k: v.detach().to('cpu', copy=True)
+          for k, v in state.model.state_dict().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DDP_TIMED):
+        step(state, b, text.cuda())
+    torch.cuda.synchronize()
+    return parts, grads, sd, (time.perf_counter() - t0) / DDP_TIMED * 1e3
+
+
+def _grad_err(got, want):
+    """(worst relative L2 of a gradient tensor, its name; relative L2 of
+    all of them together), over tensors above 1e-6 of the largest norm."""
+    top = max(float(g.norm()) for g in want.values())
+    worst, name, num, den = 0.0, '', 0.0, 0.0
+    for k, g in want.items():
+        if float(g.norm()) > 1e-6 * top:
+            d = float((got[k] - g).norm())
+            num, den = num + d * d, den + float(g.norm()) ** 2
+            if d / float(g.norm()) > worst:
+                worst, name = d / float(g.norm()), k
+    return worst, name, (num / den) ** 0.5
+
+
+def _buf_err(got, want):
+    return max((got[k] - v).abs().max().item() for k, v in want.items()
+               if k.endswith(('running_mean', 'running_var')))
+
+
+def _compare_step(tag, assigner, dtype, got, want, card):
+    """A rank's step against the 1-process step: loss parts, gradients,
+    BatchNorm buffers (bf16: both against the fp32 step, DDP_TOL); its
+    parameters against AdamW applied on the card to its own (all-reduced)
+    gradients from the seeded state."""
+    from yoloclip_tpu_torch.train import train_state as ts
+    parts, grads, sd, ms = want
+    loss_tol, grad_tol, buf_tol = DDP_TOL[dtype]
+    loss_err = max(abs(got['parts'][k] - v) / max(abs(v), 1e-12)
+                   for k, v in parts.items() if v != 0)
+    grad_err, worst, grad_all = _grad_err(got['grads'], grads)
+    buf_err = _buf_err(got['state'], sd)
+    extra = ''
+    if grad_tol is None:   # bf16: against the fp32 step
+        _, f_grads, f_sd, _ = _single_card_step(tag, assigner, 'float32')
+        grad_all = _grad_err(got['grads'], f_grads)[2]
+        grad_tol = DDP_BF16_FACTOR * _grad_err(grads, f_grads)[2]
+        buf_err = _buf_err(got['state'], f_sd)
+        buf_tol = DDP_BF16_FACTOR * _buf_err(sd, f_sd)
+        extra = (' (bf16: gradients over all tensors and buffers against '
+                 'the fp32 step, tolerances '
+                 f'{DDP_BF16_FACTOR:g}x the 1-process bf16 step\'s)')
+    cfg = _train_cfg(dtype=dtype)
+    ref = _seeded_model(cfg).to('cuda', torch.float32)
+    opt = ts.make_optimizer(cfg, ref.parameters())
+    for k, p in ref.named_parameters():
+        p.grad = got['grads'][k].cuda()
+    opt.step()
+    param_err = max((got['state'][k] - p.detach().cpu()).abs().max().item()
+                    for k, p in ref.named_parameters())
+    print(f'[ddp] {tag} bs={DDP_BS} 640 px, 2 ranks (gloo, both on cuda:0) '
+          f'vs 1 process on the card{extra}: loss parts max rel '
+          f'{loss_err:.3e} (tol {loss_tol:g}); gradients rel L2 over all '
+          f'{grad_all:.3e} (tol {grad_tol:.3e}), worst tensor {grad_err:.3e} '
+          f'({worst}); BatchNorm buffers max abs {buf_err:.3e} '
+          f'(tol {buf_tol:.3e}); parameters vs AdamW on the ranks\' gradients '
+          f'max abs {param_err:.3e} (tol {TRAIN_PARAM_ATOL:g}); ranks\' '
+          f'parameters identical={got["identical"]}; step {got["ms"]:.2f} '
+          f'ms a rank (two ranks sharing one card: correctness, not scaling)'
+          f' vs {ms:.2f} ms in one process  [{card}]')
+    require(got['identical'], f'[ddp] {tag}: the ranks diverged')
+    require(loss_err <= loss_tol, f'[ddp] {tag}: loss parts')
+    require((grad_err if dtype == 'float32' else grad_all) <= grad_tol,
+            f'[ddp] {tag}: gradients')
+    require(buf_err <= buf_tol, f'[ddp] {tag}: BatchNorm buffers')
+    require(param_err <= TRAIN_PARAM_ATOL, f'[ddp] {tag}: AdamW')
+
+
+def phase_ddp(sim, nms, tmp: str, card: str) -> dict:
+    """[ddp]: the 2-rank gloo steps and the 1-rank NCCL step against the
+    1-process step on the card; evaluate and sharded inference under two
+    ranks. Returns the ranks' kernel launches (evaluate, inference)."""
+    out_dir = os.path.join(tmp, 'ddp')
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    r0, r1 = _run_ranks(2, 'gloo', out_dir)
+    secs = time.perf_counter() - t0
+    print(f'[ddp] two gloo ranks on cuda:0 ({r0["mesh"]}) ran in {secs:.1f} '
+          f's with their start-up')
+    for tag, assigner, dtype in DDP_STEPS:
+        require(r0[tag]['parts'] == r1[tag]['parts'],
+                f'[ddp] {tag}: the ranks report other losses')
+        r0[tag]['identical'] &= r1[tag]['identical']
+        _compare_step(tag, assigner, dtype, r0[tag],
+                      _single_card_step(tag, assigner, dtype), card)
+
+    # one rank through NCCL: the step without DDP
+    (n0,) = _run_ranks(1, 'nccl', out_dir)
+    tag, assigner, dtype = DDP_STEPS[0]
+    parts, grads, sd, ms = _single_card_step(tag, assigner, dtype)
+    got = n0[tag]
+    loss_err = max(abs(got['parts'][k] - v) / max(abs(v), 1e-12)
+                   for k, v in parts.items() if v != 0)
+    grad_err = max(float((got['grads'][k] - g).norm() / g.norm())
+                   for k, g in grads.items() if float(g.norm()) > 0)
+    same = all(torch.equal(got['grads'][k], g) for k, g in grads.items())
+    print(f'[ddp] {tag}: 1 NCCL rank vs the step without DDP: loss parts '
+          f'max rel {loss_err:.3e}, gradients max rel L2 {grad_err:.3e}, '
+          f'bit-identical gradients={same}; step {got["ms"]:.2f} ms vs '
+          f'{ms:.2f} ms  [{card}]')
+    require(loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL,
+            '[ddp] the NCCL rank differs from the step without DDP')
+
+    # evaluate + sharded inference under the two gloo ranks
+    e0, e1 = r0['eval'], r1['eval']
+    i0, i1 = r0['infer'], r1['infer']
+    print(f'[ddp] evaluate eval_with_nms=True on {EVAL_IMAGES} images, 2 '
+          f'ranks: rank 0 {e0}, rank 1 {e1}; {r0["eval_ms"]:.1f} / '
+          f'{r1["eval_ms"]:.1f} ms; NMS kernel launches rank 0 '
+          f'{r0["eval_nms_launches"]}, rank 1 {r1["eval_nms_launches"]}')
+    print(f'[ddp] make_sharded_inference, folded scoring + NMS on each '
+          f'rank\'s {i0["rows"]} rows: launches rank 0 {i0["launches"]}, '
+          f'rank 1 {i1["launches"]}; folded vs unfolded scores max diff '
+          f'{i0["score_diff"]:.3e} / {i1["score_diff"]:.3e} (tol '
+          f'{XDEV_SCORE_ATOL:g})')
+    require(e0 == e1, '[ddp] the ranks computed different eval metrics')
+    per_rank = EVAL_IMAGES // DDP_BS
+    for r in (r0, r1):
+        i = r['infer']
+        require(r['eval_nms_launches'] == per_rank,
+                '[ddp] evaluate did not launch kernel 2 once a batch')
+        require(i['launches']['similarity'] > 0 and i['launches']['nms'] > 0,
+                '[ddp] a rank did not launch kernels 1 and 2')
+        require(i['score_diff'] <= XDEV_SCORE_ATOL and i['finite'],
+                '[ddp] folded scoring on a rank')
+    launches = {k: 0 for k in ('similarity', 'similarity_bf16', 'nms')}
+    for r in (r0, r1):
+        for k, v in r['infer']['launches'].items():
+            launches[k] += v
+        launches['nms'] += r['eval_nms_launches']
+    return launches
+
+
+def _split_packed(sdet, frames, halves):
+    """The canvas program on each of `halves` parts of the frames' host
+    canvases: the detection lists the single-device detector gives a batch
+    the size of one replica's share."""
+    from yoloclip_tpu_torch.inference.detector import _unpack_detections
+    out = []
+    n = len(frames) // halves
+    for h in range(halves):
+        part = frames[h * n:(h + 1) * n]
+        canv, meta = [], []
+        for f in part:
+            c, scale = sdet._host_letterbox(f)
+            canv.append(c)
+            meta.append([scale, f.shape[1], f.shape[0]])
+        meta = torch.tensor(meta, dtype=torch.float32, device='cuda')
+        packed = sdet._detect_canvases(
+            torch.from_numpy(np.stack(canv)).cuda(), sdet.offline_vocabulary,
+            meta[:, 0], meta[:, 1:]).cpu().numpy()
+        out += [_unpack_detections(p, sdet.class_names)[0] for p in packed]
+    return out
+
+
+def phase_dp_serve(sim, nms, i8, vocab_path, tmp: str, card: str) -> list:
+    """[dp serve]: a DetectionServer and a StreamingDetector over two
+    replicas on cuda:0 against the single-device program on each replica's
+    share, fp32 conf -1.0; one `serve --devices cuda:0,cuda:0 --int8`
+    batch. Returns the launches of the three runs."""
+    from yoloclip_tpu_torch.inference.server import DetectionServer
+    from yoloclip_tpu_torch.inference.streaming import StreamingDetector
+    from yoloclip_tpu_torch.parallel.mesh import create_mesh
+    mesh = create_mesh(n_data=2, devices=['cuda:0', 'cuda:0'])
+    sdet = _detector(vocab_path, host_preprocess='auto', conf_threshold=-1.0)
+    frames = _mixed_frames(70, 8)
+    _zero_counts(sim, nms)
+    with DetectionServer(sdet, max_batch=BATCH, max_delay_ms=300.0,
+                         mesh=mesh) as srv:
+        got = [f.result(timeout=120) for f in [srv.submit(f)
+                                                for f in frames]]
+        st = srv.stats()
+    torch.cuda.synchronize()
+    srv_launches = _counts(sim, nms)
+    want = _split_packed(sdet, frames, 2)
+    print(f'[dp serve] DetectionServer over {mesh}, fp32 conf -1.0, 8 mixed '
+          f'requests: {st["batches"]} batch of bucket {st["mean_bucket"]:g} '
+          f'split 4 + 4; equal to the single-device canvas program on each '
+          f'half: {got == want}; launches {srv_launches}')
+    require(st['batches'] == 1 and got == want,
+            '[dp serve] the server over two replicas differs')
+    require(srv_launches['similarity'] >= 2 and srv_launches['nms'] >= 2,
+            '[dp serve] kernels 1 and 2 did not launch on both replicas')
+
+    single = StreamingDetector(sdet.model, sdet.offline_vocabulary, 4,
+                               FRAME_SIZES[0], sdet.config)
+    meshed = StreamingDetector(sdet.model, sdet.offline_vocabulary, 8,
+                               FRAME_SIZES[0], sdet.config, mesh=mesh)
+    f8 = np.random.RandomState(72).randint(
+        0, 256, (8,) + FRAME_SIZES[0] + (3,), dtype=np.uint8)
+    _zero_counts(sim, nms)
+    halves = [single.step(f8[:4]), single.step(f8[4:])]
+    torch.cuda.synchronize()
+    per_two = _counts(sim, nms)      # two single-device steps
+    _zero_counts(sim, nms)
+    out = meshed.step(f8)
+    torch.cuda.synchronize()
+    stream_launches = _counts(sim, nms)
+    same = all(torch.equal(out[k], torch.cat([h[k] for h in halves]))
+               for k in out)
+    print(f'[dp serve] StreamingDetector, 8 streams of 480x640 over two '
+          f'replicas vs 4-stream single-device steps on each half: '
+          f'identical={same}; launches {stream_launches} (two single-'
+          f'device steps: {per_two})')
+    require(same, '[dp serve] streaming over two replicas differs')
+    require(stream_launches == per_two and per_two['nms'] == 2,
+            '[dp serve] streaming: kernels 1 and 2 not on both replicas')
+
+    # serve --devices cuda:0,cuda:0 --int8 (bf16, calibrated on PNG files)
+    import argparse
+
+    from yoloclip_tpu_torch.cli.serve import build_server, parse_args
+    calib = os.path.join(tmp, 'calib')
+    os.makedirs(calib, exist_ok=True)
+    for i, f in enumerate(_mixed_frames(73, 4)):
+        with open(os.path.join(calib, f'{i}.png'), 'wb') as fh:
+            fh.write(_png(f))
+    args = parse_args(['--vocab', vocab_path, '--int8', '--calib-dir', calib,
+                       '--devices', 'cuda:0,cuda:0', '--conf', '-1.0'])
+    require(isinstance(args, argparse.Namespace), 'serve args')
+    srv, det = build_server(args)
+    try:
+        reqs = _mixed_frames(74, 2)
+        _zero_int8(sim, nms, i8)
+        got = [f.result(timeout=120) for f in [srv.submit(f) for f in reqs]]
+        torch.cuda.synchronize()
+        int8_launches = _int8_counts(sim, nms, i8)
+        st = srv.stats()
+    finally:
+        srv.close()
+    want = _split_packed(det, reqs, 2)
+    print(f'[dp serve] serve --devices cuda:0,cuda:0 --int8 (bf16): '
+          f'{st["batches"]} batch of 2 requests, one a replica; equal to '
+          f'the int8 canvas program on each: {got == want}; launches '
+          f'{int8_launches}')
+    require(got == want, '[dp serve] int8 server over two replicas differs')
+    require(int8_launches['int8_conv_bf16'] == 2 * INT8_BLOCKS,
+            '[dp serve] the int8 kernel did not run on both replicas')
+    del srv, det
+    return [srv_launches, stream_launches, int8_launches]
+
+
+def _share(x) -> str:
+    return 'not measured (no device activity recorded)' if x is None \
+        else f'{x:.3f}'
+
+
+def phase_profile(sim, nms, bf, frames, tmp: str, card: str) -> dict:
+    """[profile]: utils/profiling.py on the bf16 detect_batch at bs=32:
+    trace() writes a Chrome trace that must hold kernel 1's and kernel 2's
+    events; the device's idle share of 10 calls read from it; StageTimer
+    over its stages. Returns the launches of the traced calls."""
+    from yoloclip_tpu_torch.ops.nms import batched_nms
+    from yoloclip_tpu_torch.ops.preprocess import (letterbox_batch_for,
+                                                   rescale_boxes)
+    from yoloclip_tpu_torch.utils.profiling import (StageTimer, annotate,
+                                                    device_summary,
+                                                    memory_stats, trace)
+    _zero_counts(sim, nms)
+    for _ in range(3):
+        bf.detect_batch(frames)
+    torch.cuda.synchronize()
+    per_call = {k: v // 3 for k, v in _counts(sim, nms).items()}
+    _zero_counts(sim, nms)
+    log_dir = os.path.join(tmp, 'trace')
+    with trace(log_dir) as prof:
+        with annotate('detect_batch x10'):
+            for _ in range(10):
+                bf.detect_batch(frames)
+            torch.cuda.synchronize()
+    launches = _counts(sim, nms)
+    summary = device_summary(prof, span='detect_batch x10')
+    with open(os.path.join(log_dir, 'trace.json')) as f:
+        names = {e.get('name', '') for e in json.load(f)['traceEvents']}
+    # demangled: 'void (anonymous namespace)::similarity_wgmma<...>(...)'
+    k1 = any('similarity_wgmma' in n for n in names)
+    k2 = any('nms_mask' in n or 'nms_scan' in n for n in names)
+    top = sorted(summary['kernels'].items(), key=lambda kv: -kv[1][0])[:8]
+    size = os.path.getsize(os.path.join(log_dir, 'trace.json'))
+    print(f'[profile] trace() of 10 bf16 detect_batch calls, bs={BATCH}, '
+          f'640 px: Chrome trace of {size} bytes, kernel 1 events={k1}, '
+          f'kernel 2 events={k2}; host span {summary["span_ms"]:.2f} ms, '
+          f'device busy {summary["busy_ms"]:.2f} ms, idle share '
+          f'{_share(summary["idle_share"])}; launches {launches}  [{card}]')
+    for name, (ms, n) in top:
+        print(f'[profile]   {ms / 10:8.3f} ms a call  {n // 10:4d}x  '
+              f'{name[:100]}')
+    require(k1 and k2, '[profile] the trace holds no kernel 1 or 2 events')
+    require(launches == {k: 10 * v for k, v in per_call.items()}
+            and launches['similarity_bf16'] > 0 and launches['nms'] > 0,
+            '[profile] detect_batch launch counts')
+
+    st = StageTimer()
+    text, _ = bf._text(None)
+    with torch.inference_mode():
+        for i in range(13):
+            if i == 3:
+                st.reset()
+            with st.stage('letterbox'):
+                canv, scale = st.observe(letterbox_batch_for(bf.config.model)(
+                    frames, bf.image_size))
+            with st.stage('model (folded scoring)'):
+                out = st.observe(bf.model(canv, text, fused_scores=True))
+            with st.stage('rescale + NMS'):
+                st.observe(batched_nms(
+                    rescale_boxes(out['boxes'], scale,
+                                  tuple(frames.shape[1:3])),
+                    out['scores'], out['class_ids'], **bf._nms_args()))
+    print('[profile] StageTimer, bf16 detect_batch stages, mean of 10 '
+          '(synchronised at each stage exit): ' + ', '.join(
+              f'{k} {v["mean_ms"]:.2f} ms' for k, v in st.summary().items())
+          + f'  [{card}]')
+    mem = memory_stats()
+    print(f'[profile] memory_stats(): {len(mem)} device(s), cuda:0 peak '
+          f'allocated {mem["cuda:0"]["allocated_bytes.all.peak"] / 2 ** 30:.2f}'
+          f' GiB')
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this run '
@@ -2470,9 +2969,12 @@ def main() -> int:
         stem_launches = phase_stems(sim, nms, vocab_path, frames)
         paths = [main_launches, prompt_launches, int8_launches,
                  stem_launches,
-                 *phases_serving(sim, nms, det, bf, vocab_path, tmp, card)]
+                 *phases_serving(sim, nms, det, bf, vocab_path, tmp, card),
+                 phase_profile(sim, nms, bf, frames, tmp, card)]
         del det, bf
         paths.append(phases_training(sim, nms, tmp, card))
+        paths.append(phase_ddp(sim, nms, tmp, card))
+        paths += phase_dp_serve(sim, nms, i8, vocab_path, tmp, card)
     # every path's launches, each counted from 0 just before it ran
     launched = {k: sum(p.get(k, 0) for p in paths)
                 for k in ('similarity', 'similarity_bf16', 'nms',

@@ -8,6 +8,7 @@ and defaults, the same predicate on every width.
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -127,3 +128,54 @@ def test_int8_helpers_match_jax():
         np.testing.assert_array_equal(
             layers.s2d_kernel3(torch.from_numpy(w)).numpy(),
             np.asarray(jl.s2d_kernel3(jnp.asarray(w))))
+
+
+def test_multihost_and_general_helpers_match_jax(tmp_path):
+    """The copied data-sharding helpers (parallel/multihost.py) and the
+    yaml, output-dir and logger helpers (utils/general.py) against their
+    originals."""
+    from yoloclip_tpu.parallel import multihost as jm
+    from yoloclip_tpu.utils import general as jg
+    from yoloclip_tpu_torch.parallel import multihost as pm
+    from yoloclip_tpu_torch.utils import general as pg
+    for n in (0, 1, 7, 10, 33):
+        for count in (1, 2, 3, 8):
+            for pid in range(count):
+                for even in (False, True):
+                    kw = dict(process_index=pid, process_count=count,
+                              even=even)
+                    assert pm.process_local_indices(n, **kw) == \
+                        jm.process_local_indices(n, **kw)
+    for b, count in ((32, 1), (32, 4), (8, 8), (33, 2), (6, 4)):
+        try:
+            want = jm.local_batch_size(b, process_count=count)
+        except ValueError as e:
+            with pytest.raises(ValueError) as got:
+                pm.local_batch_size(b, process_count=count)
+            assert str(got.value) == str(e)
+        else:
+            assert pm.local_batch_size(b, process_count=count) == want
+    base, idx = list(range(10, 20)), [7, 0, 3, 3]
+    p, j = pm.Subset(base, idx), jm.Subset(base, idx)
+    assert len(p) == len(j) and [p[i] for i in range(len(p))] == [
+        j[i] for i in range(len(j))]
+
+    data = {'b': [1, 2.5, 'x'], 'a': {'nested': None}, 'c': True}
+    pg.save_yaml(data, str(tmp_path / 'p' / 'x.yaml'))
+    jg.save_yaml(data, str(tmp_path / 'j' / 'x.yaml'))
+    assert (tmp_path / 'p' / 'x.yaml').read_text() == (
+        tmp_path / 'j' / 'x.yaml').read_text()
+    assert pg.load_yaml(str(tmp_path / 'j' / 'x.yaml')) == jg.load_yaml(
+        str(tmp_path / 'p' / 'x.yaml')) == data
+    (tmp_path / 'empty.yaml').write_text('')
+    assert pg.load_yaml(str(tmp_path / 'empty.yaml')) == jg.load_yaml(
+        str(tmp_path / 'empty.yaml')) == {}
+    for mod, sub in ((pg, 'pd'), (jg, 'jd')):
+        made = [mod.create_unique_output_dir(str(tmp_path / sub), 'exp')
+                for _ in range(3)]
+        assert [os.path.relpath(m, tmp_path / sub) for m in made] == [
+            'exp_000', 'exp_001', 'exp_002']
+    lp = pg.setup_logger('ycl_pin_p', str(tmp_path / 'p.log'))
+    lj = jg.setup_logger('ycl_pin_j', str(tmp_path / 'j.log'))
+    assert [type(h) for h in lp.handlers] == [type(h) for h in lj.handlers]
+    assert lp.handlers[0].formatter._fmt == lj.handlers[0].formatter._fmt

@@ -7,7 +7,9 @@ serve one request through a `DetectionServer` (the native host letterbox)
 and close it, run one `StreamingDetector.step`, quantize the detector to
 the int8 deploy graph (`quantize_int8`) and run a `detect_batch`, take
 one training step and one `evaluate` (with NMS) through YOLOCLIPTrainer on
-a synthetic batch, then check that neither
+a synthetic batch, serve and stream over a mesh of two CPU replicas
+(`parallel/`), time a stage and trace a `detect_batch` (`utils/profiling.py`,
+`utils/general.py`), then check that neither
 jax, jaxlib, flax nor any module of the JAX package (`yoloclip_tpu`) was
 imported.
 """
@@ -93,6 +95,26 @@ losses = trainer.train_epoch([batch], 1)
 metrics = trainer.evaluate([batch])
 assert trainer.state.step == 1 and np.isfinite(losses['loss'])
 assert np.isfinite(metrics['loss']) and 'mAP50' in metrics
+from yoloclip_tpu_torch.parallel import multihost
+from yoloclip_tpu_torch.parallel.mesh import create_mesh
+from yoloclip_tpu_torch.utils.general import Timer
+from yoloclip_tpu_torch.utils.profiling import StageTimer, trace
+assert multihost.process_local_indices(5, 1, 2) == [1, 3]
+mesh = create_mesh(n_data=2, devices=['cpu', 'cpu'])
+srv = DetectionServer(det, max_batch=2, max_delay_ms=1.0, mesh=mesh)
+try:
+    assert srv.detect(np.zeros((30, 50, 3), np.uint8), timeout=120)
+finally:
+    srv.close()
+sd = StreamingDetector(det.model, det.offline_vocabulary, 2, (48, 64), cfg,
+                       device='cpu', mesh=mesh)
+assert sd.step(np.zeros((2, 48, 64, 3), np.uint8))['boxes'].shape[0] == 2
+st = StageTimer()
+with Timer() as t, trace(os.path.join(sys.argv[1], 'trace')):
+    with st.stage('detect_batch'):
+        st.observe(det.detect_batch(np.zeros((2, 48, 64, 3), np.uint8)))
+assert t.elapsed > 0 and st.summary()['detect_batch']['count'] == 1
+assert os.path.isfile(os.path.join(sys.argv[1], 'trace', 'trace.json'))
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                                'yoloclip_tpu'))))

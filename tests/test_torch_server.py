@@ -2,7 +2,8 @@
 end (`cli/serve.py`) on the CPU, at variant 'n', 128 px, against the
 port's own canvas `detect()` (held to the JAX detector in
 tests/test_torch_detector.py), also with a quantized detector and the
-uint8 space-to-depth canvas path. Mirrors tests/test_server.py.
+uint8 space-to-depth canvas path; over a mesh of two (or four) CPU
+replicas against the single-device server. Mirrors tests/test_server.py.
 
 Tolerances, as there: class ids and names exact, scores rtol 1e-4 / atol
 1e-5, int boxes within 1 px (batch rows and single frames may run other
@@ -232,10 +233,47 @@ def test_server_close_semantics(detector):
 
 
 def test_server_multi_device_not_ported(detector):
-    with pytest.raises(NotImplementedError, match='ROADMAP.*multi-device'):
-        DetectionServer(detector, max_batch=4, mesh=object())
-    with pytest.raises(NotImplementedError, match='ROADMAP.*multi-device'):
+    """The data axis is ported (below); the 'model' axis is not: spatial=
+    and a mesh with a model axis raise, naming their ROADMAP item."""
+    from yoloclip_tpu_torch.parallel.mesh import create_mesh
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.*multi-device.*'model' axis"):
         DetectionServer(detector, max_batch=4, spatial=True)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.*multi-device.*'model' axis"):
+        create_mesh(n_data=2, n_model=2, devices=['cpu'] * 4)
+
+
+def test_server_mesh_matches_single_device(detector, server):
+    """Two CPU replicas: buckets start at the axis size, a batch of 3
+    requests pads to 4 and splits 2 + 2, and every request gets the
+    single-device server's detections, in request order."""
+    from yoloclip_tpu_torch.parallel.mesh import create_mesh
+    mesh = create_mesh(n_data=2, devices=['cpu', 'cpu'])
+    srv = DetectionServer(detector, max_batch=4, max_delay_ms=250.0,
+                          mesh=mesh)
+    try:
+        assert srv._buckets == [2, 4]
+        assert srv._replicas[0][0] is detector.model
+        assert srv._replicas[1][0] is not detector.model
+        imgs = [_img(60 + i, 90 + 10 * i, 120) for i in range(3)]
+        futs = [srv.submit(im) for im in imgs]
+        got = [f.result(timeout=120) for f in futs]
+        assert srv.stats()['mean_bucket'] == 4.0
+        for g, im in zip(got, imgs):
+            assert_same(g, server.detect(im, timeout=120))
+        srv.reset_stats()
+        srv.detect(imgs[0], timeout=120)   # one request pads to 2, not 1
+        assert srv.stats()['mean_bucket'] == 2.0
+    finally:
+        srv.close()
+
+
+def test_server_mesh_batch_divisibility(detector):
+    from yoloclip_tpu_torch.parallel.mesh import create_mesh
+    mesh = create_mesh(n_data=4, devices=['cpu'] * 4)
+    with pytest.raises(ValueError, match='divide evenly'):
+        DetectionServer(detector, max_batch=6, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -341,14 +379,25 @@ def _serve_args(**kw):
     ({'int8': True}, 'int8 deploy'), ({'stem_u8_s2d': True}, 'int8 deploy'),
     ({'devices': '4'}, 'multi-device'), ({'spatial': 2}, 'multi-device')])
 def test_build_server_unported_flags(kw, item, tower):
-    """The multi-device flags are still refused, naming their ROADMAP item.
-    The int8 deploy flags, refused until the int8 slice, now build as in
+    """Flags once refused. --spatial still is, naming the 'model'-axis
+    item. --devices 4 (with --device cpu: four CPU replicas) now serves
+    data-parallel, as the JAX CLI does. The int8 deploy flags build as in
     the JAX CLI: --int8 without --calib-dir exits with its message, and
     --stem-u8-s2d serves the uint8 space-to-depth canvas path."""
     from yoloclip_tpu_torch.cli.serve import build_server
-    if item != 'int8 deploy':
-        with pytest.raises(NotImplementedError, match=f'ROADMAP.*{item}'):
+    if 'spatial' in kw:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.*{item}.*'model' axis"):
             build_server(_serve_args(**kw))
+    elif 'devices' in kw:
+        srv, det = build_server(_serve_args(text_checkpoint=tower, **kw))
+        try:
+            assert srv.mesh.shape == {'data': 4, 'model': 1}
+            assert srv._buckets == [4]
+            dets = srv.detect(_img(3, 90, 140), timeout=120)
+            assert dets and all(np.isfinite(d['score']) for d in dets)
+        finally:
+            srv.close()
     elif kw.get('int8'):
         with pytest.raises(SystemExit, match='--int8 needs --calib-dir'):
             build_server(_serve_args(text_checkpoint=tower, **kw))

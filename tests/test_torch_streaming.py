@@ -100,10 +100,33 @@ def test_run_pipelined_in_order(setup):
 
 
 def test_mesh_not_ported(setup):
+    """The 'model' axis is not ported (the data axis is: below)."""
+    from yoloclip_tpu_torch.parallel.mesh import create_mesh
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.*multi-device.*'model' axis"):
+        create_mesh(n_data=1, n_model=2, devices=['cpu'] * 2)
+
+
+def test_step_over_mesh_matches_single_device(setup):
+    """Four streams over two CPU replicas (two streams each) against the
+    detector without a mesh, on the same frames; streams that do not
+    divide over the axis are refused."""
+    from yoloclip_tpu_torch.parallel.mesh import create_mesh
     _, cfg, _, model, text = setup
-    with pytest.raises(NotImplementedError, match='ROADMAP.*multi-device'):
-        StreamingDetector(model, text, 2, HW, cfg, device='cpu',
-                          mesh=object())
+    mesh = create_mesh(n_data=2, devices=['cpu', 'cpu'])
+    f = frames(9, n=4)
+    want = StreamingDetector(model, text, 4, HW, cfg, device='cpu').step(f)
+    sd = StreamingDetector(model, text, 4, HW, cfg, device='cpu', mesh=mesh)
+    got = sd.step(f)
+    assert sd._replicas[1][0] is not model
+    for k in ('count', 'valid', 'class_ids', 'prefilter_saturated'):
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), k)
+    np.testing.assert_allclose(got['scores'].numpy(), want['scores'].numpy(),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got['boxes'].numpy(), want['boxes'].numpy(),
+                               rtol=0, atol=1e-3)
+    with pytest.raises(ValueError, match='divide evenly'):
+        StreamingDetector(model, text, 3, HW, cfg, device='cpu', mesh=mesh)
 
 
 @pytest.mark.parametrize('stem_u8_s2d', [False, True])

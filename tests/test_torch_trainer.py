@@ -6,7 +6,15 @@ set written here (PNG files + annotation JSON).
     best_map), the step-unit schedule, the crash checkpoint and the
     CONTINUE_ON_ERROR gate; the final checkpoint served by
     YOLOCLIPDetector with its EMA weights.
-  * `cli.train` on the CPU, and its refusals of multi-device runs.
+  * `cli.train` on the CPU; `--devices 2 --device cpu` (two spawned gloo
+    ranks) against the single-device run.
+  * Data parallelism (`parallel/`, two gloo ranks a test, each with a
+    `file://` rendezvous in tmp_path, a collective timeout and a join
+    timeout here): the mesh trainer end to end against the single trainer
+    (epoch loss within 2e-4, the JAX package's bound in its own twin,
+    `tests/test_train.py::test_trainer_mesh_end_to_end`), the same mAP on
+    both ranks, one checkpoint writer, resume; the multihost self-test in
+    2 processes against 1.
   * `cli.eval` on the same weights as the JAX package's `cli.eval`: the
     same images, detections and printed mAP; `--int8` runs.
 """
@@ -208,10 +216,18 @@ def test_crash_checkpoint_and_continue_gate(coco, tmp_path, monkeypatch,
     assert len(history['train_loss']) == (1 if cont == '1' else 0)
 
 
-def test_trainer_refuses_data_parallel(tmp_path):
-    cfg = small_cfg(tmp_path / 'out', data_parallel=2)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        _trainer(cfg)
+def test_trainer_refuses_data_parallel(coco, tmp_path):
+    """ROADMAP C6: TrainingConfig.data_parallel is read by nothing in the
+    JAX package (the mesh sets the parallelism), so data_parallel=2 with no
+    mesh is the single-device trainer, step for step (the port refused it
+    until the data-parallel slice)."""
+    losses = []
+    for dp in (1, 2):
+        cfg = small_cfg(tmp_path / f'out{dp}', data_parallel=dp)
+        trainer = _trainer(cfg)
+        assert trainer.mesh is None
+        losses.append(trainer.train_epoch(_loader(coco, cfg, False), 1))
+    assert losses[0] == losses[1]
 
 
 def _cli_yaml(coco, tmp_path):
@@ -242,9 +258,9 @@ def test_train_cli_on_cpu(coco, tmp_path):
                  '--text-checkpoint', coco[2], '--no_eval', '--resume',
                  os.path.join(out, 'final_model.pt')]) == 0
     assert load_checkpoint(os.path.join(out, 'final_model.pt'))['step'] == 4
-    for argv in (['--multihost'], ['--devices', '2']):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            main(['--config', cfg, '--device', 'cpu'] + argv)
+    if torch.cuda.device_count() < 2:   # one process a card: none to spare
+        with pytest.raises(SystemExit, match='needs 2 CUDA devices'):
+            main(['--config', cfg, '--devices', '2'])
 
 
 def _mAP_line(out):
@@ -406,3 +422,164 @@ def test_overfit_squares_then_detect(tmp_path):
         iou = float(pairwise_iou(out['boxes'][b][:1],
                                  torch.from_numpy(boxes[b, :1]))[0, 0])
         assert iou >= 0.5, iou
+
+
+# ---------------------------------------------------------------------------
+# data parallelism
+# ---------------------------------------------------------------------------
+
+def _ranks(script, args, tmp_path, timeout=300):
+    """Run `script` as ranks 0 and 1 (argv: rank, file rendezvous, *args);
+    their outputs, after both ended (killed at the timeout)."""
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS='1')
+    rdv = f'file://{tmp_path}/rendezvous'
+    procs = [subprocess.Popen([sys.executable, '-c', script, str(r), rdv]
+                              + [str(a) for a in args], env=env, cwd=repo,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f'rank {r}:\n{out[-4000:]}'
+    return outs
+
+
+MESH_TRAINER = r"""
+import json, sys, zlib
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from yoloclip_tpu_torch.config import ModelConfig, TrainingConfig
+from yoloclip_tpu_torch.data.coco import COCODataset
+from yoloclip_tpu_torch.data.loader import DataLoader
+from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP, init_weights
+from yoloclip_tpu_torch.parallel import multihost
+from yoloclip_tpu_torch.parallel.mesh import create_mesh
+from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
+
+
+class Stub:
+    def __call__(self, prompts):
+        rows = []
+        for p in prompts:
+            v = np.random.RandomState(zlib.crc32(p.encode())).randn(512)
+            rows.append(v / np.linalg.norm(v))
+        return torch.tensor(np.stack(rows), dtype=torch.float32)
+
+
+rank, rdv, anno, root, out = sys.argv[1:6]
+multihost.initialize(rdv, 2, int(rank), device='cpu', timeout_s=60)
+mesh = create_mesh()
+names = ['cat', 'dog', 'bird']
+cfg = TrainingConfig(model=ModelConfig(image_size=(64, 64)), max_objects=10,
+                     batch_size=2, max_epochs=2, warmup_epochs=1,
+                     eval_interval=1, save_interval=2, num_workers=0,
+                     class_names=tuple(names), output_dir=out,
+                     ema_decay=0.9, ema_warmup_steps=2)
+ds = COCODataset(anno, root, names, (64, 64), mode='train', mosaic_prob=0.0,
+                 max_objects=10, seed=0)
+dl = DataLoader(ds, batch_size=2, shuffle=False, num_workers=0)
+model = YOLOCLIP(cfg.model)
+init_weights(model, torch.Generator().manual_seed(0))
+trainer = YOLOCLIPTrainer(model, Stub(), cfg, mesh=mesh, device='cpu')
+res = {'train': trainer.train_epoch(dl, 1), 'eval': trainer.evaluate(dl, 1)}
+trainer.save(out + '/mesh.pt')
+trainer.load(out + '/mesh.pt')
+res['resumed'] = trainer.train_epoch(dl, 2)
+print('RESULT ' + json.dumps(res), flush=True)
+multihost.shutdown()
+"""
+
+
+def _result(out):
+    line = [ln for ln in out.splitlines() if ln.startswith('RESULT ')]
+    assert line, out[-3000:]
+    return json.loads(line[-1][7:])
+
+
+def test_mesh_trainer_end_to_end(coco, tmp_path):
+    """Two gloo ranks, the global batches of a shuffle=False loader: the
+    epoch loss equals the single trainer's within 2e-4; evaluate gives
+    both ranks the same losses and mAP; one rank writes the checkpoint and
+    both resume from it and train on in step."""
+    anno, root, _ = coco
+    out = tmp_path / 'mesh'
+    r0, r1 = (_result(o) for o in _ranks(
+        MESH_TRAINER, [anno, root, out], tmp_path))
+    cfg = small_cfg(tmp_path / 'single')
+    single = _trainer(cfg)
+    want = single.train_epoch(_loader(coco, cfg, False), 1)
+    assert r0['train']['loss'] == pytest.approx(want['loss'], rel=2e-4)
+    assert r0 == r1   # every reported number, on both ranks
+    assert 0.0 <= r0['eval']['mAP50'] <= 1.0
+    assert np.isfinite(r0['resumed']['loss'])
+    assert sorted(os.listdir(out)) == ['mesh.pt']
+    assert load_checkpoint(str(out / 'mesh.pt'))['step'] == 2
+
+
+def test_train_cli_two_devices_on_cpu(coco, tmp_path):
+    """`cli.train --devices 2 --device cpu` spawns two gloo ranks that
+    reach the mesh trainer: its history equals the single-device CLI's on
+    the same config (train and val loss within 2e-4), one final
+    checkpoint."""
+    from yoloclip_tpu_torch.cli.train import main
+    cfg = _cli_yaml(coco, tmp_path)
+    hist = []
+    for devices in ('1', '2'):
+        out = str(tmp_path / f'run{devices}')
+        assert main(['--config', cfg, '--output_dir', out, '--device',
+                     'cpu', '--text-checkpoint', coco[2], '--devices',
+                     devices]) == 0
+        with open(os.path.join(out, 'history.json')) as f:
+            hist.append(json.load(f))
+        assert load_checkpoint(os.path.join(out, 'final_model.pt'))[
+            'step'] == 2
+    for k in ('train_loss', 'val_loss'):
+        assert hist[1][k] == pytest.approx(hist[0][k], rel=2e-4), k
+    assert len(hist[1]['val_mAP50']) == 1
+
+
+def test_multihost_selftest_two_processes(tmp_path):
+    """`python -m yoloclip_tpu_torch.parallel.multihost --selftest` in two
+    processes: the step's loss equals the one-process step's over the same
+    global batch; the rank-0 checkpoint round trip and the trainer loop
+    run (the JAX package's tests/test_multihost.py twin)."""
+    import re
+    import subprocess
+    import sys
+    from yoloclip_tpu_torch.parallel.multihost import _selftest_loss
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS='1')
+    ckpt = str(tmp_path / 'ckpt')
+    cmd = [sys.executable, '-m', 'yoloclip_tpu_torch.parallel.multihost',
+           '--selftest', '--num-processes', '2', '--device', 'cpu',
+           '--coordinator', f'file://{tmp_path}/rendezvous',
+           '--ckpt-dir', ckpt]
+    procs = [subprocess.Popen(cmd + ['--process-id', str(i)], env=env,
+                              cwd=repo, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    try:
+        want = _selftest_loss(1, device='cpu')
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    losses = []
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+        m = re.search(r'MULTIHOST_SELFTEST pid=(\d) procs=2 loss=([-\d.]+)',
+                      out)
+        assert m and 'MULTIHOST_TRAINER' in out, out[-3000:]
+        losses.append(float(m.group(2)))
+    assert losses[0] == losses[1]
+    assert losses[0] == pytest.approx(want, rel=1e-5)
+    assert os.path.isfile(os.path.join(ckpt, 'selftest.pt'))
+    assert os.path.isfile(os.path.join(ckpt, 'trainer', 'final_model.pt'))

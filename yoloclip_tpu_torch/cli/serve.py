@@ -31,9 +31,14 @@ coalesces them into device batches.
 
 --int8 serves the W8A8 deploy graph, its activation scales calibrated on
 up to 16 images of --calib-dir; --stem-u8-s2d the uint8 space-to-depth
-stem layout. Not ported yet, and refused with NotImplementedError:
---devices and --spatial (ROADMAP.md, queue A: multi-device), and an orbax
-checkpoint directory as --model (queue A: orbax checkpoints).
+stem layout. --devices N|auto|LIST serves data-parallel: one replica of
+the model a device, each batch split over them (`inference/server.py`,
+`mesh=`); N takes cuda:0..N-1 (with --device cpu, N replicas on the CPU),
+'auto' every card, and a comma-separated list names the devices, which
+may repeat (cuda:0,cuda:0: two replicas on one card). It composes with
+--int8 and bf16. Not ported, and refused with NotImplementedError:
+--spatial above 1 (queue A: the 'model' axis) and an orbax checkpoint
+directory as --model (queue A: orbax checkpoints).
 """
 
 from __future__ import annotations
@@ -139,10 +144,18 @@ def make_handler(server):
 
 def build_server(args):
     """args -> (DetectionServer, detector). Split out for tests."""
-    if args.devices or int(getattr(args, 'spatial', 1) or 1) > 1:
+    if int(getattr(args, 'spatial', 1) or 1) > 1:
+        from yoloclip_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM
         raise NotImplementedError(
-            '--devices and --spatial are not ported yet (ROADMAP.md, '
-            'queue A: multi-device)')
+            f'--spatial (frame height over a model axis) is not ported '
+            f'({MODEL_AXIS_ITEM})')
+    mesh = None
+    if args.devices:
+        from yoloclip_tpu_torch.parallel.mesh import create_mesh
+        devices = serve_devices(args.devices, args.device)
+        if len(devices) > 1:
+            mesh = create_mesh(n_data=len(devices), devices=devices)
+            logger.info('serving over %s', mesh)
     from yoloclip_tpu_torch.config import (COCO_CLASS_NAMES, InferenceConfig,
                                            ModelConfig)
     from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
@@ -179,8 +192,32 @@ def build_server(args):
             [detector._host_letterbox(_imread_rgb(p))[0] for p in paths]))
         logger.info('int8 deploy path calibrated on %d images', len(paths))
     return DetectionServer(detector, max_batch=args.max_batch,
-                           max_delay_ms=args.max_delay_ms,
+                           max_delay_ms=args.max_delay_ms, mesh=mesh,
                            bucket_batches=not args.no_bucket), detector
+
+
+def serve_devices(spec: str, device: str) -> list:
+    """--devices -> the replicas' devices: 'auto' (every card, or the CPU
+    once), a count N (cuda:0..N-1, or N times the CPU under --device cpu)
+    or a comma-separated list of devices."""
+    import torch
+
+    from yoloclip_tpu_torch.parallel.mesh import default_devices
+    cpu = device.split(':')[0] == 'cpu'
+    if spec == 'auto':
+        return [torch.device('cpu')] if cpu else default_devices()
+    if ',' in spec or not spec.isdigit():
+        return [torch.device(d.strip()) for d in spec.split(',')
+                if d.strip()]
+    n = int(spec)
+    if cpu:
+        return [torch.device('cpu')] * n
+    have = torch.cuda.device_count()
+    if n > have:
+        raise SystemExit(f'--devices {n} needs {n} CUDA devices, this '
+                         f'machine has {have} (list devices to put several '
+                         f'replicas on one, e.g. cuda:0,cuda:0)')
+    return [torch.device(f'cuda:{i}') for i in range(n)]
 
 
 def parse_args(argv=None):
@@ -214,9 +251,12 @@ def parse_args(argv=None):
                     help='always dispatch max_batch-shaped batches instead '
                          'of padding to the smallest power-of-two bucket')
     ap.add_argument('--devices', default=None,
-                    help='shard batches over N devices (not ported yet)')
+                    help="split batches over N devices ('auto' = every "
+                         "card), or over a comma-separated device list; "
+                         'one model replica each')
     ap.add_argument('--spatial', type=int, default=1, metavar='M',
-                    help="split each frame's height M-way (not ported yet)")
+                    help="split each frame's height M-way (not ported: "
+                         "the 'model' axis)")
     ap.add_argument('--host', default='127.0.0.1')
     ap.add_argument('--port', type=int, default=8000)
     return ap.parse_args(argv)

@@ -1,18 +1,32 @@
 """Training CLI. Counterpart of `yoloclip_tpu/cli/train.py`, with its flag
 surface (--config --resume --output_dir --backbone --batch_size --epochs
---lr --no_eval --text-checkpoint --ema --grad-accum --dtype
---schedule-units); --device picks the card ('cuda', the default) or the
-CPU. --multihost and --devices above 1 raise: multi-device training is
-ROADMAP.md queue A item 5.
+--lr --no_eval --devices --text-checkpoint --ema --grad-accum --dtype
+--schedule-units --multihost --coordinator --num-processes --process-id);
+--device picks the card ('cuda', the default) or the CPU.
+
+Data parallelism (`parallel/`), cfg.batch_size being the GLOBAL batch:
+  * --devices N|auto (default: every local device, as the JAX CLI's
+    jax.devices(): the cards, or 1 on the CPU): above 1 the CLI spawns one
+    process a device, cuda:0..N-1 over NCCL, or with --device cpu N gloo
+    ranks on the CPU. Every rank loads the whole dataset and takes its rows
+    of each global batch;
+  * --multihost: this process is one rank of a run across hosts
+    (--coordinator host:port or file://..., --num-processes,
+    --process-id; none of them reads torchrun's environment); each rank
+    loads its `process_local_indices(even=True)` shard.
 
 Usage:
     python -m yoloclip_tpu_torch.cli.train --config cfg.yaml --epochs 10
+    python -m yoloclip_tpu_torch.cli.train --config cfg.yaml --devices 2 \
+        --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import tempfile
 from typing import List, Optional
 
 logger = logging.getLogger('yoloclip_tpu_torch.train')
@@ -30,7 +44,8 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument('--lr', type=float, default=None)
     p.add_argument('--no_eval', action='store_true')
     p.add_argument('--devices', type=str, default=None,
-                   help='Data-parallel device count (only 1 is ported)')
+                   help="Data-parallel device count, or 'auto' (default: "
+                        'every local device); one process each')
     p.add_argument('--text-checkpoint', type=str, default=None)
     p.add_argument('--ema', type=float, default=None, metavar='DECAY',
                    help='EMA weight-averaging decay (e.g. 0.9999); eval and '
@@ -48,20 +63,90 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument('--device', type=str, default='cuda',
                    help="'cuda' or 'cpu'")
     p.add_argument('--multihost', action='store_true',
-                   help='not ported (ROADMAP.md, queue A item 5)')
-    p.add_argument('--coordinator', type=str, default=None)
+                   help='one rank of a run across hosts: each process '
+                        'loads its shard of the data (with --coordinator, '
+                        '--num-processes, --process-id)')
+    p.add_argument('--coordinator', type=str, default=None,
+                   help="rendezvous: 'host:port' of process 0, 'tcp://...' "
+                        "or 'file://...' (default: the environment)")
     p.add_argument('--num-processes', type=int, default=None)
     p.add_argument('--process-id', type=int, default=None)
     return p.parse_args(argv)
 
 
+def _device_type(device: str) -> str:
+    return device.split(':')[0]
+
+
+def _device_count(args) -> int:
+    """--devices as a count: every local device for None or 'auto' (the
+    cards under --device cuda, 1 on the CPU)."""
+    if args.devices not in (None, 'auto'):
+        return int(args.devices)
+    if _device_type(args.device) == 'cuda':
+        import torch
+        return max(torch.cuda.device_count(), 1)
+    return 1
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    if args.multihost or (args.devices and int(args.devices) > 1):
-        raise NotImplementedError(
-            'multi-device training is not ported yet (ROADMAP.md, queue A '
-            'item 5: multi-device)')
-    logging.basicConfig(level=logging.INFO)
+    if args.multihost:
+        from yoloclip_tpu_torch.parallel import multihost
+        if args.devices not in (None, 'auto'):
+            logger.warning('--devices %s ignored under --multihost: the '
+                           'mesh is one device a process', args.devices)
+        multihost.initialize(
+            args.coordinator, args.num_processes, args.process_id,
+            device='cpu' if _device_type(args.device) == 'cpu'
+            else None)
+        try:
+            return _train(args, distributed=True)
+        finally:
+            multihost.shutdown()
+    n = _device_count(args)
+    if n > 1:
+        return _spawn(argv, args, n)
+    return _train(args)
+
+
+def _spawn(argv, args, n: int) -> int:
+    """One process a device over a file rendezvous; rank r on cuda:r (or
+    the CPU, gloo)."""
+    import torch
+    import torch.multiprocessing as mp
+    if _device_type(args.device) == 'cuda':
+        have = torch.cuda.device_count()
+        if n > have:
+            raise SystemExit(f'--devices {n} needs {n} CUDA devices, this '
+                             f'machine has {have}')
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_rank_main, args=(argv, n, os.path.join(
+            tmp, 'rendezvous')), nprocs=n, join=True, start_method='spawn')
+    return 0
+
+
+def _rank_main(rank: int, argv, n: int, rendezvous: str) -> None:
+    import torch
+
+    from yoloclip_tpu_torch.parallel import multihost
+    args = parse_args(argv)
+    cpu = _device_type(args.device) == 'cpu'
+    if cpu:   # the ranks share this host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    multihost.initialize(f'file://{rendezvous}', n, rank,
+                         device='cpu' if cpu else f'cuda:{rank}')
+    try:
+        _train(args, distributed=True)
+    finally:
+        multihost.shutdown()
+
+
+def _train(args, distributed: bool = False) -> int:
+    from yoloclip_tpu_torch.parallel import multihost
+    rank = multihost.process_index()
+    # one INFO stream (rank 0); the other ranks log warnings only
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING)
 
     from yoloclip_tpu_torch.config import TrainingConfig, load_config
     from yoloclip_tpu_torch.data.augment import default_train_transforms
@@ -98,25 +183,51 @@ def main(argv: Optional[List[str]] = None) -> int:
         transform=default_train_transforms(cfg.model.image_size, cfg.seed),
         mode='train', mosaic_prob=cfg.mosaic_prob,
         max_objects=cfg.max_objects, seed=cfg.seed)
-    train_dl = DataLoader(train_ds, cfg.batch_size, shuffle=True,
-                          num_workers=cfg.num_workers, drop_last=True,
-                          seed=cfg.seed)
-    val_dl = None
+    val_ds = None
     if not args.no_eval:
         val_ds = COCODataset(
             cfg.val_anno_path, cfg.val_img_dir, cfg.class_names,
             cfg.model.image_size, mode='val', max_objects=cfg.max_objects)
-        val_dl = DataLoader(val_ds, cfg.batch_size, shuffle=False,
-                            num_workers=cfg.num_workers, drop_last=False)
+    batch_size = cfg.batch_size   # the loader's batch (global in cfg)
+    val_drop_last = False
+    mesh = None
+    if distributed:
+        from yoloclip_tpu_torch.parallel.mesh import create_mesh
+        mesh = create_mesh(local_batches=args.multihost)
+        if args.multihost:
+            # each rank loads a disjoint, equal-length shard and holds
+            # its rows of the global batch; equal batch counts (the
+            # per-batch collectives)
+            batch_size = multihost.local_batch_size(cfg.batch_size)
+            train_ds = multihost.Subset(train_ds,
+                                        multihost.process_local_indices(
+                                            len(train_ds), even=True))
+            if val_ds is not None:
+                val_ds = multihost.Subset(val_ds,
+                                          multihost.process_local_indices(
+                                              len(val_ds), even=True))
+        # every eval batch splits evenly over the ranks (the eval gathers
+        # each batch's predictions)
+        val_drop_last = True
+        logger.info('Data-parallel mesh: %s', mesh)
+    train_dl = DataLoader(train_ds, batch_size, shuffle=True,
+                          num_workers=cfg.num_workers, drop_last=True,
+                          seed=cfg.seed)
+    val_dl = None
+    if val_ds is not None:
+        val_dl = DataLoader(val_ds, batch_size, shuffle=False,
+                            num_workers=cfg.num_workers,
+                            drop_last=val_drop_last)
 
     model = YOLOCLIP(cfg.model)
     init_weights(model, generator)
+    device = args.device if mesh is None else mesh.local_device
     text_encoder = CLIPTextEncoder(cfg.model.clip_model, cfg.model.embed_dim,
                                    checkpoint_path=args.text_checkpoint,
                                    seed=cfg.seed, dtype=cfg.model.dtype,
-                                   device=args.device)
-    trainer = YOLOCLIPTrainer(model, text_encoder, cfg, device=args.device,
-                              schedule_units=args.schedule_units)
+                                   device=device)
+    trainer = YOLOCLIPTrainer(model, text_encoder, cfg, device=device,
+                              mesh=mesh, schedule_units=args.schedule_units)
     if args.resume:
         trainer.load(args.resume)
 

@@ -263,20 +263,23 @@ class YOLOCLIPDetector:
 
     @torch.inference_mode()
     def _detect_canvases(self, canvases: torch.Tensor, text: torch.Tensor,
-                         scales: torch.Tensor, orig_whs: torch.Tensor
-                         ) -> torch.Tensor:
+                         scales: torch.Tensor, orig_whs: torch.Tensor,
+                         model=None) -> torch.Tensor:
         """Host-letterboxed uint8 canvases (B, th, tw, 3) on the device,
         their scales (B,) and original (w, h) sizes (B, 2), float32 ->
         packed detections (B, max_det + 1, 6) on the device. The JAX
         package's canvas program (`_build_detect_canvas_fn`, and the
         server's batched twin): /255, the model, boxes / scale, clip to
         the frame, NMS, pack. Under stem_u8_s2d the model takes the
-        canvases space-to-depth'd, as uint8."""
+        canvases space-to-depth'd, as uint8. model: a replica of the
+        detector's model on the canvases' device (the server's replicas),
+        else the detector's own."""
         if self.config.model.stem_u8_s2d:
             x = space_to_depth2(canvases)
         else:
             x = canvases.float() / 255.0
-        out = self.model(x, text, fused_scores=self._use_fused_similarity())
+        out = (model or self.model)(
+            x, text, fused_scores=self._use_fused_similarity())
         boxes = out['boxes'] / scales[:, None, None]
         hi = torch.cat([orig_whs, orig_whs], dim=-1)[:, None, :]
         boxes = torch.minimum(boxes.clamp_min(0), hi)

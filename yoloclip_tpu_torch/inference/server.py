@@ -34,8 +34,13 @@ detection-dict list (the schema of `YOLOCLIPDetector.detect`).
     uint8; the canvas program space-to-depths them on the card for the
     stem, which takes 0..255 directly.
 
-Not ported yet, and refused with NotImplementedError: `mesh=` and
-`spatial=` (ROADMAP.md, queue A: multi-device).
+  * `mesh=` (`parallel/mesh.py`, one process): one replica of the
+    detector's model a data-axis device. Each bucketed batch splits evenly
+    over the replicas (the buckets start at the axis size; max_batch must
+    divide by it); every replica's upload and canvas program is launched
+    before any result is waited for, and the results merge in request
+    order. `spatial=True` (image height over a 'model' axis) is not
+    ported: NotImplementedError names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -85,10 +90,11 @@ class DetectionServer:
                  queue_capacity: int = 1024,
                  mesh=None, spatial: bool = False,
                  bucket_batches: bool = True):
-        if mesh is not None or spatial:
+        if spatial:
+            from yoloclip_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM
             raise NotImplementedError(
-                'serving over several devices (mesh=, spatial=) is not '
-                'ported yet (ROADMAP.md, queue A: multi-device)')
+                f'spatial=True (frame height over a model axis) is not '
+                f'ported ({MODEL_AXIS_ITEM})')
         if detector.offline_vocabulary is None:
             raise ValueError(
                 'DetectionServer needs a detector with an offline '
@@ -96,12 +102,29 @@ class DetectionServer:
                 'YOLOCLIPDetector, or call set_offline_vocabulary)')
         if max_batch < 1:
             raise ValueError(f'max_batch must be >= 1, got {max_batch}')
+        if mesh is not None and max_batch % mesh.shape['data'] != 0:
+            raise ValueError(
+                f"max_batch ({max_batch}) must divide evenly over the "
+                f"mesh's 'data' axis ({mesh.shape['data']})")
+        if mesh is not None and mesh.multiprocess:
+            raise ValueError('the server drives every replica from one '
+                             'process: build its mesh before (or without) '
+                             'torch.distributed')
+        self.mesh = mesh
         self.detector = detector
         self.device = detector.device
+        if mesh is None:
+            self._replicas = [(detector.model, detector.device)]
+        else:
+            from yoloclip_tpu_torch.parallel.train_step import (
+                replicate_model)
+            self._replicas = list(zip(replicate_model(detector.model, mesh),
+                                      mesh.local_devices))
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_ms) / 1000.0
         if bucket_batches:
-            b, buckets = 1, []
+            # every bucket splits evenly over the replicas
+            b, buckets = len(self._replicas), []
             while b < self.max_batch:
                 buckets.append(b)
                 b *= 2
@@ -112,6 +135,7 @@ class DetectionServer:
         # ONE attribute so a hot swap is atomic for the dispatcher's read
         self._vocab: Tuple[torch.Tensor, List[str]] = (
             detector.offline_vocabulary, list(detector.class_names))
+        self._texts: Dict[torch.device, torch.Tensor] = {}   # per device
 
         # stats (guarded by _stats_lock)
         self._stats_lock = threading.Lock()
@@ -216,17 +240,17 @@ class DetectionServer:
         cuDNN's algorithm setup, a latency spike no live request should
         take. Returns the seconds each bucket's run took (synchronised)."""
         th, tw = self.detector.image_size
-        text, _ = self._vocab
+        text, names = self._vocab
         seconds = {}
-        for b in self._buckets:
-            t0 = time.perf_counter()
-            packed = self.detector._detect_canvases(
-                torch.zeros((b, th, tw, 3), dtype=torch.uint8,
-                            device=self.device), text,
-                torch.ones((b,), dtype=torch.float32, device=self.device),
-                torch.ones((b, 2), dtype=torch.float32, device=self.device))
-            packed.cpu()            # waits for the batch
-            seconds[b] = time.perf_counter() - t0
+        with torch.inference_mode():
+            for b in self._buckets:
+                t0 = time.perf_counter()
+                reqs = [_Request(np.zeros((th, tw, 3), np.uint8), 1.0,
+                                 np.ones(2, np.float32), names, None)]
+                _, done = self._launch(reqs, b, text)
+                for ev in done:
+                    ev.synchronize()    # waits for the batch
+                seconds[b] = time.perf_counter() - t0
         return seconds
 
     def close(self, timeout: float = 30.0) -> None:
@@ -279,10 +303,20 @@ class DetectionServer:
             reqs.append(nxt)
         return reqs, False
 
+    def _text_on(self, text: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        """The vocabulary on a replica's device, copied once per swap."""
+        got = self._texts.get(dev)
+        if got is None or got[0] is not text:
+            got = (text, text.to(dev))
+            self._texts[dev] = got
+        return got[1]
+
     def _launch(self, reqs: List[_Request], b: int, text: torch.Tensor):
-        """Upload one padded batch and launch its canvas program. Returns
-        (packed host tensor, CUDA event recorded after its copy, or None
-        on the CPU, where the result is ready on return)."""
+        """Upload one padded batch and launch its canvas program, b / n rows
+        on each of the n replicas, every launch before any wait. Returns
+        (packed host tensor (b, max_det + 1, 6), the CUDA events recorded
+        after each replica's copy; none on the CPU, where the result is
+        ready on return)."""
         th, tw = self.detector.image_size
         cuda = self.device.type == 'cuda'
         # a fresh pinned buffer per batch: the caching host allocator holds
@@ -294,16 +328,24 @@ class DetectionServer:
             view[i] = r.canvas
             mview[i, 0] = r.scale
             mview[i, 1:] = r.orig_wh
-        meta = meta.to(self.device, non_blocking=True)
-        packed = self.detector._detect_canvases(
-            canv.to(self.device, non_blocking=True), text, meta[:, 0],
-            meta[:, 1:])
+        n = b // len(self._replicas)
+        outs = []
+        for k, (model, dev) in enumerate(self._replicas):
+            rows = slice(k * n, (k + 1) * n)
+            m = meta[rows].to(dev, non_blocking=True)
+            outs.append(self.detector._detect_canvases(
+                canv[rows].to(dev, non_blocking=True),
+                self._text_on(text, dev), m[:, 0], m[:, 1:], model=model))
         if not cuda:
-            return packed, None
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+            return torch.cat(outs), []
+        host = torch.empty((b,) + outs[0].shape[1:], dtype=outs[0].dtype,
+                           pin_memory=True)
+        done = []
+        for k, (packed, (_, dev)) in enumerate(zip(outs, self._replicas)):
+            host[k * n:(k + 1) * n].copy_(packed, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            done.append(ev)
         return host, done
 
     def _dispatch_loop(self):
@@ -342,8 +384,8 @@ class DetectionServer:
                 return
             packed_host, done, reqs = item
             try:
-                if done is not None:
-                    done.synchronize()       # this batch's copy, no other
+                for ev in done:
+                    ev.synchronize()   # this batch's copies, no other
                 packed = packed_host.numpy()
             except Exception as e:
                 for r in reqs:

@@ -13,8 +13,10 @@
     `config.model.stem_u8_s2d` the letterbox makes the uint8
     space-to-depth canvas.
 
-Not ported yet, and refused with NotImplementedError: `mesh=` (ROADMAP.md,
-queue A: multi-device).
+  * `mesh=` (`parallel/mesh.py`, one process): the streams split over the
+    data axis, one model replica a device; every replica's step is
+    launched before any result is read, and the results merge in stream
+    order on the first replica's device.
 """
 
 from __future__ import annotations
@@ -43,25 +45,40 @@ class StreamingDetector:
                  mesh=None):
         """model: a YOLOCLIP carrying its weights (e.g. a detector's
         `.model`), moved to `device`; text_embeddings: (C, E)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                'streaming over several devices (mesh=) is not ported yet '
-                '(ROADMAP.md, queue A: multi-device)')
         self.cfg = config or InferenceConfig()
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.n_streams = n_streams
         self.frame_hw = frame_hw
-        self.text = torch.as_tensor(text_embeddings, device=self.device)
         self.fused = (self.cfg.fused_similarity
                       and self.device.type == 'cuda')
+        if mesh is None:
+            replicas = [self.model]
+            devices = [self.device]
+        else:
+            from yoloclip_tpu_torch.parallel.train_step import (
+                replicate_model)
+            if n_streams % mesh.shape['data']:
+                raise ValueError(
+                    f"n_streams ({n_streams}) must divide evenly over the "
+                    f"mesh's 'data' axis ({mesh.shape['data']})")
+            replicas = replicate_model(self.model, mesh)
+            devices = mesh.local_devices
+            self.device = devices[0]
+        text = torch.as_tensor(text_embeddings)
+        self._replicas = [(m, d, text.to(d))
+                          for m, d in zip(replicas, devices)]
+        self.text = self._replicas[0][2]
 
     @torch.inference_mode()
-    def _step(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _step(self, frames: torch.Tensor, model=None, text=None
+              ) -> Dict[str, torch.Tensor]:
         c = self.cfg
         canvases, scale = letterbox_batch_for(c.model)(frames,
                                                        c.model.image_size)
-        out = self.model(canvases, self.text, fused_scores=self.fused)
+        out = (model or self.model)(canvases,
+                                    self.text if text is None else text,
+                                    fused_scores=self.fused)
         boxes = rescale_boxes(out['boxes'], scale, self.frame_hw)
         # the JAX step passes no class_agnostic: class-agnostic NMS
         return batched_nms(boxes, out['scores'], out['class_ids'],
@@ -70,8 +87,16 @@ class StreamingDetector:
 
     def step(self, frames: np.ndarray) -> Dict[str, torch.Tensor]:
         """frames: (n_streams, H, W, 3) uint8 -> batched NMS dict on the
-        device."""
-        return self._step(torch.as_tensor(frames).to(self.device))
+        device (the first replica's under a mesh)."""
+        frames = torch.as_tensor(frames)
+        if len(self._replicas) == 1:
+            return self._step(frames.to(self.device))
+        n = self.n_streams // len(self._replicas)
+        outs = [self._step(frames[k * n:(k + 1) * n].to(dev), model, text)
+                for k, (model, dev, text) in enumerate(self._replicas)]
+        return {key: torch.cat([o[key].to(self.device, non_blocking=True)
+                                for o in outs])
+                for key in outs[0]}
 
     def _fetch(self, out: Dict[str, torch.Tensor]):
         """Start the copy of one step's result to the host: (host tensors,

@@ -11,7 +11,7 @@ deploy graph (`quant='int8'`, `ops/quantize.py`), the BN-folded float conv
 {wq, wscale, qbias, act_scale} through the hand-written kernel
 (`ops/kernels/int8_conv.py`). The JAX package's int8-stored `QT` edges are
 not ported: they are off at its default threshold. BatchNorm trains by
-flax's rule (`BatchNorm2d`).
+flax's rule (`BatchNorm2d`), over the global batch under data parallelism.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yoloclip_tpu_torch.ops.kernels.int8_conv import int8_conv
+from yoloclip_tpu_torch.parallel.collectives import all_gather_stack
 
 # W8A8 eligibility thresholds, copied from the JAX package (measured there
 # on v5e: int8 wins on wide 3x3 convs and loses on narrow and 1x1 ones).
@@ -91,29 +92,66 @@ class _ConvKernel(nn.Module):
             torch.empty(cout, cin, kernel_size, kernel_size))
 
 
+def _stat_dtype(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, or float64 where it is (a float64 reference run)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d (eps 1e-5) whose train mode follows flax's
     `BatchNorm(momentum=0.9)`, as the JAX package trains: it normalises
     with the biased batch statistics (as torch does) and updates the
     running buffers as ra = 0.9 ra + 0.1 batch_stat with the BIASED batch
     variance (torch's own update uses the unbiased one), the statistics
-    reduced in fp32 whatever the input dtype. Eval mode is nn.BatchNorm2d's;
-    `num_batches_tracked` stays as loaded."""
+    reduced in fp32 for fp32, bf16 and fp16 input (float64 stays float64).
+    Eval mode is nn.BatchNorm2d's;
+    `num_batches_tracked` stays as loaded.
+
+    `group` (set by `parallel/train_step.py` for a data-parallel step): the
+    statistics are those of the GLOBAL batch, as flax's BatchNorm under the
+    JAX package's sharded jit reduces them. Each rank's per-channel count,
+    mean and sum of squared deviations (fp32) are gathered through a
+    differentiable all-reduce and combined (Chan's parallel rule), so the
+    backward all-reduces too. torch's SyncBatchNorm is not used: its update
+    takes the unbiased variance (ROADMAP C5)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return self._synced(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+            var, mean = torch.var_mean(_stat_dtype(x), dim=(0, 2, 3),
                                        correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self._update(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
+
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        xf = _stat_dtype(x)
+        n = xf.numel() // xf.shape[1]
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        local = torch.stack([torch.full_like(mean, float(n)), mean,
+                             var * n])
+        counts, means, m2 = all_gather_stack(local, self.group).unbind(1)
+        total = counts.sum(0)
+        g_mean = (counts * means).sum(0) / total
+        g_var = (m2.sum(0) + (counts * (means - g_mean) ** 2).sum(0)) / total
+        with torch.no_grad():
+            self._update(g_mean, g_var)
+        shape = (1, -1, 1, 1)
+        y = ((xf - g_mean.view(shape)) * torch.rsqrt(g_var + self.eps).view(
+            shape) * self.weight.view(shape) + self.bias.view(shape))
+        return y.to(x.dtype)
 
 
 class ConvBlock(nn.Module):

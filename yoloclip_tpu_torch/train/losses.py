@@ -11,6 +11,15 @@ math on torch tensors, every loss in fp32 whatever the compute dtype.
     ground truth, and the DFL term is 0.
   * combined_loss_clean: top-k center assignment (`train/assign.py`),
     contrastive (BCE or softmax), CIoU over assigned boxes, real DFL.
+
+`group` (a data-parallel step's process group, `parallel/train_step.py`):
+every batch-global normaliser -- the contrastive loss's minimum positive
+count and its mask sum, the foreground counts of the BCE, CIoU and DFL
+terms -- is reduced over the group (MIN, SUM), and a rank's share is
+scaled by the world size, so DistributedDataParallel's mean over the ranks
+is the loss of the global batch, as the JAX package's sharded step
+computes it. The mean-reduced terms need nothing: the shards are equal.
+With no group nothing changes.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from yoloclip_tpu_torch.parallel.collectives import (group_min, group_sum,
+                                                     world_scale)
 from yoloclip_tpu_torch.train.assign import (assign_batch,
                                              dfl_targets_from_boxes)
 
@@ -38,7 +49,7 @@ def region_text_contrastive_loss(
         temperature: float = 0.1,
         topk: int = 3,
         label_smoothing: float = 0.0,
-        reduction: str = 'mean') -> torch.Tensor:
+        reduction: str = 'mean', group=None) -> torch.Tensor:
     """Region-text contrastive loss with the original repo's quirks:
 
       * regions are truncated / zero-padded to M = region_labels.shape[1]
@@ -88,7 +99,8 @@ def region_text_contrastive_loss(
         pos_sim = similarity * labels_oh
         k = min(topk, C)
         topk_vals = torch.topk(pos_sim, k, dim=-1).values
-        pos_count_min = labels_oh.sum(-1).min().clamp_min(1)
+        pos_count_min = group_min(labels_oh.sum(-1).min(),
+                                  group).clamp_min(1)
         topk_min = torch.clamp(torch.floor(pos_count_min), max=float(topk))
         pos_weight = topk_vals.sum(-1, keepdim=True) / topk_min
         weighted_labels = labels_oh * pos_weight
@@ -103,9 +115,10 @@ def region_text_contrastive_loss(
     loss = loss.sum(-1) / pos_count                         # (B, M)
 
     if reduction == 'mean':
-        denom = mask3.sum()
-        return torch.where(denom > 0, loss.sum() / denom.clamp_min(1e-30),
-                           torch.zeros_like(denom))
+        denom = group_sum(mask3.sum(), group)
+        return world_scale(torch.where(
+            denom > 0, loss.sum() / denom.clamp_min(1e-30),
+            torch.zeros_like(denom)), group)
     if reduction == 'sum':
         return loss.sum()
     return loss
@@ -213,7 +226,8 @@ def dfl_soft_targets(distances: torch.Tensor,
 
 
 def soft_dfl_loss(pred_logits: torch.Tensor, target_cont: torch.Tensor,
-                  mask: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
+                  mask: torch.Tensor, reg_max: int = 16,
+                  group=None) -> torch.Tensor:
     """Cross-entropy between per-coordinate bin logits (..., 4, reg_max+1)
     and two-bin soft targets of target_cont (..., 4), masked mean over the
     foreground (mask (...,) bool)."""
@@ -221,7 +235,8 @@ def soft_dfl_loss(pred_logits: torch.Tensor, target_cont: torch.Tensor,
     logp = torch.log_softmax(pred_logits.float(), dim=-1)
     ce = -(tgt * logp).sum(-1).mean(-1)
     m = mask.float()
-    return (ce * m).sum() / m.sum().clamp_min(1.0)
+    return world_scale((ce * m).sum()
+                       / group_sum(m.sum(), group).clamp_min(1.0), group)
 
 
 def region_text_bce_loss(region_features: torch.Tensor,   # (B, A, E)
@@ -229,7 +244,8 @@ def region_text_bce_loss(region_features: torch.Tensor,   # (B, A, E)
                          labels: torch.Tensor,            # (B, A) int
                          fg_mask: torch.Tensor,           # (B, A) bool
                          temperature: float = 0.1,
-                         score_bias: float = 0.25) -> torch.Tensor:
+                         score_bias: float = 0.25,
+                         group=None) -> torch.Tensor:
     """Per-class sigmoid BCE over ALL anchors: one-hot(class) targets on
     assigned anchors, all-zero on background, logits centered on
     `score_bias` (the 0.25 deploy threshold on the raw-cosine scale), so
@@ -243,7 +259,8 @@ def region_text_bce_loss(region_features: torch.Tensor,   # (B, A, E)
     C = text.shape[1]
     tgt = F.one_hot(labels.long(), C).float() * fg_mask[..., None].float()
     per = -(tgt * F.logsigmoid(logits) + (1 - tgt) * F.logsigmoid(-logits))
-    return per.sum() / fg_mask.sum().float().clamp_min(1.0)
+    return world_scale(per.sum() / group_sum(
+        fg_mask.sum().float(), group).clamp_min(1.0), group)
 
 
 def combined_loss_clean(outputs: Dict[str, torch.Tensor],
@@ -256,7 +273,7 @@ def combined_loss_clean(outputs: Dict[str, torch.Tensor],
                         label_smoothing: float = 0.0,
                         topk_assign: int = 10,
                         reg_max: int = 16,
-                        contrastive_type: str = 'bce'
+                        contrastive_type: str = 'bce', group=None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Every anchor participates: top-k center assignment -> contrastive
     ('bce', or 'softmax' over the labeled anchors), CIoU over assigned
@@ -270,12 +287,12 @@ def combined_loss_clean(outputs: Dict[str, torch.Tensor],
     if contrastive_type == 'bce':
         cont = region_text_bce_loss(
             outputs['obj_embeddings'], outputs['text_embeddings'],
-            labels, fg, temperature=temperature)
+            labels, fg, temperature=temperature, group=group)
     elif contrastive_type == 'softmax':
         cont = region_text_contrastive_loss(
             outputs['obj_embeddings'], outputs['text_embeddings'],
             labels, fg, temperature=temperature, topk=1,
-            label_smoothing=label_smoothing)
+            label_smoothing=label_smoothing, group=group)
     else:
         raise ValueError(
             f"contrastive_type must be 'bce' or 'softmax', "
@@ -284,7 +301,8 @@ def combined_loss_clean(outputs: Dict[str, torch.Tensor],
     _, iou_l = iou_family(outputs['boxes'].float(),
                           assigned['box_target'].float(), iou_type)
     m = fg.float()
-    iou = (iou_l * m).sum() / m.sum().clamp_min(1.0)
+    num_fg = group_sum(m.sum(), group)
+    iou = world_scale((iou_l * m).sum() / num_fg.clamp_min(1.0), group)
 
     # raw per-level NHWC maps -> (B, A, 4, nbins), level-major like decode
     B = fg.shape[0]
@@ -292,13 +310,13 @@ def combined_loss_clean(outputs: Dict[str, torch.Tensor],
                            for p in outputs['box_preds']], dim=1)
     tgt = dfl_targets_from_boxes(assigned['box_target'], anchors[None],
                                  anchor_strides[None], reg_max)
-    dfl = soft_dfl_loss(pred_dist, tgt, fg, reg_max)
+    dfl = soft_dfl_loss(pred_dist, tgt, fg, reg_max, group=group)
 
     total = (loss_weights['contrastive'] * cont
              + loss_weights['iou'] * iou
              + loss_weights['dfl'] * dfl)
     return total, {'loss': total, 'contrastive_loss': cont,
-                   'iou_loss': iou, 'dfl_loss': dfl, 'num_fg': m.sum()}
+                   'iou_loss': iou, 'dfl_loss': dfl, 'num_fg': num_fg}
 
 
 def combined_loss_compat(outputs: Dict[str, torch.Tensor],
@@ -307,7 +325,7 @@ def combined_loss_compat(outputs: Dict[str, torch.Tensor],
                          temperature: float = 0.1,
                          iou_type: str = 'ciou',
                          label_smoothing: float = 0.0,
-                         topk: int = 3
+                         topk: int = 3, group=None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The original trainer's objective: contrastive over the first
     max_objects anchors + CIoU over the first max_objects predicted boxes
@@ -317,7 +335,7 @@ def combined_loss_compat(outputs: Dict[str, torch.Tensor],
         outputs['obj_embeddings'], outputs['text_embeddings'],
         batch['class_ids'], batch.get('valid_mask'),
         temperature=temperature, topk=topk,
-        label_smoothing=label_smoothing)
+        label_smoothing=label_smoothing, group=group)
     M = batch['boxes'].shape[1]
     iou = iou_loss(outputs['boxes'][:, :M, :], batch['boxes'],
                    batch.get('valid_mask'), iou_type=iou_type)

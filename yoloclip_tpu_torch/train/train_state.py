@@ -17,10 +17,16 @@ of `yoloclip_tpu/train/train_state.py`.
   * bf16 computes the forward under `torch.autocast` (convs, linears and
     matmuls in bf16, weights cast at use); the parameters, gradients,
     optimizer state, EMA and every loss stay fp32.
+  * Data parallelism (`parallel/train_step.py`): the forward runs through
+    a DistributedDataParallel wrapper of the model (no gradient all-reduce
+    on all but the last micro-batch), the losses normalise over the global
+    batch, and the returned loss parts are the global batch's (averaged
+    over the ranks), as the JAX package's sharded step returns them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -30,6 +36,7 @@ from torch.func import functional_call
 
 from yoloclip_tpu_torch.config import TrainingConfig
 from yoloclip_tpu_torch.ops.nms import batched_nms
+from yoloclip_tpu_torch.parallel.collectives import group_mean
 from yoloclip_tpu_torch.train.assign import anchor_points
 from yoloclip_tpu_torch.train.losses import (combined_loss_clean,
                                              combined_loss_compat)
@@ -123,14 +130,29 @@ def _autocast(cfg: TrainingConfig, device: torch.device):
                           enabled=cfg.model.dtype == 'bfloat16')
 
 
-def make_train_step(cfg: TrainingConfig):
+def _mean_parts(parts: Dict[str, torch.Tensor], group
+                ) -> Dict[str, torch.Tensor]:
+    """Each rank's loss parts -> the global batch's, in one all-reduce."""
+    if group is None:
+        return parts
+    keys = list(parts)
+    vals = group_mean(torch.stack([parts[k] for k in keys]), group)
+    return dict(zip(keys, vals.unbind(0)))
+
+
+def make_train_step(cfg: TrainingConfig, ddp=None, group=None):
     """train_step(state, batch, text) -> loss parts (0-d fp32 tensors on
     the device). Updates the state in place: BatchNorm buffers, parameters
     (one optimizer step at the lr in the param groups), EMA and step.
 
     batch: images (B, H, W, 3) float [0, 1], boxes (B, M, 4), class_ids
     (B, M), valid_mask (B, M), tensors on the model's device. text:
-    (B, C, E) per sample (zero-padded vocabularies) or (C, E) shared."""
+    (B, C, E) per sample (zero-padded vocabularies) or (C, E) shared.
+
+    ddp / group (`parallel/train_step.py::make_sharded_train_step`): the
+    DistributedDataParallel wrapper of state.model and the data axis's
+    process group; the batch is then this rank's rows, laid out so that
+    its micro-batch i is its share of the global micro-batch i."""
     weights = dict(cfg.loss_weights)
     accum = max(int(cfg.grad_accum_steps), 1)
     warmup = max(float(cfg.ema_warmup_steps), 1.0)
@@ -148,14 +170,16 @@ def make_train_step(cfg: TrainingConfig):
                 temperature=cfg.temperature, iou_type=cfg.iou_type,
                 label_smoothing=cfg.label_smoothing,
                 reg_max=cfg.model.reg_max,
-                contrastive_type=cfg.contrastive_type)
+                contrastive_type=cfg.contrastive_type, group=group)
         return combined_loss_compat(
             outputs, batch, weights, temperature=cfg.temperature,
-            iou_type=cfg.iou_type, label_smoothing=cfg.label_smoothing)
+            iou_type=cfg.iou_type, label_smoothing=cfg.label_smoothing,
+            group=group)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    text: torch.Tensor) -> Dict[str, torch.Tensor]:
         model = state.model.train()
+        forward = model if ddp is None else ddp
         state.optimizer.zero_grad(set_to_none=True)
         B = batch['images'].shape[0]
         if B % accum:
@@ -168,10 +192,13 @@ def make_train_step(cfg: TrainingConfig):
             mb = {k: batch[k][sl] for k in
                   ('images', 'boxes', 'class_ids', 'valid_mask')}
             tx = text[sl] if text.dim() == 3 else text
-            with _autocast(cfg, mb['images'].device):
-                outputs = model(mb['images'], tx)
-            total, parts = compute_loss(outputs, mb)
-            (total / accum if accum > 1 else total).backward()
+            # DDP all-reduces the gradients on the last micro-batch only
+            with (ddp.no_sync() if ddp is not None and i < accum - 1
+                  else contextlib.nullcontext()):
+                with _autocast(cfg, mb['images'].device):
+                    outputs = forward(mb['images'], tx)
+                total, parts = compute_loss(outputs, mb)
+                (total / accum if accum > 1 else total).backward()
             for k, v in parts.items():
                 v = v.detach()
                 parts_sum[k] = v if k not in parts_sum else parts_sum[k] + v
@@ -183,14 +210,14 @@ def make_train_step(cfg: TrainingConfig):
             torch._foreach_mul_(ema, d)
             torch._foreach_add_(ema, params, alpha=1 - d)
         state.step += 1
-        if accum == 1:
-            return parts_sum
-        return {k: v / accum for k, v in parts_sum.items()}
+        if accum > 1:
+            parts_sum = {k: v / accum for k, v in parts_sum.items()}
+        return _mean_parts(parts_sum, group)
 
     return train_step
 
 
-def make_eval_step(cfg: TrainingConfig):
+def make_eval_step(cfg: TrainingConfig, group=None):
     """eval_step(state, batch, text) -> (loss parts without DFL, preds).
 
     The model runs in eval mode with `state.eval_params()` (EMA when
@@ -198,7 +225,10 @@ def make_eval_step(cfg: TrainingConfig):
     max_objects anchors (boxes, scores, class_ids), as the original trainer
     evaluates, or with cfg.eval_with_nms real detections (confidence filter
     + class-agnostic NMS, the NMS kernel on the card; empty slots get
-    class_id -1, which the evaluator never matches)."""
+    class_id -1, which the evaluator never matches).
+
+    group: the data axis's process group; the loss parts are then the
+    global batch's, the predictions this rank's rows'."""
     weights = dict(cfg.loss_weights)
     M = cfg.max_objects
 
@@ -211,8 +241,10 @@ def make_eval_step(cfg: TrainingConfig):
                                       (batch['images'], text))
         _, parts = combined_loss_compat(
             outputs, batch, weights, temperature=cfg.temperature,
-            iou_type=cfg.iou_type, label_smoothing=cfg.label_smoothing)
-        parts = {k: v for k, v in parts.items() if k != 'dfl_loss'}
+            iou_type=cfg.iou_type, label_smoothing=cfg.label_smoothing,
+            group=group)
+        parts = _mean_parts({k: v for k, v in parts.items()
+                             if k != 'dfl_loss'}, group)
         if cfg.eval_with_nms:
             det = batched_nms(outputs['boxes'], outputs['scores'],
                               outputs['class_ids'], cfg.eval_conf_threshold,

@@ -14,6 +14,18 @@ Counterpart of `yoloclip_tpu/train/trainer.py`.
   * prompts encoded per sample through the text encoder's per-prompt cache
     and zero-padded to a power-of-two class bucket of at least 8, with no
     class mask (the original zero-pads without masking).
+
+`mesh=` (`parallel/mesh.py`, one process per data-axis device): the
+sharded step of `parallel/train_step.py`. Each rank takes its rows of the
+global batch (or, with `mesh.local_batches`, its loader yields them); the
+class bucket is the global batch's (an all-reduced MAX: the padded columns
+enter the contrastive softmax); `evaluate` gathers every rank's
+predictions and targets on the host, so each rank computes the same
+global mAP and takes the same best-checkpoint decision; rank 0 alone
+writes checkpoints and `history.json`, the others wait at a barrier.
+`self.model` stays the bare module, so checkpoints carry no `module.`
+prefix and `load` works on every rank. TrainingConfig.data_parallel is
+read by nothing, as in the JAX package: the mesh sets the parallelism.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ import numpy as np
 import torch
 
 from yoloclip_tpu_torch.config import TrainingConfig
+from yoloclip_tpu_torch.parallel.collectives import group_max
 from yoloclip_tpu_torch.train.train_state import (TRAIN_KEYS, TrainState,
                                                   create_train_state,
                                                   get_learning_rate,
@@ -68,47 +81,81 @@ class YOLOCLIPTrainer:
         """model: a YOLOCLIP with fp32 weights; text_encoder: callable
         list[str] -> (n, E) tensor (`text/encoder.py::CLIPTextEncoder`).
         device: where training runs ('cuda' unless the caller asks for the
-        CPU). schedule_units: 'epoch' or 'step'."""
-        if mesh is not None or cfg.data_parallel > 1:
-            raise NotImplementedError(
-                'data-parallel training is not ported yet (ROADMAP.md, '
-                'queue A item 5: multi-device)')
+        CPU; under a mesh, this rank's device on it). schedule_units:
+        'epoch' or 'step'."""
         if schedule_units not in ('epoch', 'step'):
             raise ValueError(f"schedule_units must be 'epoch' or 'step', "
                              f'got {schedule_units!r}')
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device if mesh is None
+                                   else mesh.local_device)
         self.text_encoder = text_encoder
         self.output_dir = cfg.output_dir
         os.makedirs(self.output_dir, exist_ok=True)
         self.state = state or create_train_state(model, cfg, self.device)
-        self.model = self.state.model
         self.schedule_units = schedule_units
         self._schedule = None   # built once steps_per_epoch is known
-        self._train_step = make_train_step(cfg)
-        self._eval_step = make_eval_step(cfg)
+        if mesh is not None:
+            from yoloclip_tpu_torch.parallel.train_step import (
+                make_sharded_train_step, replicate_state)
+            self.state = replicate_state(self.state, mesh)
+            self._train_step = make_sharded_train_step(cfg, mesh)(self.state)
+        else:
+            self._train_step = make_train_step(cfg)
+        self.model = self.state.model
+        self._eval_step = make_eval_step(cfg, group=self._group)
         self.best_map = 0.0
+
+    @property
+    def _group(self):
+        return None if self.mesh is None else self.mesh.group
+
+    @property
+    def _rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    def _barrier(self) -> None:
+        if self._group is not None:
+            torch.distributed.barrier(group=self.mesh.host_group)
 
     # ------------------------------------------------------------------
     def _encode_batch_text(self, text_prompts: List[List[str]]
                            ) -> torch.Tensor:
         """Per-sample prompt lists -> (B, Cb, E) on the device, zero-padded
         to the class bucket."""
-        rows = [self.text_encoder(list(p)).to(self.device, torch.float32)
+        dtype = next(self.model.parameters()).dtype   # fp32 master weights
+        rows = [self.text_encoder(list(p)).to(self.device, dtype)
                 for p in text_prompts]
         cmax = _bucket_classes(max(r.shape[0] for r in rows))
+        if self._group is not None:   # the global batch's bucket
+            cmax = int(group_max(torch.tensor([cmax]),
+                                 self.mesh.host_group)[0])
         out = torch.zeros((len(rows), cmax, rows[0].shape[1]),
-                          dtype=torch.float32, device=self.device)
+                          dtype=dtype, device=self.device)
         for i, r in enumerate(rows):
             out[i, :r.shape[0]] = r
         return out
 
+    def _local(self, batch: Dict, accum: int = 1) -> Dict:
+        """This process's rows of a batch: the batch itself on one device
+        or where each rank loads its own shard, else its rows of the global
+        batch, laid out for `accum` micro-batches."""
+        if self._group is None or self.mesh.local_batches:
+            return batch
+        from yoloclip_tpu_torch.parallel.train_step import place_batch
+        keys = BATCH_KEYS + ('text_prompts',)
+        return place_batch({k: batch[k] for k in keys}, self.mesh, accum)
+
     def _put_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The batch's arrays as tensors on the device (no copy for those
-        already there, e.g. from `data.loader.device_prefetch`)."""
-        return {k: torch.as_tensor(batch[k]).to(self.device,
-                                                non_blocking=True)
-                for k in BATCH_KEYS}
+        already there, e.g. from `data.loader.device_prefetch`); the images
+        in the master weights' dtype."""
+        out = {k: torch.as_tensor(batch[k]).to(self.device,
+                                               non_blocking=True)
+               for k in BATCH_KEYS}
+        out['images'] = out['images'].to(next(self.model.parameters()).dtype)
+        return out
 
     # ------------------------------------------------------------------
     def train_epoch(self, dataloader, epoch: int) -> Dict[str, float]:
@@ -124,6 +171,8 @@ class YOLOCLIPTrainer:
             if self.schedule_units == 'step':
                 set_learning_rate(self.state,
                                   self._schedule(self.state.step))
+            batch = self._local(batch, max(int(self.cfg.grad_accum_steps),
+                                           1))
             text = self._encode_batch_text(batch['text_prompts'])
             parts = self._train_step(self.state, self._put_batch(batch),
                                      text)
@@ -136,20 +185,36 @@ class YOLOCLIPTrainer:
         preds_all, targets_all = [], []
         n, totals = 0, None
         for batch in dataloader:
+            batch = self._local(batch)
             text = self._encode_batch_text(batch['text_prompts'])
             arrays = self._put_batch(batch)
             parts, preds = self._eval_step(self.state, arrays, text)
             n += 1
             totals = ({k: parts[k] for k in EVAL_KEYS} if totals is None
                       else {k: totals[k] + parts[k] for k in EVAL_KEYS})
-            preds_all.append({k: v.cpu().numpy() for k, v in preds.items()})
-            targets_all.append({k: np.asarray(torch.as_tensor(
-                batch[k]).cpu()) for k in ('boxes', 'class_ids',
-                                           'valid_mask')})
+            preds = {k: v.cpu().numpy() for k, v in preds.items()}
+            targets = {k: np.asarray(torch.as_tensor(batch[k]).cpu())
+                       for k in ('boxes', 'class_ids', 'valid_mask')}
+            if self._group is not None:
+                # every rank's rows, in rank order, on every rank (the JAX
+                # trainer's process_allgather): the same global mAP and
+                # best-checkpoint decision everywhere
+                preds, targets = self._gather_host(preds, targets)
+            preds_all.append(preds)
+            targets_all.append(targets)
         map50, map50_95 = calculate_map(preds_all, targets_all)
         out = _host_means(totals, EVAL_KEYS, n)
         out.update({'mAP50': map50, 'mAP50_95': map50_95})
         return out
+
+    def _gather_host(self, *dicts):
+        """Each dict of numpy arrays concatenated over the ranks (rank
+        order) on every rank, through the host group."""
+        got = [None] * torch.distributed.get_world_size(self.mesh.host_group)
+        torch.distributed.all_gather_object(got, dicts,
+                                            group=self.mesh.host_group)
+        return tuple({k: np.concatenate([g[i][k] for g in got])
+                      for k in d} for i, d in enumerate(dicts))
 
     # ------------------------------------------------------------------
     def train(self, train_dataloader, val_dataloader=None,
@@ -207,7 +272,10 @@ class YOLOCLIPTrainer:
 
     def _save_history(self, history: Dict[str, List[float]]) -> None:
         """`history.json` after every epoch (atomic rename), so a crash
-        keeps the curves as the crash checkpoint keeps the weights."""
+        keeps the curves as the crash checkpoint keeps the weights. One
+        writer under a mesh: rank 0."""
+        if self._rank != 0:
+            return
         path = os.path.join(self.output_dir, 'history.json')
         tmp = path + '.tmp'
         with open(tmp, 'w') as f:
@@ -217,16 +285,21 @@ class YOLOCLIPTrainer:
     # ------------------------------------------------------------------
     def save(self, path: str) -> None:
         """The model's state dict, the EMA (when tracked, so inference
-        loaders serve it), the optimizer state, step and best_map."""
-        save_checkpoint(path, self.model.state_dict(), ema=self.state.ema,
-                        optimizer_state=self.state.optimizer.state_dict(),
-                        step=self.state.step,
-                        metadata={'best_map': self.best_map})
-        logger.info('Checkpoint saved to %s', path)
+        loaders serve it), the optimizer state, step and best_map. Under a
+        mesh rank 0 writes (every rank holds the same state) and the others
+        wait for it at a barrier."""
+        if self._rank == 0:
+            save_checkpoint(path, self.model.state_dict(),
+                            ema=self.state.ema,
+                            optimizer_state=self.state.optimizer.state_dict(),
+                            step=self.state.step,
+                            metadata={'best_map': self.best_map})
+            logger.info('Checkpoint saved to %s', path)
+        self._barrier()
 
     def load(self, path: str) -> None:
         """Resume: weights, BatchNorm buffers, optimizer, step, EMA and
-        best_map."""
+        best_map (every rank reads the file)."""
         ckpt = load_checkpoint(path)
         self.model.load_state_dict(ckpt['model'])
         if self.state.ema is not None:
