@@ -141,9 +141,31 @@ Phases, each printing its results; any failure exits non-zero:
                   single-device canvas program / step on each replica's
                   share (equal); one `serve --devices cuda:0,cuda:0 --int8`
                   batch (the int8 kernel on both replicas).
+ 19. vocab tp  -- detect_batch at bs=32, fp32, with the 1203-class
+                  vocabulary over an in-process 1x2 mesh (cuda:0 twice):
+                  kernel 1 on each class block (one thread a shard),
+                  merged, against the unsharded program (scores 1e-6, ids
+                  outside near-ties, detections); each shard's kernel-1
+                  launch, a block with num_valid 0 and kernel 3's sharded
+                  scoring (C = 1203) against the plain versions; the int8
+                  batch over the mesh against the single-device one (the
+                  kernel's accumulators equal to plain on its inputs);
+ 20. spatial   -- detect() on one 640-px frame split 2 and 4 ways in
+                  height (1x2 and 2x2 meshes of cuda:0) and detect_batch at
+                  bs=32 on the 2x2 grid (batch over data x height over
+                  model), fp32 and int8, against the unsplit programs
+                  (JAX's bounds: scores 1e-4, boxes 1 px; int8
+                  accumulators equal to plain on the halo-extended
+                  inputs); the 1-, 2- and 4-way latencies;
+ 21. tp train  -- two gloo ranks on cuda:0 as a 1x2 (data x model) grid:
+                  one compat fp32 class-sharded step at 640 px, bs=16,
+                  against the 1-process step with [ddp]'s bounds;
+ 22. multihost -- the self-test (`parallel/multihost.py --selftest --model
+                  2`) in 8 processes on cuda:0 (gloo) as a 4x2 grid, each
+                  loss against the 1-process self-test.
 Each path that launches kernels (main path, prompts, int8, stems, canvas,
-server, streaming, reparam, profile, training, the ddp ranks, dp serve)
-runs with the launch counters set to 0 just before it and read just after;
+server, streaming, reparam, profile, training, the ddp ranks, dp serve,
+vocab tp, spatial) runs with the launch counters set to 0 just before it and read just after;
 the kernels line sums them. Two ranks or replicas on one card show
 correctness, not scaling.
 The line before the last is {"kernels": [...]}; the last line is
@@ -2630,7 +2652,7 @@ def _buf_err(got, want):
                if k.endswith(('running_mean', 'running_var')))
 
 
-def _compare_step(tag, assigner, dtype, got, want, card):
+def _compare_step(tag, assigner, dtype, got, want, card, label='[ddp]'):
     """A rank's step against the 1-process step: loss parts, gradients,
     BatchNorm buffers (bf16: both against the fp32 step, DDP_TOL); its
     parameters against AdamW applied on the card to its own (all-reduced)
@@ -2660,7 +2682,7 @@ def _compare_step(tag, assigner, dtype, got, want, card):
     opt.step()
     param_err = max((got['state'][k] - p.detach().cpu()).abs().max().item()
                     for k, p in ref.named_parameters())
-    print(f'[ddp] {tag} bs={DDP_BS} 640 px, 2 ranks (gloo, both on cuda:0) '
+    print(f'{label} {tag} bs={DDP_BS} 640 px, 2 ranks (gloo, both on cuda:0) '
           f'vs 1 process on the card{extra}: loss parts max rel '
           f'{loss_err:.3e} (tol {loss_tol:g}); gradients rel L2 over all '
           f'{grad_all:.3e} (tol {grad_tol:.3e}), worst tensor {grad_err:.3e} '
@@ -2670,12 +2692,12 @@ def _compare_step(tag, assigner, dtype, got, want, card):
           f'parameters identical={got["identical"]}; step {got["ms"]:.2f} '
           f'ms a rank (two ranks sharing one card: correctness, not scaling)'
           f' vs {ms:.2f} ms in one process  [{card}]')
-    require(got['identical'], f'[ddp] {tag}: the ranks diverged')
-    require(loss_err <= loss_tol, f'[ddp] {tag}: loss parts')
+    require(got['identical'], f'{label} {tag}: the ranks diverged')
+    require(loss_err <= loss_tol, f'{label} {tag}: loss parts')
     require((grad_err if dtype == 'float32' else grad_all) <= grad_tol,
-            f'[ddp] {tag}: gradients')
-    require(buf_err <= buf_tol, f'[ddp] {tag}: BatchNorm buffers')
-    require(param_err <= TRAIN_PARAM_ATOL, f'[ddp] {tag}: AdamW')
+            f'{label} {tag}: gradients')
+    require(buf_err <= buf_tol, f'{label} {tag}: BatchNorm buffers')
+    require(param_err <= TRAIN_PARAM_ATOL, f'{label} {tag}: AdamW')
 
 
 def phase_ddp(sim, nms, tmp: str, card: str) -> dict:
@@ -2929,6 +2951,639 @@ def phase_profile(sim, nms, bf, frames, tmp: str, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the 'model' mesh axis: class parallelism and spatial partitioning
+# ---------------------------------------------------------------------------
+
+# Class-sharded scores against the unsharded program, fp32 (TF32 off): each
+# class's raw score is the same tile arithmetic in either block; the text
+# after I-Pool may round apart in its per-block matmuls.
+VOCAB_TP_SCORE_ATOL = 1e-6
+# JAX's spatial bounds (tests/test_spatial.py): scores 1e-4, boxes 1 px.
+SPATIAL_SCORE_ATOL, SPATIAL_BOX_PX = 1e-4, 1.0
+SPATIAL_TIMED = 5
+MULTIHOST_PROCS, MULTIHOST_MODEL, MULTIHOST_RTOL = 8, 2, 1e-5
+
+
+def _k1_check(sim, h, t, K, b, nv, tag):
+    """Kernel 1 against its plain version on one class block; with
+    num_valid 0 the masked NEG / ||hK + b|| and id 0 (held relatively).
+    Returns the score difference (relative for num_valid 0)."""
+    s, i = sim.fused_projected_similarity_argmax(h, t, K, b, nv)
+    ps, pi = sim.similarity_argmax_plain(h, t, K, b, nv)
+    torch.cuda.synchronize()
+    if nv == 0:
+        err = (s / ps - 1).abs().max().item()
+        ok = err <= SIM_ATOL and bool((i == 0).all()) and bool((pi == 0).all())
+        print(f'[vocab tp] kernel 1 {tag} num_valid=0: NEG/norm relative '
+              f'diff {err:.3e} (tol {SIM_ATOL:g}); all ids 0: {ok}')
+        require(ok, f'kernel 1 on a block with no valid class ({tag})')
+        return err
+    tp, cb = sim._fold_text(t, K, b, h.dtype)
+    raw = torch.matmul(h.float(), tp.float().transpose(1, 2)) + cb[:, None]
+    norm = (torch.matmul(h.float(), K.to(h.dtype).float()) + b).norm(
+        dim=-1).clamp_min(1e-12)
+    tie = _near_ties(raw, norm)
+    del raw
+    err = (s - ps).abs().max().item()
+    bad = ((i != pi) & ~tie).sum().item()
+    print(f'[vocab tp] kernel 1 {tag}: max|score-plain|={err:.3e} (tol '
+          f'{SIM_ATOL:g}) id mismatches outside near-ties={bad}')
+    require(err <= SIM_ATOL and bad == 0, f'kernel 1 on a block ({tag})')
+    return err
+
+
+def _k3_check(sim, obj, t, nv, tag):
+    """Kernel 3 (normalize_obj) against its plain version on one class
+    block; with num_valid 0 the masked NEG / ||obj|| and id 0. Returns the
+    score difference (relative for num_valid 0)."""
+    s, i = sim.fused_similarity_argmax(obj, t, nv, normalize_obj=True)
+    ps, pi = sim.similarity_argmax_reference_plain(obj, t, nv, True)
+    torch.cuda.synchronize()
+    if nv == 0:
+        live = torch.isfinite(ps)   # a zero row: NEG / 1e-12 overflows
+        err = (s[live] / ps[live] - 1).abs().max().item()
+        ok = (err <= SIM_ATOL and bool((i == 0).all())
+              and bool((s[~live] == ps[~live]).all()))
+        print(f'[vocab tp] kernel 3 {tag} num_valid=0: NEG/norm relative '
+              f'diff {err:.3e} (tol {SIM_ATOL:g}); all ids 0: {ok}')
+        require(ok, f'kernel 3 on a block with no valid class ({tag})')
+        return err
+    tie = _near_ties(torch.matmul(obj.float(), t.transpose(1, 2)),
+                     obj.float().norm(dim=-1).clamp_min(1e-12))
+    err = (s - ps).abs().max().item()
+    bad = ((i != pi) & ~tie).sum().item()
+    print(f'[vocab tp] kernel 3 {tag}: max|score-plain|={err:.3e} (tol '
+          f'{SIM_ATOL:g}) id mismatches outside near-ties={bad}')
+    require(err <= SIM_ATOL and bad == 0, f'kernel 3 on a block ({tag})')
+    return err
+
+
+def _on_shards(n, fn):
+    """fn(rank, member) on n threads of one in-process group (cuda:0)."""
+    from yoloclip_tpu_torch.parallel import collectives as col
+    group, workers = col.LocalGroup(n), col.ShardThreads(n)
+    try:
+        return workers.run([lambda r=r: fn(r, group.member(r))
+                            for r in range(n)], [group])
+    finally:
+        workers.close()
+
+
+def _batched_lists(out, names):
+    """A batched NMS dict -> one detection list an image."""
+    from yoloclip_tpu_torch.inference.detector import (_pack_detections,
+                                                       _unpack_detections)
+    packed = _pack_detections(out).cpu().numpy()
+    return [_unpack_detections(p, names)[0] for p in packed]
+
+
+class _Int8Recorder:
+    """Wraps the int8 conv the ConvBlocks call: every launch goes on (and
+    is counted by the wrapper); the input of the first launch of each
+    (block shape, input rows) is kept, so that the kernel's accumulators
+    can be held against the plain version's on it afterwards."""
+
+    def __init__(self):
+        from yoloclip_tpu_torch.models import layers
+        self.layers, self.real = layers, layers.int8_conv
+        self.kept, self.lock = {}, threading.Lock()
+
+    def __enter__(self):
+        def rec(x, wq, wscale, qbias, act_scale, stride, epilogue=True):
+            key = (tuple(wq.shape), stride, x.shape[2], str(x.dtype))
+            with self.lock:
+                if key not in self.kept:
+                    self.kept[key] = (x.clone(), wq, wscale, qbias,
+                                      act_scale, stride)
+            return self.real(x, wq, wscale, qbias, act_scale, stride,
+                             epilogue)
+        self.layers.int8_conv = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.int8_conv = self.real
+
+    def check(self, i8, tag) -> int:
+        """Kernel accumulators == plain on every kept input; returns how
+        many inputs were checked."""
+        rows = sorted({k[2] for k in self.kept})
+        for key, (x, wq, ws, qb, a, s) in self.kept.items():
+            got = i8.int8_conv(x, wq, ws, qb, a, s, epilogue=False)
+            want = i8.int8_conv_plain(x, wq, ws, qb, a, s, epilogue=False)
+            require(torch.equal(got, want),
+                    f'{tag}: int8 accumulators differ from plain at {key}')
+        print(f'{tag} int8_conv accumulators equal to the plain version on '
+              f'{len(self.kept)} recorded inputs (each block shape x input '
+              f'rows; rows seen {rows})')
+        n = len(self.kept)
+        self.kept.clear()
+        return n
+
+
+def _int8_blocks(model):
+    from yoloclip_tpu_torch.models.layers import ConvBlock
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, ConvBlock) and m.mode == 'int8']
+
+
+def _shard_key():
+    """(batch shard, height shard) of the calling thread: the split
+    runners name their threads yoloclip-shard-{batch * nh + height}."""
+    from yoloclip_tpu_torch.parallel import spatial
+    name = threading.current_thread().name
+    r = (int(name.rsplit('-', 1)[1]) if name.startswith('yoloclip-shard-')
+         else 0)
+    sh = spatial.current()
+    nh = len(sh.blocks) if sh is not None else 1
+    return r // nh, r % nh
+
+
+class _Int8Inputs:
+    """Forward pre-hooks on a model's int8 ConvBlocks. record(): keep each
+    block's input per calling shard ((batch, height) shard: the rows it
+    holds, before any halo); whole(): a block's whole-frame input from
+    them (height shards in row order, then batch shards); force(inputs):
+    every block's input replaced by inputs[name]."""
+
+    def __init__(self, model):
+        self.blocks = _int8_blocks(model)
+        self.kept, self.lock, self.handles = {}, threading.Lock(), []
+
+    def record(self):
+        def hook(name):
+            def pre(mod, args):
+                with self.lock:
+                    self.kept.setdefault(name, {})[_shard_key()] = \
+                        args[0].detach().clone()
+            return pre
+        self.handles = [m.register_forward_pre_hook(hook(n))
+                        for n, m in self.blocks]
+        return self
+
+    def force(self, inputs):
+        self.handles = [m.register_forward_pre_hook(
+            lambda mod, args, n=n: (inputs[n],)) for n, m in self.blocks]
+        return self
+
+    def whole(self, name, height: bool = True):
+        """height=False: the shards are class shards of one batch, every
+        one holding the same rows: shard 0's."""
+        parts = self.kept[name]
+        if not height:
+            return parts[(0, 0)]
+        nb = 1 + max(b for b, _ in parts)
+        nh = 1 + max(h for _, h in parts)
+        return torch.cat([torch.cat([parts[(b, h)] for h in range(nh)], 2)
+                          for b in range(nb)], 0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+        self.handles = []
+
+
+def _int8_forced(tag, model, split_fwd, canv, text, height, card):
+    """The split int8 program against the unsplit one on the same
+    canvases: free-running (the int8 inputs' rounding flips counted), and
+    with every int8 block's input forced to the split run's (the halo
+    rows and the per-block products may round an int8 input the other
+    way; forced, only the float ops after the blocks differ). Returns the
+    forced pre-NMS score difference."""
+    from yoloclip_tpu_torch.ops.kernels.int8_conv import quantize_plain
+    rec = _Int8Inputs(model)
+    with torch.inference_mode():
+        with rec.record():
+            split = split_fwd(canv, text, fused_scores=True)
+        forced_in = {n: rec.whole(n, height) for n, _ in rec.blocks}
+        free_rec = _Int8Inputs(model)
+        with free_rec.record():
+            free = model(canv, text, fused_scores=True)
+        with _Int8Inputs(model).force(forced_in):
+            forced = model(canv, text, fused_scores=True)
+            unf = model(canv, text)
+    flips = total = 0
+    for n, m in rec.blocks:
+        a = quantize_plain(forced_in[n], m.act_scale)
+        b = quantize_plain(free_rec.kept[n][(0, 0)], m.act_scale)
+        flips += int((a != b).sum())
+        total += a.numel()
+    top2 = unf['similarity'].topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < XDEV_TIE_GAP
+    err = (split['scores'] - forced['scores']).abs().max().item()
+    bad = ((split['class_ids'] != forced['class_ids']) & ~tie).sum().item()
+    free_err = (split['scores'] - free['scores']).abs().max().item()
+    print(f'{tag} int8 split vs unsplit on the same canvases: free-running '
+          f'pre-NMS scores max|diff| {free_err:.3e} ({flips} of {total} '
+          f'int8 inputs ({flips / max(total, 1):.2e}) round the other way); '
+          f'with every int8 block\'s input forced to the split run\'s: '
+          f'max|diff| {err:.3e}, id mismatches outside near-ties {bad}  '
+          f'[{card}]')
+    require(bad == 0, f'{tag} int8: forced ids differ')
+    return err
+
+
+def _int8_counts_all(sim, nms, i8) -> dict:
+    out = _int8_counts(sim, nms, i8)
+    out['similarity_unprojected'] = (sim.unprojected_launches
+                                     - sim.unprojected_launches_bf16)
+    return out
+
+
+def _check_split(tag, got, want, got_scores, want_scores, names, topk,
+                 score_atol):
+    """Two batched NMS dicts of one program, split and unsplit: the
+    pre-NMS scores' largest difference, then each image's detections
+    through `_check_detections`. Returns (compared, total)."""
+    delta = (got_scores - want_scores).abs().max().item()
+    g, w = _batched_lists(got, names), _batched_lists(want, names)
+    n = t = 0
+    for i in range(len(w)):
+        a, b = _check_detections(f'{tag} image {i}', g[i], w[i],
+                                 want_scores[i].float().cpu(), delta, topk,
+                                 score_atol)
+        n, t = n + a, t + b
+    return delta, n, t
+
+
+def phase_vocab_tp(sim, nms, i8, lvis_vocab, frames, tmp, card):
+    """[vocab tp]: detect_batch at bs=32 with the 1203-class vocabulary
+    over an in-process 1x2 mesh (cuda:0 twice), each class block's kernel 1
+    on a thread of its own, merged; against the unsharded program. Then
+    each shard's kernel-1 launch, a block with num_valid 0, and kernel 3's
+    sharded scoring (C = 1203) against the plain versions; the int8 batch
+    over the same mesh against the single-device int8 batch. Returns the
+    launches of the class-sharded runs."""
+    from yoloclip_tpu_torch.ops.preprocess import letterbox_batch_for
+    from yoloclip_tpu_torch.parallel import collectives as col
+    from yoloclip_tpu_torch.parallel.mesh import create_mesh
+    from yoloclip_tpu_torch.parallel.train_step import make_sharded_inference
+    path = os.path.join(tmp, 'lvis_vocab.json')
+    rows = lvis_vocab.cpu().numpy()
+    with open(path, 'w') as f:
+        json.dump({n: r.tolist() for n, r in zip(LVIS_NAMES, rows)}, f)
+    det = _detector(path, conf_threshold=-1.0)
+    mesh = create_mesh(n_data=1, n_model=2, devices=['cuda:0', 'cuda:0'])
+    run = make_sharded_inference(det.model, mesh)
+    sharded = lambda x, t, **kw: run(x, t, **kw)[0]   # noqa: E731
+    text = det.offline_vocabulary
+    with torch.inference_mode():
+        canv, _ = letterbox_batch_for(det.config.model)(frames,
+                                                        det.image_size)
+        one = det.model(canv, text, fused_scores=True)
+        unf = det.model(canv, text)
+        two = sharded(canv, text, fused_scores=True)
+    want = det.detect_batch(frames)
+    det._batch_model = sharded
+    torch.cuda.synchronize()
+    _zero_int8(sim, nms, i8)
+    t0 = time.perf_counter()
+    got = det.detect_batch(frames)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _int8_counts_all(sim, nms, i8)
+    det._batch_model = None
+    t0 = time.perf_counter()
+    det.detect_batch(frames)
+    torch.cuda.synchronize()
+    ms1 = (time.perf_counter() - t0) * 1e3
+    top2 = unf['similarity'].topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < XDEV_TIE_GAP
+    err = (two['scores'] - one['scores']).abs().max().item()
+    bad = ((two['class_ids'] != one['class_ids']) & ~tie).sum().item()
+    delta, n, tot = _check_split('[vocab tp] fp32', got, want, two['scores'],
+                                 one['scores'], det.class_names,
+                                 det.config.nms_topk, VOCAB_TP_SCORE_ATOL)
+    print(f'[vocab tp] fp32 detect_batch bs={BATCH} C={LVIS_C} over '
+          f'{mesh}: launches {launches}; scores vs unsharded max|diff| '
+          f'{err:.3e} (tol {VOCAB_TP_SCORE_ATOL:g}), id mismatches outside '
+          f'near-ties {bad} (near-tie anchors exempt {int(tie.sum())}); '
+          f'detections compared {n} of {tot}; call {ms:.1f} ms vs '
+          f'{ms1:.1f} ms unsharded (one card: the merge\'s cost, not '
+          f'scaling)  [{card}]')
+    require(err <= VOCAB_TP_SCORE_ATOL and bad == 0,
+            '[vocab tp] class-sharded scores differ')
+    require(launches['similarity'] == 2 * len(LEVELS) and
+            launches['nms'] == 1,
+            '[vocab tp] kernel 1 did not run once a shard and level')
+    del unf, one, two
+
+    # each shard's kernel-1 launch at the main path's shapes, a block with
+    # no valid class, and the merge through two threads
+    g = torch.Generator(device='cuda').manual_seed(8)
+    h, t, K, b = _sim_inputs(g, LEVELS[0], LVIS_C, torch.float32)
+    blocks = [col.class_block(LVIS_C, 2, m) for m in range(2)]
+    k1_err = 0.0
+    for m, (off, size) in enumerate(blocks):
+        k1_err = max(k1_err, _k1_check(
+            sim, h, t[:, off:off + size], K, b, None,
+            f'shard {m} (C={size}, B={BATCH}, A={LEVELS[0]})'))
+    _k1_check(sim, h, t[:, blocks[1][0]:], K, b, 0, 'shard 1 forced')
+    merged = _on_shards(2, lambda r, grp: sim.sharded_projected_similarity_argmax(
+        h, t[:, blocks[r][0]:sum(blocks[r])], K, b,
+        col.ClassShard(*blocks[r], LVIS_C, grp), num_valid=1000))
+    ps, pi = sim.similarity_argmax_plain(h, t, K, b, 1000)
+    for s, i in merged:
+        # rows 7 and 700 copy row 3 (700 in shard 1): ties go to class 3
+        require((s - ps).abs().max().item() <= SIM_ATOL
+                and bool((i < 1000).all())
+                and not bool(((i == 7) | (i == 700)).any()),
+                '[vocab tp] merged kernel 1 over shards (num_valid 1000)')
+    del h, t
+
+    # kernel 3 over the class shards of the unfolded graph (C = 1203)
+    obj, t = _obj_inputs(g, ANCHORS, LVIS_C, torch.float32, True)
+    k3_err = 0.0
+    for m, (off, size) in enumerate(blocks):
+        k3_err = max(k3_err, _k3_check(sim, obj, t[:, off:off + size], None,
+                                       f'shard {m} (C={size})'))
+    _k3_check(sim, obj, t[:, blocks[1][0]:], 0, 'shard 1 forced')
+    _zero_counts(sim, nms)
+    merged = _on_shards(2, lambda r, grp: sim.sharded_similarity_argmax(
+        obj, t[:, blocks[r][0]:sum(blocks[r])],
+        col.ClassShard(*blocks[r], LVIS_C, grp), normalize_obj=True))
+    torch.cuda.synchronize()
+    k3_launches = sim.unprojected_launches
+    ps, pi = sim.similarity_argmax_reference_plain(obj, t,
+                                                   normalize_obj=True)
+    tie = _near_ties(torch.matmul(obj.float(), t.transpose(1, 2)),
+                     obj.norm(dim=-1).clamp_min(1e-12))
+    for s, i in merged:
+        require((s - ps).abs().max().item() <= SIM_ATOL
+                and ((i != pi) & ~tie).sum().item() == 0
+                and not bool(((i == 7) | (i == 700)).any()),
+                '[vocab tp] merged kernel 3 over shards')
+    print(f'[vocab tp] kernel 3 over 2 class shards (C={LVIS_C}, A='
+          f'{ANCHORS}): {k3_launches} launches, merged vs plain within '
+          f'{SIM_ATOL:g}; a block with num_valid 0 gives NEG and id 0')
+    launches['similarity_unprojected'] += k3_launches
+    del obj, t
+
+    # the int8 batch over the same mesh
+    det.quantize_int8(frames[:INT8_CALIB])
+    run = make_sharded_inference(det.model, mesh)
+    det._batch_model = lambda x, tt, **kw: run(x, tt, **kw)[0]
+    torch.cuda.synchronize()
+    _zero_int8(sim, nms, i8)
+    with _Int8Recorder() as rec:
+        det.detect_batch(frames)
+        torch.cuda.synchronize()
+        l8 = _int8_counts_all(sim, nms, i8)
+    rec.check(i8, '[vocab tp] int8 over the 1x2 mesh:')
+    print(f'[vocab tp] int8 fp32 detect_batch over the mesh: launches {l8}')
+    err = _int8_forced('[vocab tp]', det.model, det._batch_model, canv,
+                       text, False, card)
+    require(err <= VOCAB_TP_SCORE_ATOL, '[vocab tp] int8 forced scores')
+    require(l8['int8_conv'] == 2 * INT8_BLOCKS
+            and l8['similarity'] == 2 * len(LEVELS),
+            '[vocab tp] int8: a kernel did not run on both shards')
+    for k, v in l8.items():
+        launches[k] = launches.get(k, 0) + v
+    del det, run
+    return launches, k1_err, k3_err
+
+
+def _timed_detect(det, frame):
+    """Median ms of det.detect(frame) over SPATIAL_TIMED calls (after one
+    warm-up) and the last call's detections."""
+    det.detect(frame)
+    times = []
+    for _ in range(SPATIAL_TIMED):
+        t0 = time.perf_counter()
+        out = det.detect(frame)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _canvas_scores(det, frame, split):
+    """Pre-NMS scores of the canvas program on one frame, unsplit or
+    through the detector's split."""
+    canvas, _ = det._host_letterbox(frame)
+    x = torch.from_numpy(canvas)[None].cuda().float() / 255.0
+    with torch.inference_mode():
+        fwd = det._canvas_model if split else det.model
+        return fwd(x, det.offline_vocabulary, fused_scores=True)['scores']
+
+
+def phase_spatial(sim, nms, i8, vocab_path, frames, card):
+    """[spatial]: one 640-px frame through detect() split 2 and 4 ways
+    over in-process meshes of cuda:0, and detect_batch at bs=32 on a 2x2
+    grid (batch over 'data' x height over 'model'), fp32 and int8, against
+    the unsplit programs (JAX's spatial bounds); the 1-, 2- and 4-way
+    latencies. Returns the launches of the split runs."""
+    from yoloclip_tpu_torch.ops.preprocess import letterbox_batch_for
+    from yoloclip_tpu_torch.parallel.mesh import create_mesh
+    from yoloclip_tpu_torch.parallel.spatial import spatialize_detector
+    det = _detector(vocab_path, host_preprocess='auto', conf_threshold=-1.0)
+    frame = frames[0].cpu().numpy()
+    topk = det.config.nms_topk
+    ms1, base = _timed_detect(det, frame)
+    s1 = _canvas_scores(det, frame, False)
+    launches, lat = {}, {1: ms1}
+    for ways, shape in ((2, (1, 2)), (4, (2, 2))):
+        mesh = create_mesh(*shape, devices=['cuda:0'] * ways)
+        spatialize_detector(det, mesh)
+        torch.cuda.synchronize()
+        _zero_counts(sim, nms)
+        got = det.detect(frame)
+        torch.cuda.synchronize()
+        counted = _counts(sim, nms)
+        lat[ways], _ = _timed_detect(det, frame)
+        delta = (_canvas_scores(det, frame, True) - s1).abs().max().item()
+        n, tot = _check_detections(f'[spatial] {ways}-way detect', got, base,
+                                   s1[0].cpu(), delta, topk,
+                                   SPATIAL_SCORE_ATOL)
+        print(f'[spatial] detect() split {ways} ways over {mesh}: launches '
+              f'{counted}; pre-NMS scores max|diff| {delta:.3e}; '
+              f'detections compared {n} of {tot} (scores {SPATIAL_SCORE_ATOL:g}'
+              f', boxes {SPATIAL_BOX_PX:g} px)')
+        require(counted['similarity'] == ways * len(LEVELS)
+                and counted['nms'] == 1,
+                f'[spatial] {ways}-way: kernels 1 and 2 did not launch')
+        require(delta <= SPATIAL_SCORE_ATOL, f'[spatial] {ways}-way scores')
+        for k, v in counted.items():
+            launches[k] = launches.get(k, 0) + v
+    print(f'[spatial] detect() latency, one 640-px frame, median of '
+          f'{SPATIAL_TIMED}: 1-way {lat[1]:.2f} ms, 2-way {lat[2]:.2f} ms, '
+          f'4-way {lat[4]:.2f} ms (every shard on the one card: correctness '
+          f'and the halo exchange\'s cost, not scaling)  [{card}]')
+
+    mesh = create_mesh(2, 2, devices=['cuda:0'] * 4)
+    for tag in ('fp32', 'int8'):
+        if tag == 'int8':
+            det.quantize_int8(frames[:INT8_CALIB])
+        det._batch_model = None
+        with torch.inference_mode():
+            canv, _ = letterbox_batch_for(det.config.model)(frames,
+                                                            det.image_size)
+            s_one = det.model(canv, det.offline_vocabulary,
+                              fused_scores=True)['scores']
+        want = det.detect_batch(frames)
+        t0 = time.perf_counter()
+        det.detect_batch(frames)
+        torch.cuda.synchronize()
+        ms_one = (time.perf_counter() - t0) * 1e3
+        spatialize_detector(det, mesh, batch_axis='data',
+                            height_axis='model')
+        torch.cuda.synchronize()
+        _zero_int8(sim, nms, i8)
+        with _Int8Recorder() as rec:
+            t0 = time.perf_counter()
+            got = det.detect_batch(frames)
+            torch.cuda.synchronize()
+            ms_split = (time.perf_counter() - t0) * 1e3
+            counted = _int8_counts_all(sim, nms, i8)
+        if tag == 'int8':
+            rec.check(i8, '[spatial] int8 2x2 (halo-extended rows):')
+            require(counted['int8_conv'] == 4 * INT8_BLOCKS,
+                    '[spatial] int8: the kernel did not run on every shard')
+            print(f'[spatial] int8 fp32 detect_batch bs={BATCH} over {mesh} '
+                  f'(batch over data x height over model): launches '
+                  f'{counted}; {ms_split:.1f} ms vs {ms_one:.1f} ms unsplit'
+                  f'  [{card}]')
+            err = _int8_forced('[spatial] 2x2', det.model, det._batch_model,
+                               canv, det.offline_vocabulary, True, card)
+            require(err <= SPATIAL_SCORE_ATOL, '[spatial] int8 forced scores')
+        else:
+            with torch.inference_mode():
+                s_two = det._batch_model(canv, det.offline_vocabulary,
+                                         fused_scores=True)['scores']
+            delta, n, tot = _check_split(
+                '[spatial] fp32 2x2', got, want, s_two, s_one,
+                det.class_names, topk, SPATIAL_SCORE_ATOL)
+            print(f'[spatial] fp32 detect_batch bs={BATCH} over {mesh} '
+                  f'(batch over data x height over model): launches '
+                  f'{counted}; pre-NMS scores max|diff| {delta:.3e}; '
+                  f'detections compared {n} of {tot}; {ms_split:.1f} ms vs '
+                  f'{ms_one:.1f} ms unsplit  [{card}]')
+            require(delta <= SPATIAL_SCORE_ATOL, '[spatial] 2x2 scores')
+        require(counted['similarity'] == 4 * len(LEVELS)
+                and counted['nms'] == 1,
+                f'[spatial] {tag} 2x2: kernels 1 and 2 did not launch')
+        for k, v in counted.items():
+            launches[k] = launches.get(k, 0) + v
+    del det
+    return launches
+
+
+def _tp_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
+    """One rank of [tp train] on cuda:0 (gloo): a compat fp32 step at
+    DDP_BS over the 1x2 grid, its class block of the text; writes
+    out_dir/tp{rank}.pt."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from yoloclip_tpu_torch.parallel import multihost
+    from yoloclip_tpu_torch.parallel.mesh import create_mesh
+    from yoloclip_tpu_torch.parallel.train_step import (
+        make_sharded_train_step, place_batch, place_text)
+    from yoloclip_tpu_torch.train import train_state as ts
+    multihost.initialize(f'file://{rendezvous}', world, rank,
+                         device='cuda:0', backend='gloo',
+                         timeout_s=DDP_TIMEOUT_S)
+    mesh = create_mesh(n_data=1, n_model=world)
+    arrays, text, _ = _ddp_batch()
+    cfg = _train_cfg(assigner='compat', dtype='float32', batch_size=DDP_BS)
+    state = ts.create_train_state(_seeded_model(cfg), cfg, 'cuda:0')
+    ts.set_learning_rate(state, cfg.learning_rate)
+    step = make_sharded_train_step(cfg, mesh)(state)
+    local = place_batch(arrays, mesh)
+    t = place_text(text, mesh)
+    parts = {k: float(v) for k, v in step(state, local, t).items()}
+    res = {'parts': parts, 'block': tuple(t.shape), 'mesh': repr(mesh),
+           'identical': _params_equal_over_ranks(state.model, None)}
+    if rank == 0:
+        res['grads'] = {k: p.grad.detach().to('cpu', copy=True)
+                        for k, p in state.model.named_parameters()}
+        res['state'] = {k: v.detach().to('cpu', copy=True) for k, v in
+                        state.model.state_dict().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DDP_TIMED):
+        step(state, local, t)
+    torch.cuda.synchronize()
+    res['ms'] = (time.perf_counter() - t0) / DDP_TIMED * 1e3
+    torch.save(res, os.path.join(out_dir, f'tp{rank}.pt'))
+    multihost.shutdown()
+
+
+def phase_tp_train(tmp: str, card: str) -> None:
+    """[tp train]: two gloo ranks on cuda:0 as a 1x2 (data x model) grid
+    take one compat fp32 class-sharded step at 640 px, bs=16, held against
+    the 1-process step with [ddp]'s bounds."""
+    import torch.multiprocessing as mp
+    out_dir = os.path.join(tmp, 'tp')
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_tp_rank, args=(2, os.path.join(out_dir, 'rdv'),
+                                             out_dir),
+                             nprocs=2, join=False, start_method='spawn')
+    deadline = time.perf_counter() + DDP_TIMEOUT_S + 120
+    try:
+        while not ctx.join(timeout=5):
+            require(time.perf_counter() < deadline,
+                    '[tp train] ranks did not finish in time')
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    r0, r1 = [torch.load(os.path.join(out_dir, f'tp{r}.pt'),
+                         weights_only=False) for r in range(2)]
+    print(f'[tp train] two gloo ranks on cuda:0 ({r0["mesh"]}), text blocks '
+          f'{r0["block"]} / {r1["block"]}, ran in '
+          f'{time.perf_counter() - t0:.1f} s with their start-up')
+    require(r0['parts'] == r1['parts'], '[tp train] the ranks report other '
+            'losses')
+    r0['identical'] &= r1['identical']
+    _compare_step('compat fp32', 'compat', 'float32', r0,
+                  _single_card_step('compat fp32', 'compat', 'float32'),
+                  card, label='[tp train] class-sharded 1x2,')
+
+
+def phase_multihost(tmp: str, card: str) -> None:
+    """[multihost 4x2]: the port's self-test in MULTIHOST_PROCS processes
+    on the one card (gloo) as a 4x2 grid, classes split 2-way, each
+    process's loss against the self-test in one process."""
+    rdv = os.path.join(tmp, 'mh_rdv')
+    env = dict(os.environ, OMP_NUM_THREADS='1',
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    base = [sys.executable, '-m', 'yoloclip_tpu_torch.parallel.multihost',
+            '--selftest', '--device', 'cuda']
+    cmds = [base + ['--num-processes', str(MULTIHOST_PROCS), '--process-id',
+                    str(i), '--model', str(MULTIHOST_MODEL), '--coordinator',
+                    f'file://{rdv}'] for i in range(MULTIHOST_PROCS)]
+    cmds.append(base)   # one process: the reference
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              cwd=env['PYTHONPATH']) for c in cmds]
+    try:
+        logs = [p.communicate(timeout=DDP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    secs = time.perf_counter() - t0
+    losses = []
+    for p, log in zip(procs, logs):
+        line = [x for x in log.splitlines()
+                if x.startswith('MULTIHOST_SELFTEST')]
+        require(p.returncode == 0 and line,
+                f'[multihost] a process failed:\n{log[-3000:]}')
+        losses.append(float(line[-1].split('loss=')[1]))
+    ref = losses.pop()
+    worst = max(abs(v - ref) / abs(ref) for v in losses)
+    print(f'[multihost 4x2] self-test: {MULTIHOST_PROCS} processes on cuda:0 '
+          f'(gloo) as a {MULTIHOST_PROCS // MULTIHOST_MODEL}x'
+          f'{MULTIHOST_MODEL} grid, losses {sorted(set(losses))} against '
+          f'{ref} in one process (max rel {worst:.2e}, tol '
+          f'{MULTIHOST_RTOL:g}); {secs:.1f} s with start-up  [{card}]')
+    require(worst <= MULTIHOST_RTOL, '[multihost] a rank\'s loss differs')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this run '
@@ -2941,6 +3596,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    f32, b16 = torch.float32, torch.bfloat16
 
     card = phase_device()
     phase_build(_build)
@@ -2975,10 +3631,30 @@ def main() -> int:
         paths.append(phases_training(sim, nms, tmp, card))
         paths.append(phase_ddp(sim, nms, tmp, card))
         paths += phase_dp_serve(sim, nms, i8, vocab_path, tmp, card)
+        # the 'model' axis: class parallelism and spatial partitioning
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        vtp, vk1, vk3 = phase_vocab_tp(sim, nms, i8, lvis_vocab, frames, tmp,
+                                       card)
+        k1_err[f32] = max(k1_err[f32], vk1)
+        k3_err[f32] = max(k3_err[f32], vk3)
+        t1 = time.perf_counter()
+        paths += [vtp, phase_spatial(sim, nms, i8, vocab_path, frames, card)]
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        phase_tp_train(tmp, card)
+        t3 = time.perf_counter()
+        phase_multihost(tmp, card)
+        t4 = time.perf_counter()
+        print(f'[model axis] phase seconds: [vocab tp] {t1 - t0:.1f}, '
+              f'[spatial] {t2 - t1:.1f}, [tp train] {t3 - t2:.1f}, '
+              f'[multihost 4x2] {t4 - t3:.1f}  [{card}]')
     # every path's launches, each counted from 0 just before it ran
     launched = {k: sum(p.get(k, 0) for p in paths)
                 for k in ('similarity', 'similarity_bf16', 'nms',
-                          'int8_conv', 'int8_conv_bf16')}
+                          'int8_conv', 'int8_conv_bf16',
+                          'similarity_unprojected',
+                          'similarity_unprojected_bf16')}
 
     require(not any(m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                         'yoloclip_tpu')
@@ -2991,7 +3667,6 @@ def main() -> int:
                 'ms': ms, 'plain_ms': plain, 'bound_ms': bms,
                 'bound_by': bby, 'library_ms': lib[0] if lib else None}
 
-    f32, b16 = torch.float32, torch.bfloat16
     sim_src = 'yoloclip_tpu_torch/csrc/similarity.cu'
     k1, k3 = ('yoloclip_tpu/ops/pallas/similarity.py:240',
               'yoloclip_tpu/ops/pallas/similarity.py:110')
@@ -3007,10 +3682,10 @@ def main() -> int:
               launched['nms'], nms_err),
         entry('fused_similarity_argmax[float32]', sim_src, k3,
               res[('unprojected', f32)],
-              prompt_launches['similarity_unprojected'], k3_err[f32]),
+              launched['similarity_unprojected'], k3_err[f32]),
         entry('fused_similarity_argmax[bfloat16]', sim_src, k3,
               res[('unprojected', b16)],
-              prompt_launches['similarity_unprojected_bf16'], k3_err[b16]),
+              launched['similarity_unprojected_bf16'], k3_err[b16]),
     ]
     for dt in (f32, b16):
         kernels.append(entry(

@@ -8,7 +8,9 @@ and close it, run one `StreamingDetector.step`, quantize the detector to
 the int8 deploy graph (`quantize_int8`) and run a `detect_batch`, take
 one training step and one `evaluate` (with NMS) through YOLOCLIPTrainer on
 a synthetic batch, serve and stream over a mesh of two CPU replicas
-(`parallel/`), time a stage and trace a `detect_batch` (`utils/profiling.py`,
+(`parallel/`), run the classes split over a 1x2 mesh and a frame's height
+split 2-way (`parallel/spatial.py`, the detector and the server), time a
+stage and trace a `detect_batch` (`utils/profiling.py`,
 `utils/general.py`), then check that neither
 jax, jaxlib, flax nor any module of the JAX package (`yoloclip_tpu`) was
 imported.
@@ -109,6 +111,20 @@ finally:
 sd = StreamingDetector(det.model, det.offline_vocabulary, 2, (48, 64), cfg,
                        device='cpu', mesh=mesh)
 assert sd.step(np.zeros((2, 48, 64, 3), np.uint8))['boxes'].shape[0] == 2
+from yoloclip_tpu_torch.parallel.spatial import spatialize_detector
+from yoloclip_tpu_torch.parallel.train_step import make_sharded_inference
+mesh2 = create_mesh(n_data=1, n_model=2, devices=['cpu', 'cpu'])
+(o,) = make_sharded_inference(det.model, mesh2)(
+    torch.zeros((1, 64, 64, 3)), det.offline_vocabulary)
+assert o['class_ids'].shape == (1, 84)
+srv = DetectionServer(det, max_batch=1, max_delay_ms=1.0, mesh=mesh2,
+                      spatial=True)
+try:
+    assert srv.detect(np.zeros((30, 50, 3), np.uint8), timeout=120)
+finally:
+    srv.close()
+spatialize_detector(det, mesh2)
+assert det.detect(np.zeros((30, 50, 3), np.uint8))
 st = StageTimer()
 with Timer() as t, trace(os.path.join(sys.argv[1], 'trace')):
     with st.stage('detect_batch'):

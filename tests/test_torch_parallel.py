@@ -31,7 +31,8 @@ references run here meanwhile.
     whose local minima differ (the JAX package's loss over the whole batch
     is the reference).
   * The mesh helpers: `process_local_indices`, `Subset`,
-    `local_batch_size`, `batch_sharding`, and the 'model' axis refused.
+    `local_batch_size`, `batch_sharding`, and the grid's layout with a
+    'model' axis.
 
 Every spawned rank uses one thread, a `file://` rendezvous in tmp_path, a
 60 s collective timeout, and a join timeout here, so a hung collective
@@ -510,8 +511,19 @@ def test_batch_sharding_lays_out_micro_batches():
 
 
 def test_model_axis_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*'model' axis"):
-        pmesh.create_mesh(n_data=1, n_model=2, devices=['cpu', 'cpu'])
+    """The 'model' axis is ported (tests/test_torch_tp.py): an in-process
+    mesh lays its grid out row-major, as JAX's reshape(n_data, n_model),
+    and its data axis is the grid's first column."""
+    mesh = pmesh.create_mesh(n_data=2, n_model=2,
+                             devices=[f'cpu:{i}' for i in range(4)])
+    assert mesh.shape == {'data': 2, 'model': 2}
+    assert [[d.index for d in row] for row in mesh.devices] == [[0, 1],
+                                                                 [2, 3]]
+    assert [d.index for d in mesh.local_devices] == [0, 2]
+    assert pmesh.create_mesh(n_model=2, devices=['cpu'] * 4).shape == {
+        'data': 2, 'model': 2}
+    with pytest.raises(ValueError, match='need 2x3 devices'):
+        pmesh.create_mesh(n_data=2, n_model=3, devices=['cpu'] * 4)
 
 def test_trainer_mesh_needs_one_process_a_device(tmp_path):
     cfg = _cfg(output_dir=str(tmp_path))

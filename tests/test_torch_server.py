@@ -233,15 +233,16 @@ def test_server_close_semantics(detector):
 
 
 def test_server_multi_device_not_ported(detector):
-    """The data axis is ported (below); the 'model' axis is not: spatial=
-    and a mesh with a model axis raise, naming their ROADMAP item."""
+    """Both axes are ported: spatial=True needs a mesh (ValueError naming
+    it, as the JAX server raises); a 2x2 mesh is laid out row-major and,
+    without spatial=, serves one replica a data row."""
     from yoloclip_tpu_torch.parallel.mesh import create_mesh
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*multi-device.*'model' axis"):
+    with pytest.raises(ValueError, match='spatial'):
         DetectionServer(detector, max_batch=4, spatial=True)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*multi-device.*'model' axis"):
-        create_mesh(n_data=2, n_model=2, devices=['cpu'] * 4)
+    mesh = create_mesh(n_data=2, n_model=2, devices=['cpu'] * 4)
+    assert mesh.shape == {'data': 2, 'model': 2}
+    with DetectionServer(detector, max_batch=4, mesh=mesh) as srv:
+        assert len(srv._replicas) == 2 and srv._buckets == [2, 4]
 
 
 def test_server_mesh_matches_single_device(detector, server):
@@ -379,16 +380,27 @@ def _serve_args(**kw):
     ({'int8': True}, 'int8 deploy'), ({'stem_u8_s2d': True}, 'int8 deploy'),
     ({'devices': '4'}, 'multi-device'), ({'spatial': 2}, 'multi-device')])
 def test_build_server_unported_flags(kw, item, tower):
-    """Flags once refused. --spatial still is, naming the 'model'-axis
-    item. --devices 4 (with --device cpu: four CPU replicas) now serves
-    data-parallel, as the JAX CLI does. The int8 deploy flags build as in
-    the JAX CLI: --int8 without --calib-dir exits with its message, and
-    --stem-u8-s2d serves the uint8 space-to-depth canvas path."""
+    """Flags once refused. --spatial 2 is checked as the JAX CLI checks it
+    (it needs --devices, and must divide their count) and, with --devices
+    4, serves a 2x2 mesh, each frame's height split 2-way. --devices 4
+    (with --device cpu: four CPU replicas) serves data-parallel, as the
+    JAX CLI does. The int8 deploy flags build as in the JAX CLI: --int8
+    without --calib-dir exits with its message, and --stem-u8-s2d serves
+    the uint8 space-to-depth canvas path."""
     from yoloclip_tpu_torch.cli.serve import build_server
     if 'spatial' in kw:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.*{item}.*'model' axis"):
+        with pytest.raises(SystemExit, match='--spatial needs --devices'):
             build_server(_serve_args(**kw))
+        with pytest.raises(SystemExit, match='must divide'):
+            build_server(_serve_args(devices='3', **kw))
+        srv, det = build_server(_serve_args(text_checkpoint=tower,
+                                            devices='4', **kw))
+        try:
+            assert srv.mesh.shape == {'data': 2, 'model': 2} and srv.spatial
+            dets = srv.detect(_img(3, 90, 140), timeout=120)
+            assert dets and all(np.isfinite(d['score']) for d in dets)
+        finally:
+            srv.close()
     elif 'devices' in kw:
         srv, det = build_server(_serve_args(text_checkpoint=tower, **kw))
         try:

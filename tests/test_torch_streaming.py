@@ -100,11 +100,22 @@ def test_run_pipelined_in_order(setup):
 
 
 def test_mesh_not_ported(setup):
-    """The 'model' axis is not ported (the data axis is: below)."""
+    """A mesh with a 'model' axis: streams split over its data axis only
+    (the JAX streaming detector shards frames over 'data'), so a 1x2 mesh
+    runs one replica and gives the detector's detections."""
     from yoloclip_tpu_torch.parallel.mesh import create_mesh
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*multi-device.*'model' axis"):
-        create_mesh(n_data=1, n_model=2, devices=['cpu'] * 2)
+    _, cfg, _, model, text = setup
+    mesh = create_mesh(n_data=1, n_model=2, devices=['cpu'] * 2)
+    assert mesh.shape == {'data': 1, 'model': 2}
+    f = frames(8, n=2)
+    want = StreamingDetector(model, text, 2, HW, cfg, device='cpu').step(f)
+    sd = StreamingDetector(model, text, 2, HW, cfg, device='cpu', mesh=mesh)
+    assert len(sd._replicas) == 1
+    got = sd.step(f)
+    for k in ('count', 'valid', 'class_ids'):
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), k)
+    np.testing.assert_allclose(got['scores'].numpy(), want['scores'].numpy(),
+                               rtol=0, atol=1e-5)
 
 
 def test_step_over_mesh_matches_single_device(setup):

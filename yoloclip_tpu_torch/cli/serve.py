@@ -36,8 +36,15 @@ the model a device, each batch split over them (`inference/server.py`,
 `mesh=`); N takes cuda:0..N-1 (with --device cpu, N replicas on the CPU),
 'auto' every card, and a comma-separated list names the devices, which
 may repeat (cuda:0,cuda:0: two replicas on one card). It composes with
---int8 and bf16. Not ported, and refused with NotImplementedError:
---spatial above 1 (queue A: the 'model' axis) and an orbax checkpoint
+--int8 and bf16. --spatial M (with --devices) additionally splits each
+frame's height M-way: the devices form an (N/M, M) ('data', 'model') mesh,
+batches over N/M, each row's frames over its M devices
+(`parallel/spatial.py`); M must divide N:
+
+    python -m yoloclip_tpu_torch.cli.serve --devices cuda:0,cuda:0 \
+        --spatial 2 --port 8000
+
+Not ported, and refused with NotImplementedError: an orbax checkpoint
 directory as --model (queue A: orbax checkpoints).
 """
 
@@ -144,18 +151,23 @@ def make_handler(server):
 
 def build_server(args):
     """args -> (DetectionServer, detector). Split out for tests."""
-    if int(getattr(args, 'spatial', 1) or 1) > 1:
-        from yoloclip_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM
-        raise NotImplementedError(
-            f'--spatial (frame height over a model axis) is not ported '
-            f'({MODEL_AXIS_ITEM})')
     mesh = None
+    spatial = max(int(getattr(args, 'spatial', 1) or 1), 1)
     if args.devices:
         from yoloclip_tpu_torch.parallel.mesh import create_mesh
         devices = serve_devices(args.devices, args.device)
-        if len(devices) > 1:
-            mesh = create_mesh(n_data=len(devices), devices=devices)
-            logger.info('serving over %s', mesh)
+        n = len(devices)
+        if n % spatial:
+            raise SystemExit(f'--spatial {spatial} must divide the device '
+                             f'count ({n})')
+        if n > 1:
+            mesh = create_mesh(n_data=n // spatial, n_model=spatial,
+                               devices=devices)
+            logger.info('serving over %s%s', mesh,
+                        (' (height axis spatially partitioned '
+                         f'{spatial}-way)') if spatial > 1 else '')
+    elif spatial > 1:
+        raise SystemExit('--spatial needs --devices')
     from yoloclip_tpu_torch.config import (COCO_CLASS_NAMES, InferenceConfig,
                                            ModelConfig)
     from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
@@ -193,6 +205,7 @@ def build_server(args):
         logger.info('int8 deploy path calibrated on %d images', len(paths))
     return DetectionServer(detector, max_batch=args.max_batch,
                            max_delay_ms=args.max_delay_ms, mesh=mesh,
+                           spatial=spatial > 1,
                            bucket_batches=not args.no_bucket), detector
 
 
@@ -255,8 +268,10 @@ def parse_args(argv=None):
                          "card), or over a comma-separated device list; "
                          'one model replica each')
     ap.add_argument('--spatial', type=int, default=1, metavar='M',
-                    help="split each frame's height M-way (not ported: "
-                         "the 'model' axis)")
+                    help="additionally split each frame's HEIGHT M-way "
+                         'over the devices (halo rows exchanged between '
+                         'them); M must divide --devices; batches then '
+                         'split over devices/M')
     ap.add_argument('--host', default='127.0.0.1')
     ap.add_argument('--port', type=int, default=8000)
     return ap.parse_args(argv)

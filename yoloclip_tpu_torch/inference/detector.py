@@ -25,6 +25,11 @@ from; under `ModelConfig.stem_u8_s2d` every path feeds the model the uint8
 space-to-depth canvas. In bf16 only the convs, linears and attention are
 cast (`models/yolo_clip.py::cast_compute_dtype`): BatchNorm and the obj_2
 projection stay fp32, as in the JAX package.
+
+`parallel/spatial.py::spatialize_detector` re-routes the canvas program
+(`_canvas_model`) and `detect_batch` (`_batch_model`) through a height
+split over a mesh, as the JAX package rebuilds its canvas and batch
+programs; the device-letterbox path stays on the detector's own model.
 """
 
 from __future__ import annotations
@@ -152,6 +157,11 @@ class YOLOCLIPDetector:
         # from these, never from the compute-dtype model
         self._float_state = float_state(model)
         self.model = cast_compute_dtype(model.to(self.device), dtype)
+        # the forwards of the canvas program and of detect_batch: None is
+        # self.model, spatialize_detector sets partitioned ones
+        self._canvas_model = None
+        self._batch_model = None
+        self.spatial_mesh = None
         self.quantized = False
         self.text_encoder = CLIPTextEncoder(
             cfg.model.clip_model, cfg.model.embed_dim,
@@ -204,6 +214,9 @@ class YOLOCLIPDetector:
             text = (text / text.norm(dim=-1, keepdim=True)).to(self.device)
         self.model = quantize_model(self.model, self._float_state,
                                     [(canvases, text)], calibration)
+        # the programs run the new model unpartitioned, as the JAX
+        # detector rebuilds its programs here
+        self._canvas_model = self._batch_model = self.spatial_mesh = None
         # keep config.model in step, so callers passing self.config on
         # (the stream CLI) see the int8 graph
         self.config = dataclasses.replace(
@@ -278,7 +291,7 @@ class YOLOCLIPDetector:
             x = space_to_depth2(canvases)
         else:
             x = canvases.float() / 255.0
-        out = (model or self.model)(
+        out = (model or self._canvas_model or self.model)(
             x, text, fused_scores=self._use_fused_similarity())
         boxes = out['boxes'] / scales[:, None, None]
         hi = torch.cat([orig_whs, orig_whs], dim=-1)[:, None, :]
@@ -347,8 +360,8 @@ class YOLOCLIPDetector:
         h, w = images.shape[1], images.shape[2]
         canvases, scale = letterbox_batch_for(self.config.model)(
             images, self.image_size)
-        out = self.model(canvases, text,
-                         fused_scores=self._use_fused_similarity())
+        out = (self._batch_model or self.model)(
+            canvases, text, fused_scores=self._use_fused_similarity())
         boxes = rescale_boxes(out['boxes'], scale, (h, w))
         return batched_nms(boxes, out['scores'], out['class_ids'],
                            **self._nms_args())

@@ -39,8 +39,12 @@ detection-dict list (the schema of `YOLOCLIPDetector.detect`).
     over the replicas (the buckets start at the axis size; max_batch must
     divide by it); every replica's upload and canvas program is launched
     before any result is waited for, and the results merge in request
-    order. `spatial=True` (image height over a 'model' axis) is not
-    ported: NotImplementedError names its ROADMAP item.
+    order. With a 'model' axis and no spatial split, its devices idle (the
+    vocabulary is not split: the JAX server replicates it too).
+    `spatial=True` additionally splits each frame's HEIGHT over the
+    'model' axis (`parallel/spatial.py`: batch over 'data' x height over
+    'model'): a data row's replica is its cells' height split, one thread
+    a cell.
 """
 
 from __future__ import annotations
@@ -90,11 +94,6 @@ class DetectionServer:
                  queue_capacity: int = 1024,
                  mesh=None, spatial: bool = False,
                  bucket_batches: bool = True):
-        if spatial:
-            from yoloclip_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM
-            raise NotImplementedError(
-                f'spatial=True (frame height over a model axis) is not '
-                f'ported ({MODEL_AXIS_ITEM})')
         if detector.offline_vocabulary is None:
             raise ValueError(
                 'DetectionServer needs a detector with an offline '
@@ -110,11 +109,24 @@ class DetectionServer:
             raise ValueError('the server drives every replica from one '
                              'process: build its mesh before (or without) '
                              'torch.distributed')
+        if spatial and mesh is None:
+            raise ValueError('spatial=True needs a mesh with a "model" '
+                             'axis to shard image height over')
         self.mesh = mesh
+        self.spatial = bool(spatial)
         self.detector = detector
         self.device = detector.device
         if mesh is None:
             self._replicas = [(detector.model, detector.device)]
+        elif spatial:
+            from yoloclip_tpu_torch.parallel.spatial import (
+                canvas_sharding, replicate_variables)
+            layout = canvas_sharding(mesh, batch_axis='data',
+                                     height_axis='model')
+            models = replicate_variables(detector.model, mesh)
+            self._replicas = [(layout.forward(models, batch_index=d),
+                               mesh.devices[d, 0])
+                              for d in range(mesh.shape['data'])]
         else:
             from yoloclip_tpu_torch.parallel.train_step import (
                 replicate_model)

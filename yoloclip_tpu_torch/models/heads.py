@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yoloclip_tpu_torch.models.layers import ConvBlock
+from yoloclip_tpu_torch.models.layers import ConvBlock, at_least_fp32
 
 
 class Proj1x1(nn.Conv2d):
@@ -85,10 +85,10 @@ def compute_similarity(obj: torch.Tensor, text: torch.Tensor,
     also under a bf16 autocast (the bf16 train step)."""
     B, E = obj.shape[:2]
     with torch.autocast(obj.device.type, enabled=False):
-        o = obj.permute(0, 2, 3, 1).reshape(B, -1, E).float()
+        o = at_least_fp32(obj.permute(0, 2, 3, 1).reshape(B, -1, E))
         o = o / torch.linalg.vector_norm(o, dim=-1,
                                          keepdim=True).clamp_min(1e-12)
-        t = text.float()
+        t = at_least_fp32(text)
         t = t / torch.linalg.vector_norm(t, dim=-1,
                                          keepdim=True).clamp_min(1e-12)
         sim = torch.matmul(o, t.transpose(1, 2))
@@ -114,7 +114,8 @@ def dfl_expectation(pred: torch.Tensor, reg_max: int) -> torch.Tensor:
     Channel 17*coord + bin, as in the JAX NHWC layout."""
     B, C, H, W = pred.shape
     nbins = reg_max + 1
-    p = torch.softmax(pred.float().reshape(B, 4, nbins, H, W), dim=2)
+    p = torch.softmax(at_least_fp32(pred).reshape(B, 4, nbins, H, W),
+                      dim=2)
     bins = torch.arange(nbins, dtype=torch.float32, device=pred.device)
     return (p * bins[:, None, None]).sum(dim=2)
 

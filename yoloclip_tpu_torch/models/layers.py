@@ -12,6 +12,9 @@ deploy graph (`quant='int8'`, `ops/quantize.py`), the BN-folded float conv
 (`ops/kernels/int8_conv.py`). The JAX package's int8-stored `QT` edges are
 not ported: they are off at its default threshold. BatchNorm trains by
 flax's rule (`BatchNorm2d`), over the global batch under data parallelism.
+Under a height partition (`parallel/spatial.py`) every ConvBlock and
+SPPF pool runs through `spatial.halo`: the unchanged op on its rows
+extended by the neighbours' edge rows, cropped.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yoloclip_tpu_torch.ops.kernels.int8_conv import int8_conv
+from yoloclip_tpu_torch.parallel import spatial
 from yoloclip_tpu_torch.parallel.collectives import all_gather_stack
 
 # W8A8 eligibility thresholds, copied from the JAX package (measured there
@@ -92,8 +96,9 @@ class _ConvKernel(nn.Module):
             torch.empty(cout, cin, kernel_size, kernel_size))
 
 
-def _stat_dtype(x: torch.Tensor) -> torch.Tensor:
-    """x in fp32, or float64 where it is (a float64 reference run)."""
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, or float64 where it is (a float64 reference run: the
+    fp32 islands of the model and the losses stay float64 there)."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
@@ -125,7 +130,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         if self.group is not None:
             return self._synced(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(_stat_dtype(x), dim=(0, 2, 3),
+            var, mean = torch.var_mean(at_least_fp32(x), dim=(0, 2, 3),
                                        correction=0)
             self._update(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
@@ -137,7 +142,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.running_var.mul_(1.0 - m).add_(var, alpha=m)
 
     def _synced(self, x: torch.Tensor) -> torch.Tensor:
-        xf = _stat_dtype(x)
+        xf = at_least_fp32(x)
         n = xf.numel() // xf.shape[1]
         var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
         local = torch.stack([torch.full_like(mean, float(n)), mean,
@@ -181,7 +186,7 @@ class ConvBlock(nn.Module):
             raise ValueError(
                 's2d/s2d_pre require kernel_size=3, stride=2 (got k=%d, '
                 's=%d)' % (kernel_size, stride))
-        self.stride, self.pad = stride, kernel_size // 2
+        self.k, self.stride, self.pad = kernel_size, stride, kernel_size // 2
         self.s2d, self.s2d_pre = s2d, s2d_pre
         if quant == 'none':
             self.mode = 'float'
@@ -223,6 +228,12 @@ class ConvBlock(nn.Module):
         return F.conv2d(x, w2, bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # rows of the op (kernel, stride, padding above): s2d_pre's input
+        # rows are space-to-depth rows, a 2x2 conv padded one row above
+        rows = (2, 1, 1) if self.s2d_pre else (self.k, self.stride, self.pad)
+        return spatial.halo(self._forward, x, *rows)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == 'int8':
             return int8_conv(x, self.wq, self.wscale, self.qbias,
                              self.act_scale, self.stride)
@@ -291,9 +302,11 @@ class SPPF(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.cv1(x)
         p = self.k // 2
-        y1 = F.max_pool2d(x, self.k, 1, p)
-        y2 = F.max_pool2d(y1, self.k, 1, p)
-        y3 = F.max_pool2d(y2, self.k, 1, p)
+        pool = functools.partial(F.max_pool2d, kernel_size=self.k, stride=1,
+                                 padding=p)
+        y1 = spatial.halo(pool, x, self.k, 1, p)
+        y2 = spatial.halo(pool, y1, self.k, 1, p)
+        y3 = spatial.halo(pool, y2, self.k, 1, p)
         return self.cv2(torch.cat([x, y1, y2, y3], dim=1))
 
 
@@ -328,7 +341,8 @@ class MultiHeadAttention(nn.Module):
         # fp32 scores from the compute-dtype operands (their products are
         # exact in fp32), as JAX's preferred_element_type=float32 einsum
         with torch.autocast(q.device.type, enabled=False):
-            scores = torch.matmul(q.float(), k.float().transpose(2, 3))
+            scores = torch.matmul(at_least_fp32(q),
+                                  at_least_fp32(k).transpose(2, 3))
         scores = scores / math.sqrt(hd)
         if attn_mask is not None:
             scores = scores + attn_mask.float()

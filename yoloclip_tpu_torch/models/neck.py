@@ -8,6 +8,12 @@
   * 3x3 FPN convs, then bottom-up PAN with stride-2 downsampling and a
     text-guided CSP layer at each level, with max-sigmoid text attention
     after every bottleneck.
+
+Over a class shard (`class_shard`, the 'model' axis) the text is the
+shard's block of classes: the max-sigmoid max over classes goes through
+`collectives.class_max`; I-Pool needs no collective (its queries are the
+classes, each attending on its own). Under a height partition
+(`parallel/spatial.py`) I-Pool's pooled tokens are the whole frame's.
 """
 
 from __future__ import annotations
@@ -20,7 +26,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from yoloclip_tpu_torch.models.layers import (ConvBlock, DarkBottleneck,
-                                              MultiHeadAttention)
+                                              MultiHeadAttention,
+                                              at_least_fp32)
+from yoloclip_tpu_torch.parallel import spatial
+from yoloclip_tpu_torch.parallel.collectives import ClassShard, class_max
 
 
 class TextGuidedCSPLayer(nn.Module):
@@ -36,9 +45,12 @@ class TextGuidedCSPLayer(nn.Module):
         self.text_proj = nn.Linear(text_dim, c_)
 
     def forward(self, x: torch.Tensor, text: torch.Tensor,
-                class_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                class_mask: Optional[torch.Tensor] = None,
+                class_shard: Optional[ClassShard] = None) -> torch.Tensor:
         """x (B, Cin, H, W); text (B, N, text_dim); class_mask (B, N) bool
-        or None: masked-out classes get -inf before the max."""
+        or None: masked-out classes get -inf before the max. class_shard:
+        text and mask are this shard's block of classes."""
+        group = class_shard.group if class_shard is not None else None
         y1 = self.cv1(x)
         proj = self.text_proj(text.to(self.text_proj.weight.dtype))
         for m in self.bottlenecks:
@@ -47,12 +59,12 @@ class TextGuidedCSPLayer(nn.Module):
             # fp32 scores from the compute-dtype operands, as JAX's
             # preferred_element_type=float32 einsum
             with torch.autocast(y1.device.type, enabled=False):
-                scores = torch.einsum('bchw,bnc->bnhw', y1.float(),
-                                      proj.float())
+                scores = torch.einsum('bchw,bnc->bnhw', at_least_fp32(y1),
+                                      at_least_fp32(proj))
             if class_mask is not None:
                 scores = scores.masked_fill(~class_mask[:, :, None, None],
                                             float('-inf'))
-            gate = torch.sigmoid(scores.amax(dim=1, keepdim=True))
+            gate = torch.sigmoid(class_max(scores, 1, group))
             y1 = y1 * gate.to(y1.dtype)
         return self.cv3(torch.cat([y1, self.cv2(x)], dim=1))
 
@@ -70,7 +82,7 @@ class ImagePoolingAttention(nn.Module):
         tokens = []
         for proj, fm in zip(self.projections, feature_maps):
             # AdaptiveMaxPool2d windows, as JAX's adaptive_max_pool_2d
-            pooled = F.adaptive_max_pool2d(fm, (3, 3))      # (B, C, 3, 3)
+            pooled = spatial.adaptive_max_pool3(fm)         # (B, C, 3, 3)
             B, C = pooled.shape[:2]
             # row-major (y, x) token order, as the NHWC reshape in JAX
             patch = pooled.permute(0, 2, 3, 1).reshape(B, 9, C)
@@ -104,7 +116,8 @@ class RepVLPAN(nn.Module):
 
     def forward(self, features: Sequence[torch.Tensor], text: torch.Tensor,
                 class_mask: Optional[torch.Tensor] = None,
-                skip_image_pool: bool = False
+                skip_image_pool: bool = False,
+                class_shard: Optional[ClassShard] = None
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """features (c3, c4, c5); text (B, N, text_dim); class_mask (B, N)
         bool or None -> ([n3, n4, n5], per-image text after I-Pool).
@@ -122,9 +135,10 @@ class RepVLPAN(nn.Module):
         p3 = lat[0] + self.up_channels[1](up(p4))
         fpn = [conv(p) for conv, p in zip(self.fpn_convs, (p3, p4, p5))]
 
-        n3 = self.text_csplayers[0](fpn[0], text, class_mask)
+        kw = dict(class_mask=class_mask, class_shard=class_shard)
+        n3 = self.text_csplayers[0](fpn[0], text, **kw)
         n4 = self.text_csplayers[1](fpn[1] + self.downsample_convs[0](n3),
-                                    text, class_mask)
+                                    text, **kw)
         n5 = self.text_csplayers[2](fpn[2] + self.downsample_convs[1](n4),
-                                    text, class_mask)
+                                    text, **kw)
         return [n3, n4, n5], text

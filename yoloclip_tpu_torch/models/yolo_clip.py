@@ -7,6 +7,15 @@ Text is an input, (C, E) or (B, C, E); the text tower is not part of the
 graph. Scores are raw cosine values (no sigmoid). `cfg.quant='int8'` builds
 the W8A8 deploy graph (`ops/quantize.py` makes its state dict);
 `cfg.stem_s2d` / `cfg.stem_u8_s2d` the space-to-depth stems.
+
+Two partitions of one forward, each running this forward once a shard:
+  * a class shard (`class_shard`, the mesh's 'model' axis): the text is
+    the shard's block of classes; the neck's class max and each level's
+    (score, id) are merged over the axis, the unfused similarity stays the
+    shard's (B, A, size) block;
+  * a height partition (`parallel/spatial.py`): the convs exchange halo
+    rows, and the heads' maps are gathered in global row order before the
+    anchor tail, which then runs on every shard alike.
 """
 
 from __future__ import annotations
@@ -22,10 +31,14 @@ from yoloclip_tpu_torch.models.backbone import YOLOv8Backbone
 from yoloclip_tpu_torch.models.heads import (BoxHead, TextContrastiveHead,
                                              decode_boxes, flatten_levels)
 from yoloclip_tpu_torch.models.heads import Proj1x1
-from yoloclip_tpu_torch.models.layers import MultiHeadAttention, _ConvKernel
+from yoloclip_tpu_torch.models.layers import (MultiHeadAttention, _ConvKernel,
+                                              at_least_fp32)
 from yoloclip_tpu_torch.models.neck import RepVLPAN
 from yoloclip_tpu_torch.ops.kernels.similarity import (
-    fused_projected_similarity_argmax)
+    NEG, fused_projected_similarity_argmax,
+    sharded_projected_similarity_argmax)
+from yoloclip_tpu_torch.parallel import spatial
+from yoloclip_tpu_torch.parallel.collectives import ClassShard, merge_argmax
 
 
 class YOLOCLIP(nn.Module):
@@ -52,7 +65,9 @@ class YOLOCLIP(nn.Module):
     def forward(self, images: torch.Tensor, text: torch.Tensor,
                 fused_scores: bool = False,
                 class_mask: Optional[torch.Tensor] = None,
-                skip_image_pool: bool = False) -> Dict[str, torch.Tensor]:
+                skip_image_pool: bool = False,
+                class_shard: Optional[ClassShard] = None
+                ) -> Dict[str, torch.Tensor]:
         """images (B, H, W, 3) float in [0, 1] (the JAX layout; permuted
         here to a channels_last NCHW view), or under cfg.stem_u8_s2d the
         (B, H/2, W/2, 12) uint8 space-to-depth canvas; text (C, E) or
@@ -66,7 +81,10 @@ class YOLOCLIP(nn.Module):
 
         class_mask: (C,) or (B, C) bool, or None; masked-out classes get
         -inf in every text-guided CSP layer's max and in the similarity.
-        skip_image_pool: the text skips I-Pool (`RepVLPAN.forward`)."""
+        skip_image_pool: the text skips I-Pool (`RepVLPAN.forward`).
+        class_shard: text (and class_mask) are this shard's block of the
+        classes; scores and class_ids come out global (ids over the whole
+        vocabulary), `similarity` and `text_embeddings` the block's."""
         cfg = self.cfg
         dt = self.box_head.box_convs[0][2].weight.dtype
         B = images.shape[0]
@@ -74,7 +92,7 @@ class YOLOCLIP(nn.Module):
             memory_format=torch.channels_last)
         if text.dim() == 2:
             text = text[None].expand(B, -1, -1)
-        text = text.float()
+        text = at_least_fp32(text)
         if class_mask is not None:
             class_mask = class_mask.to(device=text.device, dtype=torch.bool)
             if class_mask.dim() == 1:
@@ -84,7 +102,8 @@ class YOLOCLIP(nn.Module):
                      and cfg.cls_alpha > 0)
 
         feats = self.backbone(x)
-        pan, text = self.neck(feats, text, class_mask, skip_image_pool)
+        pan, text = self.neck(feats, text, class_mask, skip_image_pool,
+                              class_shard)
 
         out: Dict[str, torch.Tensor] = {}
         if use_fused:
@@ -93,15 +112,21 @@ class YOLOCLIP(nn.Module):
             fold_s, fold_ids = [], []
             for head, feat in zip(self.contrastive_heads, pan):
                 h, k, b = head(feat, return_hidden=True)
+                h = spatial.gather_rows(h)
                 # (B, hidden, H, W) channels_last -> (B, H*W, hidden) rows
                 hr = h.permute(0, 2, 3, 1).reshape(B, -1, h.shape[1])
-                s, ids = fused_projected_similarity_argmax(hr, txt_n, k, b)
+                if class_shard is None:
+                    s, ids = fused_projected_similarity_argmax(hr, txt_n, k,
+                                                               b)
+                else:
+                    s, ids = sharded_projected_similarity_argmax(
+                        hr, txt_n, k, b, class_shard)
                 fold_s.append(s)
                 fold_ids.append(ids)
             scores = cfg.cls_alpha * torch.cat(fold_s, dim=1) + cfg.cls_beta
             class_ids = torch.cat(fold_ids, dim=1)
         else:
-            objs = [head(feat) for head, feat in
+            objs = [spatial.gather_rows(head(feat)) for head, feat in
                     zip(self.contrastive_heads, pan)]
             sims = [head.compute_similarity(o, text)
                     for head, o in zip(self.contrastive_heads, objs)]
@@ -109,17 +134,26 @@ class YOLOCLIP(nn.Module):
             if class_mask is not None:
                 similarity = similarity.masked_fill(~class_mask[:, None, :],
                                                     float('-inf'))
-            scores, class_ids = similarity.max(dim=-1)
+            if similarity.shape[-1]:
+                scores, class_ids = similarity.max(dim=-1)
+            else:   # an empty class block
+                scores = similarity.new_full(similarity.shape[:-1], NEG)
+                class_ids = torch.zeros(similarity.shape[:-1],
+                                        dtype=torch.int64,
+                                        device=similarity.device)
+            if class_shard is not None:
+                scores, class_ids = merge_argmax(
+                    scores, class_ids, class_shard.offset, class_shard.group)
             class_ids = class_ids.to(torch.int32)
             out['similarity'] = similarity
-            out['obj_embeddings'] = flatten_levels(objs).float()
+            out['obj_embeddings'] = at_least_fp32(flatten_levels(objs))
 
-        box_preds = self.box_head(pan)
+        box_preds = [spatial.gather_rows(p) for p in self.box_head(pan)]
         out.update({
             'boxes': decode_boxes(box_preds, cfg.strides, cfg.reg_max),
             'scores': scores,
             'class_ids': class_ids,
-            'text_embeddings': text.float(),
+            'text_embeddings': text,
             'box_preds': [p.permute(0, 2, 3, 1) for p in box_preds],
         })
         return out

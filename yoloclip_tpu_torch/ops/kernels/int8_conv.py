@@ -33,6 +33,7 @@ it) is one launch a call.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +44,7 @@ from yoloclip_tpu_torch import _build
 # bf16-input launches are also counted apart.
 launches = 0
 launches_bf16 = 0
+_count_lock = threading.Lock()   # shards on threads launch too
 
 _lib_fns = None
 
@@ -144,9 +146,9 @@ def _launch(x, wq, wscale, qbias, act_scale, stride, epilogue):
                        int(epilogue),
                        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, 'int8 conv kernel launch')
-    launches += 1
-    if x.dtype == torch.bfloat16:
-        launches_bf16 += 1
+    with _count_lock:
+        launches += 1
+        launches_bf16 += x.dtype == torch.bfloat16
     return out
 
 

@@ -23,6 +23,7 @@ the greedy pass, one block an image, 32 candidates at a time.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -32,6 +33,7 @@ from yoloclip_tpu_torch.ops.boxes import pairwise_iou
 
 # Launches of the CUDA kernel (incremented only where it launches).
 launches = 0
+_count_lock = threading.Lock()   # shards on threads launch too
 
 # `stages` of the C launcher: the mask build, the greedy scan, or both.
 BUILD, SCAN, BOTH = 1, 2, 3
@@ -121,7 +123,8 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor,
         return keep
     _run(_operand(boxes, torch.float32), _operand(valid, torch.bool),
          scratch(B, K, boxes.device), keep, iou_threshold, BOTH)
-    launches += 1
+    with _count_lock:
+        launches += 1
     return keep
 
 

@@ -26,16 +26,25 @@ Each wrapper runs its plain version for CPU tensors and the CUDA kernel for
 CUDA tensors; it never swaps one for the other. The kernel runs both
 products on the tensor cores: bf16 as it is, fp32 as 3xTF32 (each operand
 split into TF32 high and low parts inside the kernel).
+
+Over a class shard (the 'model' axis, `parallel/collectives.py::ClassShard`):
+`sharded_projected_similarity_argmax` and `sharded_similarity_argmax` run
+the same wrapper on the shard's block of the text with the shard's own
+num_valid, clamp(num_valid - offset, 0, size) -- 0 where the block is all
+padding, when the kernel returns its masked NEG score and id 0 -- and merge
+the shards' (score, id) pairs: the max, ties to the lowest global id.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
 
 from yoloclip_tpu_torch import _build
+from yoloclip_tpu_torch.parallel.collectives import ClassShard, merge_argmax
 
 NEG = -1e30
 
@@ -45,6 +54,7 @@ launches = 0
 launches_bf16 = 0
 unprojected_launches = 0
 unprojected_launches_bf16 = 0
+_count_lock = threading.Lock()   # shards on threads launch too
 
 
 def _fold_text(text: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -156,8 +166,9 @@ def _launch(h: torch.Tensor, ops: dict, C: int, E: int, nvalid: int
              scores.data_ptr(), ids.data_ptr(), B, A, Kd, C, E, nvalid,
              torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(lib, err, 'similarity kernel launch')
-    launches += 1
-    launches_bf16 += h.dtype == torch.bfloat16
+    with _count_lock:
+        launches += 1
+        launches_bf16 += h.dtype == torch.bfloat16
     return scores, ids
 
 
@@ -225,8 +236,9 @@ def _launch_unprojected(obj: torch.Tensor, text: torch.Tensor, nvalid: int,
              int(normalize_obj),
              torch.cuda.current_stream(obj.device).cuda_stream)
     _build.check(lib, err, 'unprojected similarity kernel launch')
-    unprojected_launches += 1
-    unprojected_launches_bf16 += obj.dtype == torch.bfloat16
+    with _count_lock:
+        unprojected_launches += 1
+        unprojected_launches_bf16 += obj.dtype == torch.bfloat16
     return scores, ids
 
 
@@ -251,3 +263,53 @@ def fused_similarity_argmax(obj: torch.Tensor, text: torch.Tensor,
     else:
         raise RuntimeError(f'no similarity kernel for device {obj.device}')
     return (s[0], i[0]) if squeeze else (s, i)
+
+
+def shard_num_valid(num_valid: Optional[int], shard: ClassShard) -> int:
+    """A shard's count of valid classes: clamp(num_valid - offset, 0,
+    size), num_valid None meaning every class."""
+    nv = shard.total if num_valid is None else int(num_valid)
+    return max(0, min(nv - shard.offset, shard.size))
+
+
+def _over_shard(launch, rows: torch.Tensor, shard: ClassShard,
+                num_valid: Optional[int]):
+    """Run launch(num_valid) on the shard's block (an empty block launches
+    nothing: NEG and id 0), then merge over the model axis."""
+    if shard.size:
+        s, i = launch(shard_num_valid(num_valid, shard))
+    else:
+        s = torch.full(rows.shape[:-1], NEG, dtype=torch.float32,
+                       device=rows.device)
+        i = torch.zeros(rows.shape[:-1], dtype=torch.int32,
+                        device=rows.device)
+    return merge_argmax(s, i, shard.offset, shard.group)
+
+
+def sharded_projected_similarity_argmax(h: torch.Tensor, text: torch.Tensor,
+                                        kernel: torch.Tensor,
+                                        bias: torch.Tensor,
+                                        shard: ClassShard,
+                                        num_valid: Optional[int] = None
+                                        ) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """`fused_projected_similarity_argmax` over a class shard: text is
+    this shard's block (size, E) or (B, size, E); num_valid counts GLOBAL
+    classes. Returns the global (scores, class_ids), the same on every
+    shard."""
+    return _over_shard(
+        lambda nv: fused_projected_similarity_argmax(h, text, kernel, bias,
+                                                     nv), h, shard,
+        num_valid)
+
+
+def sharded_similarity_argmax(obj: torch.Tensor, text: torch.Tensor,
+                              shard: ClassShard,
+                              num_valid: Optional[int] = None,
+                              normalize_obj: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fused_similarity_argmax` over a class shard (as
+    `sharded_projected_similarity_argmax`)."""
+    return _over_shard(
+        lambda nv: fused_similarity_argmax(obj, text, nv, normalize_obj),
+        obj, shard, num_valid)

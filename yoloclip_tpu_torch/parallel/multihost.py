@@ -1,5 +1,5 @@
-"""Multi-process data parallelism: one process per data-axis device, on one
-host or several. Counterpart of `yoloclip_tpu/parallel/multihost.py`.
+"""Multi-process data and class parallelism: one process per mesh cell, on
+one host or several. Counterpart of `yoloclip_tpu/parallel/multihost.py`.
 
   * `initialize()` starts torch.distributed with an explicit backend
     (NCCL for one GPU a rank, gloo on the CPU, or gloo on GPUs where
@@ -12,16 +12,18 @@ host or several. Counterpart of `yoloclip_tpu/parallel/multihost.py`.
     `local_batch_size`, `Subset`) and holds only its rows
     (`make_global_batch` / `make_global_text` put them on its device; the
     global batch is every rank's rows, and with accumulation micro-batch i
-    is every rank's micro-batch i).
+    is every rank's micro-batch i); with a 'model' axis the text is also
+    cut to the rank's block of the classes.
 
-Self-test (one train step in 2 processes against 1 process on the same
-global batch; the trainer loop and a rank-0 checkpoint round trip with
---ckpt-dir):
+Self-test (one train step in N processes against 1 process on the same
+global batch; --model M lays the N processes out as an (N/M, M) mesh, the
+classes split M-way, as the JAX package's self-test runs a 4x2 grid; the
+trainer loop and a rank-0 checkpoint round trip with --ckpt-dir):
 
-    python -m yoloclip_tpu_torch.parallel.multihost --selftest \\
-        --num-processes 2 --process-id 0 --coordinator file:///tmp/rdv &
-    python -m yoloclip_tpu_torch.parallel.multihost --selftest \\
-        --num-processes 2 --process-id 1 --coordinator file:///tmp/rdv
+    for i in 0 1 2 3 4 5 6 7; do
+      python -m yoloclip_tpu_torch.parallel.multihost --selftest \\
+          --num-processes 8 --process-id $i --model 2 \\
+          --coordinator file:///tmp/rdv & done; wait
 """
 
 from __future__ import annotations
@@ -176,10 +178,13 @@ def make_global_batch(local_batch: Dict, mesh: Mesh) -> Dict:
 
 def make_global_text(local_text, mesh: Mesh, batched: bool = True
                      ) -> torch.Tensor:
-    """Text embeddings on this process's device: its rows' (b_local, C, E)
-    with batched=True, else the (C, E) matrix every process passes."""
-    del batched   # the vocabulary is never sharded (no 'model' axis)
-    return torch.as_tensor(local_text).to(mesh.local_device)
+    """Text embeddings on this process's device: of its rows'
+    (b_local, C, E) with batched=True, else of the (C, E) matrix every
+    process passes, its block of the classes over 'model'
+    (`mesh.class_block`; the whole matrix without a model axis)."""
+    del batched   # the class axis is second to last either way
+    t = torch.as_tensor(local_text)
+    return t.narrow(-2, *mesh.class_block(t.shape[-2])).to(mesh.local_device)
 
 
 # ---------------------------------------------------------------------------
@@ -205,20 +210,24 @@ def _selftest_loss(num_processes: int = 1,
                    process_id: Optional[int] = None,
                    coordinator: Optional[str] = None,
                    ckpt_dir: Optional[str] = None,
-                   device: str = 'cuda') -> float:
+                   device: str = 'cuda', n_model: int = 1) -> float:
     """One AdamW step's loss at variant 'n', 64 px, global batch 8, from
     seeded weights. In 1 process: the plain step over the 8 rows; in N:
-    each rank's rows through the sharded step. The loss is the global
-    batch's either way and must agree (to the reduction order)."""
+    an (N / n_model, n_model) mesh, each rank's rows and class block
+    through the sharded step (gloo where the ranks outnumber the cards).
+    The loss is the global batch's either way and must agree (to the
+    reduction order): the convs run in plain fp32 (TF32 off)."""
     from yoloclip_tpu_torch.config import ModelConfig, TrainingConfig
     from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP, init_weights
     from yoloclip_tpu_torch.parallel.mesh import create_mesh
     from yoloclip_tpu_torch.parallel.train_step import (
-        make_sharded_train_step, place_batch)
+        make_sharded_train_step, place_batch, place_text)
     from yoloclip_tpu_torch.train.train_state import (create_train_state,
                                                       make_train_step)
 
     torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TrainingConfig(model=ModelConfig(image_size=(S, S)),
                          max_objects=M, batch_size=B)
     model = YOLOCLIP(cfg.model)
@@ -228,10 +237,13 @@ def _selftest_loss(num_processes: int = 1,
              'valid_mask': np.ones((B, M), bool), 'text': text}
     mesh = None
     if num_processes > 1:
+        shared = (device.split(':')[0] == 'cpu'
+                  or num_processes > torch.cuda.device_count())
         initialize(coordinator, num_processes, process_id, device=device,
-                   backend='gloo' if device == 'cpu' else None)
-        mesh = create_mesh()
+                   backend='gloo' if shared else None)
+        mesh = create_mesh(n_model=n_model)
         local = place_batch(batch, mesh)
+        local['text'] = place_text(text, mesh)
         state = create_train_state(model, cfg, mesh.local_device)
         step = make_sharded_train_step(cfg, mesh)(state)
     else:
@@ -254,7 +266,7 @@ def _selftest_loss(num_processes: int = 1,
         assert restored['step'] == 1
         assert all(torch.isfinite(v).all() for v in
                    restored['model'].values() if v.is_floating_point())
-        _selftest_trainer(mesh, ckpt_dir, device)
+        _selftest_trainer(mesh, ckpt_dir, device, n_model)
     return loss
 
 
@@ -271,7 +283,8 @@ class _StubTextEncoder:
         return torch.from_numpy(out)
 
 
-def _selftest_trainer(mesh, out_dir: str, device: str) -> None:
+def _selftest_trainer(mesh, out_dir: str, device: str,
+                      n_model: int = 1) -> None:
     """The trainer loop over the mesh: each process's own rows as its
     loader (mesh.local_batches), one epoch, evaluate (a global mAP on
     every process), the rank-0 final checkpoint."""
@@ -286,10 +299,12 @@ def _selftest_trainer(mesh, out_dir: str, device: str) -> None:
                          class_names=names, max_objects=M, batch_size=B,
                          max_epochs=1, eval_interval=1, save_interval=10,
                          output_dir=os.path.join(out_dir, 'trainer'))
+    rows = B
     if mesh is not None:   # each process's loader yields its own rows
-        mesh = create_mesh(local_batches=True)
-    lo = process_index() * local_batch_size(B)
-    hi = lo + local_batch_size(B)
+        mesh = create_mesh(n_model=n_model, local_batches=True)
+        rows = B // mesh.shape['data']
+    lo = (mesh.rank if mesh is not None else 0) * rows
+    hi = lo + rows
     local = {'images': images[lo:hi], 'boxes': boxes[lo:hi],
              'class_ids': cids[lo:hi],
              'valid_mask': np.ones((hi - lo, M), bool),
@@ -321,13 +336,18 @@ def _main() -> None:
                     help='shared directory for the rank-0 checkpoint round '
                          'trip and the trainer loop (skipped when absent)')
     ap.add_argument('--device', default='cuda',
-                    help="'cuda' (a card a process) or 'cpu' (gloo)")
+                    help="'cuda' (a card a process; gloo where the "
+                         "processes outnumber the cards) or 'cpu' (gloo)")
+    ap.add_argument('--model', type=int, default=1, metavar='M',
+                    help="the mesh's 'model' axis: the classes split M-way "
+                         '(M must divide --num-processes)')
     args = ap.parse_args()
     if not args.selftest:
         ap.error('only --selftest is supported')
     try:
         loss = _selftest_loss(args.num_processes, args.process_id,
-                              args.coordinator, args.ckpt_dir, args.device)
+                              args.coordinator, args.ckpt_dir, args.device,
+                              args.model)
         print(f'MULTIHOST_SELFTEST pid={process_index()} '
               f'procs={process_count()} loss={loss:.6f}', flush=True)
     finally:

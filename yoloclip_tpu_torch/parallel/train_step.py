@@ -1,38 +1,54 @@
-"""Data-parallel training and inference steps over a mesh's 'data' axis.
+"""Sharded training and inference steps over a ('data', 'model') mesh.
 Counterpart of `yoloclip_tpu/parallel/train_step.py`.
 
-The JAX package jits one step with the batch sharded over 'data' and the
-state replicated; GSPMD inserts the gradient all-reduce, and the step is
-exactly the single-device step over the global batch. Here one process
-runs a data-axis device (`parallel/multihost.py`), and the step is
-DistributedDataParallel with what makes it the same step:
+The JAX package jits one step with the batch over 'data', the text's
+classes over 'model' (`P('data', 'model', None)`) and the state
+replicated; GSPMD inserts the collectives, and the step is exactly the
+single-device step over the global batch. Here one process runs a mesh
+cell (`parallel/multihost.py`), and the step is DistributedDataParallel
+with what makes it the same step:
 
   * BatchNorm reduces its statistics over the global batch (the model's
-    `BatchNorm2d` modules are given the group);
-  * the losses' batch-global normalisers are reduced over the group;
+    `BatchNorm2d` modules are given the data group);
+  * the losses' batch-global normalisers are reduced over the data group;
   * with accumulation, micro-batch i across the ranks is global rows
     [i*b, (i+1)*b), as the JAX package slices a sharded batch
     (`mesh.batch_sharding`), and the gradient all-reduce runs on the last
     micro-batch only (`no_sync`);
   * no buffer broadcast in the forward: BatchNorm buffers are never
     overwritten from rank 0, so a desynchronised statistic shows instead
-    of being hidden.
+    of being hidden;
+  * with a model axis each rank holds its data rows and its BLOCK of the
+    classes (`place_text`): the neck's class max, the (score, id) merge,
+    the contrastive softmax's log-sum-exp and the losses' sums over
+    classes run over the model group (`parallel/collectives.py`), whose
+    differentiable exchanges all have the "sum" adjoint. Every rank then
+    holds its share of the gradient, and the shares of a data row's model
+    ranks sum to n_model times that row's gradient; DDP's MEAN over the
+    whole world (data x model) is then exactly the data rows' mean, the
+    unsharded step's gradient over the global batch.
 
-The 'model' axis (vocabulary sharding) is not ported (`parallel/mesh.py`).
+In one process (`make_sharded_inference`) each data row's model-axis
+devices run one persistent worker thread each, the exchanges through the
+in-process backend.
 """
 
 from __future__ import annotations
 
+import copy
 import inspect
 from typing import Dict, List
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from yoloclip_tpu_torch.config import TrainingConfig
 from yoloclip_tpu_torch.models.layers import BatchNorm2d
-from yoloclip_tpu_torch.parallel.mesh import Mesh, shard_batch
+from yoloclip_tpu_torch.parallel import collectives as col
+from yoloclip_tpu_torch.parallel.mesh import (Mesh, replicas_by_device,
+                                              shard_batch)
 from yoloclip_tpu_torch.train.train_state import TrainState, make_train_step
 
 
@@ -58,55 +74,111 @@ def set_batchnorm_group(model: nn.Module, group) -> int:
 def make_sharded_train_step(cfg: TrainingConfig, mesh: Mesh):
     """compile_for(state) -> train_step(state, batch, text) over `mesh`,
     the JAX function's shape. The batch is this rank's rows
-    (`place_batch`); the returned loss parts are the global batch's. On a
-    one-device mesh without a process group the step is the plain one."""
+    (`place_batch`), the text its rows and class block (`place_text`); the
+    returned loss parts are the global batch's. On a one-cell mesh without
+    a process group the step is the plain one."""
     def compile_for(state: TrainState):
         if not mesh.multiprocess:
-            if mesh.shape['data'] != 1:
+            if mesh.shape != {'data': 1, 'model': 1}:
                 raise ValueError(
                     'data-parallel training runs one process a data-axis '
-                    'device: initialise torch.distributed '
+                    'device, and class-parallel training one a mesh cell: '
+                    'initialise torch.distributed '
                     '(parallel/multihost.py::initialize, or cli.train '
                     '--devices N) before create_mesh')
             return make_train_step(cfg)
-        # one rank has nothing to synchronise: its BatchNorm stays the
-        # plain module, so a 1-rank step is the step without DDP
+        # one data rank has nothing to synchronise: its BatchNorm stays the
+        # plain module
         set_batchnorm_group(state.model, mesh.group
                             if mesh.shape['data'] > 1 else None)
         dev = mesh.local_device
         ddp = DistributedDataParallel(
             state.model,
             device_ids=[dev.index or 0] if dev.type == 'cuda' else None,
-            process_group=mesh.group, find_unused_parameters=False,
+            process_group=dist.group.WORLD, find_unused_parameters=False,
             **_NO_BUFFER_SYNC)
-        return make_train_step(cfg, ddp=ddp, group=mesh.group)
+        return make_train_step(cfg, ddp=ddp, group=mesh.group,
+                               shard_text=mesh.text_shard)
 
     return compile_for
 
 
 def make_sharded_inference(model: nn.Module, mesh: Mesh):
     """run(images, text, **model_kwargs) -> the model's outputs for each
-    data-axis device this process drives, in axis order: a replica of
-    `model` on each (the model itself where the device is its own), the
-    GLOBAL batch of images split over the data axis (this rank's rows
-    when one process runs a device), every launch made before any result
-    is read. text (C, E) is shared: the vocabulary is not sharded."""
-    replicas = replicate_model(model, mesh)
+    data-axis device this process drives, in axis order, every launch made
+    before any result is read. The GLOBAL batch of images splits over the
+    data axis (this rank's rows when one process runs a cell); text (C, E)
+    or (B, C, E) is the whole vocabulary (with B the global batch), its
+    classes split over the model axis (a class_mask (C,) with them). In
+    one process a data row's model-axis devices run one thread each, the
+    first of them returning the row's outputs; scores and class_ids are
+    global, `similarity` and `text_embeddings` the first block's."""
+    replicas = replicas_by_device(model, mesh.local_devices
+                                  if mesh.multiprocess
+                                  else mesh.devices.reshape(-1))
+    n_model = mesh.shape['model']
+    workers = (col.ShardThreads(mesh.devices.size)
+               if n_model > 1 and not mesh.multiprocess else None)
 
     @torch.inference_mode()
     def run(images: torch.Tensor, text: torch.Tensor,
             **model_kwargs) -> List[Dict]:
-        shards = shard_batch({'images': images}, mesh)
-        return [m(s['images'], text.to(s['images'].device), **model_kwargs)
-                for m, s in zip(replicas, shards)]
+        batch = {'images': images}
+        if text.dim() == 3:
+            batch['text'] = text
+        shards = shard_batch(batch, mesh)
+        if mesh.multiprocess:
+            (s,) = shards
+            dev = s['images'].device
+            t = s.get('text', text)   # this rank's rows, every class
+            t = t.narrow(-2, *mesh.class_block(t.shape[-2])).to(dev)
+            kw = dict(model_kwargs)
+            if n_model > 1:
+                kw = _block_kwargs(kw, mesh.text_shard(t))
+            return [replicas[dev](s['images'], t, **kw)]
+        if n_model == 1:
+            return [replicas[dev](s['images'], s.get('text', text).to(dev),
+                                  **model_kwargs)
+                    for s, dev in zip(shards, mesh.local_devices)]
+        C = text.shape[-2]
+        fns, groups = [], []
+        for d, s in enumerate(shards):
+            group = col.LocalGroup(n_model)
+            groups.append(group)
+            for m in range(n_model):
+                shard = col.ClassShard(*col.class_block(C, n_model, m), C,
+                                       group.member(m))
+                fns.append(_block_call(replicas[mesh.devices[d, m]],
+                                       s['images'], shard.take(
+                                           s.get('text', text)),
+                                       mesh.devices[d, m], shard,
+                                       model_kwargs))
+        outs = workers.run(fns, groups)
+        return outs[::n_model]
 
     return run
+
+
+def _block_kwargs(kw: Dict, shard: col.ClassShard) -> Dict:
+    """The model's keyword arguments for one class block: the shard, and
+    its block of a (C,) class_mask."""
+    kw = dict(kw, class_shard=shard)
+    if kw.get('class_mask') is not None:
+        kw['class_mask'] = shard.take(torch.as_tensor(kw['class_mask']), -1)
+    return kw
+
+
+def _block_call(model, images, text, dev, shard, kw):
+    def call():
+        with col.on_device(dev):
+            return model(images.to(dev), text.to(dev),
+                         **_block_kwargs(kw, shard))
+    return call
 
 
 def replicate_model(model: nn.Module, mesh: Mesh) -> List[nn.Module]:
     """One copy of `model` per local data-axis device; the first device
     equal to the model's own takes the model itself."""
-    import copy
     own = next(model.parameters()).device
     out, used = [], False
     for dev in mesh.local_devices:
@@ -123,6 +195,19 @@ def place_batch(batch: Dict, mesh: Mesh, accum: int = 1) -> Dict:
     laid out (`mesh.batch_sharding`); list entries such as text_prompts are
     split the same way."""
     return shard_batch(batch, mesh, accum)[0]
+
+
+def place_text(text, mesh: Mesh, batched: bool = True, accum: int = 1
+               ) -> torch.Tensor:
+    """The GLOBAL text -> this rank's block on its device: with batched
+    its rows of a (B, C, E) text (laid out as `place_batch` lays out the
+    batch), else the (C, E) matrix; of either, its block of the classes
+    over 'model' (`mesh.class_block`)."""
+    t = torch.as_tensor(text)
+    if batched:
+        t = shard_batch({'text': t}, mesh, accum)[0]['text']
+    offset, size = mesh.class_block(t.shape[-2])
+    return t.narrow(-2, offset, size).to(mesh.local_device)
 
 
 def replicate_state(state: TrainState, mesh: Mesh) -> TrainState:

@@ -1,5 +1,6 @@
 """Training losses. Counterpart of `yoloclip_tpu/train/losses.py`: the same
-math on torch tensors, every loss in fp32 whatever the compute dtype.
+math on torch tensors, every loss in fp32 whatever the compute dtype (in
+float64 for a float64 model).
 
   * region_text_contrastive_loss: the original repo's region-text CE with
     its quirks kept (each documented below).
@@ -20,6 +21,15 @@ scaled by the world size, so DistributedDataParallel's mean over the ranks
 is the loss of the global batch, as the JAX package's sharded step
 computes it. The mean-reduced terms need nothing: the shards are equal.
 With no group nothing changes.
+
+`class_shard` (the 'model' axis, `parallel/collectives.py::ClassShard`):
+the text is this rank's block of the classes. The contrastive softmax
+takes the vocabulary-parallel log-sum-exp, the top-k positive weight the
+global top-k, and its sums over classes (the target and positive terms,
+which only the shard owning a class holds) an all-reduced sum over the
+model group; the BCE sums over the block, then over the group. The class
+count C is the whole vocabulary's. Every rank of a data row returns the
+same loss.
 """
 
 from __future__ import annotations
@@ -30,7 +40,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from yoloclip_tpu_torch.parallel.collectives import (group_min, group_sum,
+from yoloclip_tpu_torch.models.layers import at_least_fp32
+from yoloclip_tpu_torch.parallel.collectives import (ClassShard,
+                                                     all_reduce_sum,
+                                                     group_min, group_sum,
+                                                     logsumexp, topk_values,
                                                      world_scale)
 from yoloclip_tpu_torch.train.assign import (assign_batch,
                                              dfl_targets_from_boxes)
@@ -49,7 +63,8 @@ def region_text_contrastive_loss(
         temperature: float = 0.1,
         topk: int = 3,
         label_smoothing: float = 0.0,
-        reduction: str = 'mean', group=None) -> torch.Tensor:
+        reduction: str = 'mean', group=None,
+        class_shard: Optional[ClassShard] = None) -> torch.Tensor:
     """Region-text contrastive loss with the original repo's quirks:
 
       * regions are truncated / zero-padded to M = region_labels.shape[1]
@@ -59,9 +74,13 @@ def region_text_contrastive_loss(
         (similarity * labels) / floor(min positive count over the batch),
         with gradients through the weight;
       * 'mean' divides by the EXPANDED mask sum (n_valid * C).
+
+    class_shard: text_embeddings is the shard's block; region_labels are
+    global class ids, or multi-hot over the whole vocabulary.
     """
     B, R, E = region_features.shape
-    C = text_embeddings.shape[1]
+    mg = class_shard.group if class_shard is not None else None
+    C = text_embeddings.shape[1] if mg is None else class_shard.total
     M = region_labels.shape[1]
 
     if R >= M:
@@ -73,8 +92,8 @@ def region_text_contrastive_loss(
             valid_mask = torch.cat(
                 [valid_mask, valid_mask.new_zeros((B, M - R))], dim=1)
 
-    region = _l2norm(region.float())
-    text = _l2norm(text_embeddings.float())
+    region = _l2norm(at_least_fp32(region))
+    text = _l2norm(at_least_fp32(text_embeddings))
     similarity = torch.einsum('bme,bce->bmc', region, text)
     logits = similarity / temperature
 
@@ -84,9 +103,11 @@ def region_text_contrastive_loss(
                                  region_labels)
         valid_mask = (~invalid if valid_mask is None
                       else valid_mask.bool() & ~invalid)
-        labels_oh = F.one_hot(labels_idx.long(), C).float()
+        labels_oh = (F.one_hot(labels_idx.long(), C).float() if mg is None
+                     else class_shard.one_hot(labels_idx))
     else:
-        labels_oh = region_labels.float()
+        labels_oh = (region_labels.float() if mg is None
+                     else class_shard.take(region_labels.float(), -1))
 
     if label_smoothing > 0:
         labels_oh = (1 - label_smoothing) * labels_oh + label_smoothing / C
@@ -95,27 +116,31 @@ def region_text_contrastive_loss(
         valid_mask = torch.ones((B, M), dtype=torch.bool,
                                 device=region.device)
 
+    pos_count = group_sum(labels_oh.sum(-1), mg)   # (B, M), whole axis
     if topk > 1:
         pos_sim = similarity * labels_oh
         k = min(topk, C)
-        topk_vals = torch.topk(pos_sim, k, dim=-1).values
-        pos_count_min = group_min(labels_oh.sum(-1).min(),
-                                  group).clamp_min(1)
+        topk_vals = topk_values(pos_sim, k, mg)
+        pos_count_min = group_min(pos_count.min(), group).clamp_min(1)
         topk_min = torch.clamp(torch.floor(pos_count_min), max=float(topk))
         pos_weight = topk_vals.sum(-1, keepdim=True) / topk_min
         weighted_labels = labels_oh * pos_weight
     else:
         weighted_labels = labels_oh
 
-    log_probs = torch.log_softmax(logits, dim=-1)
+    if mg is None:
+        log_probs = torch.log_softmax(logits, dim=-1)
+    else:
+        log_probs = logits - logsumexp(logits, -1, mg)[..., None]
     loss = -(weighted_labels * log_probs)                   # (B, M, C)
     mask3 = valid_mask[..., None].expand(loss.shape).float()
     loss = loss * mask3
-    pos_count = labels_oh.sum(-1).clamp_min(1)
-    loss = loss.sum(-1) / pos_count                         # (B, M)
+    loss = (all_reduce_sum(loss.sum(-1), mg)
+            / pos_count.clamp_min(1))                       # (B, M)
 
     if reduction == 'mean':
-        denom = group_sum(mask3.sum(), group)
+        denom = group_sum(mask3.sum() if mg is None
+                          else valid_mask.float().sum() * C, group)
         return world_scale(torch.where(
             denom > 0, loss.sum() / denom.clamp_min(1e-30),
             torch.zeros_like(denom)), group)
@@ -175,7 +200,8 @@ def iou_loss(pred_boxes: torch.Tensor, target_boxes: torch.Tensor,
     loss is truncated / zero-padded along axis 1 and unsqueezed; a weight
     whose axis-1 width still mismatches the loss is ignored, as the
     original repo does."""
-    _, loss = iou_family(pred_boxes.float(), target_boxes.float(), iou_type,
+    _, loss = iou_family(at_least_fp32(pred_boxes),
+                         at_least_fp32(target_boxes), iou_type,
                          eps)
     if weights is not None:
         w = weights.to(loss.dtype)
@@ -203,7 +229,7 @@ def distributed_focal_loss(pred_dfl: torch.Tensor, target_bins: torch.Tensor,
     """Cross-entropy between bin logits (..., reg_max+1) and integer bin
     targets (...,) clipped to [0, reg_max]."""
     target = target_bins.long().clamp(0, reg_max)
-    logp = torch.log_softmax(pred_dfl.float(), dim=-1)
+    logp = torch.log_softmax(at_least_fp32(pred_dfl), dim=-1)
     loss = -torch.gather(logp, -1, target[..., None])[..., 0]
     if weights is not None:
         loss = loss * weights.to(loss.dtype)
@@ -232,7 +258,7 @@ def soft_dfl_loss(pred_logits: torch.Tensor, target_cont: torch.Tensor,
     and two-bin soft targets of target_cont (..., 4), masked mean over the
     foreground (mask (...,) bool)."""
     tgt = dfl_soft_targets(target_cont, reg_max)
-    logp = torch.log_softmax(pred_logits.float(), dim=-1)
+    logp = torch.log_softmax(at_least_fp32(pred_logits), dim=-1)
     ce = -(tgt * logp).sum(-1).mean(-1)
     m = mask.float()
     return world_scale((ce * m).sum()
@@ -245,21 +271,30 @@ def region_text_bce_loss(region_features: torch.Tensor,   # (B, A, E)
                          fg_mask: torch.Tensor,           # (B, A) bool
                          temperature: float = 0.1,
                          score_bias: float = 0.25,
-                         group=None) -> torch.Tensor:
+                         group=None,
+                         class_shard: Optional[ClassShard] = None
+                         ) -> torch.Tensor:
     """Per-class sigmoid BCE over ALL anchors: one-hot(class) targets on
     assigned anchors, all-zero on background, logits centered on
     `score_bias` (the 0.25 deploy threshold on the raw-cosine scale), so
     the foreground is pushed above it and the background below.
     Normalised by the foreground count. The BCE is the log-sigmoid form
-    of optax's `sigmoid_binary_cross_entropy`."""
-    region = _l2norm(region_features.float())
-    text = _l2norm(text_embeddings.float())
+    of optax's `sigmoid_binary_cross_entropy`. class_shard: the text is
+    the shard's block, labels global ids; the sum over classes is the
+    blocks' sum."""
+    region = _l2norm(at_least_fp32(region_features))
+    text = _l2norm(at_least_fp32(text_embeddings))
     sim = torch.einsum('bae,bce->bac', region, text)
     logits = (sim - score_bias) / temperature
-    C = text.shape[1]
-    tgt = F.one_hot(labels.long(), C).float() * fg_mask[..., None].float()
+    if class_shard is None:
+        tgt = F.one_hot(labels.long(), text.shape[1]).float()
+    else:
+        tgt = class_shard.one_hot(labels)
+    tgt = tgt * fg_mask[..., None].float()
     per = -(tgt * F.logsigmoid(logits) + (1 - tgt) * F.logsigmoid(-logits))
-    return world_scale(per.sum() / group_sum(
+    total = all_reduce_sum(per.sum(), class_shard.group
+                           if class_shard is not None else None)
+    return world_scale(total / group_sum(
         fg_mask.sum().float(), group).clamp_min(1.0), group)
 
 
@@ -273,7 +308,8 @@ def combined_loss_clean(outputs: Dict[str, torch.Tensor],
                         label_smoothing: float = 0.0,
                         topk_assign: int = 10,
                         reg_max: int = 16,
-                        contrastive_type: str = 'bce', group=None
+                        contrastive_type: str = 'bce', group=None,
+                        class_shard: Optional[ClassShard] = None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Every anchor participates: top-k center assignment -> contrastive
     ('bce', or 'softmax' over the labeled anchors), CIoU over assigned
@@ -287,19 +323,21 @@ def combined_loss_clean(outputs: Dict[str, torch.Tensor],
     if contrastive_type == 'bce':
         cont = region_text_bce_loss(
             outputs['obj_embeddings'], outputs['text_embeddings'],
-            labels, fg, temperature=temperature, group=group)
+            labels, fg, temperature=temperature, group=group,
+            class_shard=class_shard)
     elif contrastive_type == 'softmax':
         cont = region_text_contrastive_loss(
             outputs['obj_embeddings'], outputs['text_embeddings'],
             labels, fg, temperature=temperature, topk=1,
-            label_smoothing=label_smoothing, group=group)
+            label_smoothing=label_smoothing, group=group,
+            class_shard=class_shard)
     else:
         raise ValueError(
             f"contrastive_type must be 'bce' or 'softmax', "
             f'got {contrastive_type!r}')
 
-    _, iou_l = iou_family(outputs['boxes'].float(),
-                          assigned['box_target'].float(), iou_type)
+    _, iou_l = iou_family(at_least_fp32(outputs['boxes']),
+                          at_least_fp32(assigned['box_target']), iou_type)
     m = fg.float()
     num_fg = group_sum(m.sum(), group)
     iou = world_scale((iou_l * m).sum() / num_fg.clamp_min(1.0), group)
@@ -325,7 +363,8 @@ def combined_loss_compat(outputs: Dict[str, torch.Tensor],
                          temperature: float = 0.1,
                          iou_type: str = 'ciou',
                          label_smoothing: float = 0.0,
-                         topk: int = 3, group=None
+                         topk: int = 3, group=None,
+                         class_shard: Optional[ClassShard] = None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The original trainer's objective: contrastive over the first
     max_objects anchors + CIoU over the first max_objects predicted boxes
@@ -335,7 +374,8 @@ def combined_loss_compat(outputs: Dict[str, torch.Tensor],
         outputs['obj_embeddings'], outputs['text_embeddings'],
         batch['class_ids'], batch.get('valid_mask'),
         temperature=temperature, topk=topk,
-        label_smoothing=label_smoothing, group=group)
+        label_smoothing=label_smoothing, group=group,
+        class_shard=class_shard)
     M = batch['boxes'].shape[1]
     iou = iou_loss(outputs['boxes'][:, :M, :], batch['boxes'],
                    batch.get('valid_mask'), iou_type=iou_type)

@@ -22,6 +22,9 @@ of `yoloclip_tpu/train/train_state.py`.
     on all but the last micro-batch), the losses normalise over the global
     batch, and the returned loss parts are the global batch's (averaged
     over the ranks), as the JAX package's sharded step returns them.
+  * Class parallelism (the 'model' axis): the text is the rank's block of
+    the classes (`shard_text` gives its `ClassShard`), which the model and
+    the losses merge over the model group.
 """
 
 from __future__ import annotations
@@ -140,7 +143,8 @@ def _mean_parts(parts: Dict[str, torch.Tensor], group
     return dict(zip(keys, vals.unbind(0)))
 
 
-def make_train_step(cfg: TrainingConfig, ddp=None, group=None):
+def make_train_step(cfg: TrainingConfig, ddp=None, group=None,
+                    shard_text: Optional[Callable] = None):
     """train_step(state, batch, text) -> loss parts (0-d fp32 tensors on
     the device). Updates the state in place: BatchNorm buffers, parameters
     (one optimizer step at the lr in the param groups), EMA and step.
@@ -152,13 +156,15 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None):
     ddp / group (`parallel/train_step.py::make_sharded_train_step`): the
     DistributedDataParallel wrapper of state.model and the data axis's
     process group; the batch is then this rank's rows, laid out so that
-    its micro-batch i is its share of the global micro-batch i."""
+    its micro-batch i is its share of the global micro-batch i.
+    shard_text: text -> its ClassShard, when the text is this rank's
+    block of the classes (a mesh with a model axis)."""
     weights = dict(cfg.loss_weights)
     accum = max(int(cfg.grad_accum_steps), 1)
     warmup = max(float(cfg.ema_warmup_steps), 1.0)
     anchors: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def compute_loss(outputs, batch):
+    def compute_loss(outputs, batch, shard):
         if cfg.assigner == 'topk_center':
             dev = outputs['boxes'].device
             if dev not in anchors:
@@ -170,11 +176,12 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None):
                 temperature=cfg.temperature, iou_type=cfg.iou_type,
                 label_smoothing=cfg.label_smoothing,
                 reg_max=cfg.model.reg_max,
-                contrastive_type=cfg.contrastive_type, group=group)
+                contrastive_type=cfg.contrastive_type, group=group,
+                class_shard=shard)
         return combined_loss_compat(
             outputs, batch, weights, temperature=cfg.temperature,
             iou_type=cfg.iou_type, label_smoothing=cfg.label_smoothing,
-            group=group)
+            group=group, class_shard=shard)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    text: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -186,6 +193,8 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None):
             raise ValueError(f'batch size {B} not divisible by '
                              f'grad_accum_steps {accum}')
         b = B // accum
+        shard = shard_text(text) if shard_text is not None else None
+        kw = {} if shard is None else {'class_shard': shard}
         parts_sum: Dict[str, torch.Tensor] = {}
         for i in range(accum):
             sl = slice(i * b, (i + 1) * b)
@@ -196,8 +205,8 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None):
             with (ddp.no_sync() if ddp is not None and i < accum - 1
                   else contextlib.nullcontext()):
                 with _autocast(cfg, mb['images'].device):
-                    outputs = forward(mb['images'], tx)
-                total, parts = compute_loss(outputs, mb)
+                    outputs = forward(mb['images'], tx, **kw)
+                total, parts = compute_loss(outputs, mb, shard)
                 (total / accum if accum > 1 else total).backward()
             for k, v in parts.items():
                 v = v.detach()
@@ -217,7 +226,8 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None):
     return train_step
 
 
-def make_eval_step(cfg: TrainingConfig, group=None):
+def make_eval_step(cfg: TrainingConfig, group=None,
+                   shard_text: Optional[Callable] = None):
     """eval_step(state, batch, text) -> (loss parts without DFL, preds).
 
     The model runs in eval mode with `state.eval_params()` (EMA when
@@ -228,7 +238,8 @@ def make_eval_step(cfg: TrainingConfig, group=None):
     class_id -1, which the evaluator never matches).
 
     group: the data axis's process group; the loss parts are then the
-    global batch's, the predictions this rank's rows'."""
+    global batch's, the predictions this rank's rows'. shard_text: as in
+    `make_train_step` (the class ids come out global)."""
     weights = dict(cfg.loss_weights)
     M = cfg.max_objects
 
@@ -236,13 +247,15 @@ def make_eval_step(cfg: TrainingConfig, group=None):
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
                   text: torch.Tensor):
         model = state.model.eval()
+        shard = shard_text(text) if shard_text is not None else None
+        kw = {} if shard is None else {'class_shard': shard}
         with _autocast(cfg, batch['images'].device):
             outputs = functional_call(model, state.eval_params(),
-                                      (batch['images'], text))
+                                      (batch['images'], text), kw)
         _, parts = combined_loss_compat(
             outputs, batch, weights, temperature=cfg.temperature,
             iou_type=cfg.iou_type, label_smoothing=cfg.label_smoothing,
-            group=group)
+            group=group, class_shard=shard)
         parts = _mean_parts({k: v for k, v in parts.items()
                              if k != 'dfl_loss'}, group)
         if cfg.eval_with_nms:

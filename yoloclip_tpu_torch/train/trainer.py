@@ -15,14 +15,17 @@ Counterpart of `yoloclip_tpu/train/trainer.py`.
     and zero-padded to a power-of-two class bucket of at least 8, with no
     class mask (the original zero-pads without masking).
 
-`mesh=` (`parallel/mesh.py`, one process per data-axis device): the
-sharded step of `parallel/train_step.py`. Each rank takes its rows of the
-global batch (or, with `mesh.local_batches`, its loader yields them); the
-class bucket is the global batch's (an all-reduced MAX: the padded columns
-enter the contrastive softmax); `evaluate` gathers every rank's
-predictions and targets on the host, so each rank computes the same
-global mAP and takes the same best-checkpoint decision; rank 0 alone
-writes checkpoints and `history.json`, the others wait at a barrier.
+`mesh=` (`parallel/mesh.py`, one process per mesh cell): the sharded
+step of `parallel/train_step.py`. Each rank takes its rows of the global
+batch (or, with `mesh.local_batches`, its loader yields them) and, with a
+'model' axis, its block of the classes; the class bucket is the global
+batch's (an all-reduced MAX: the padded columns enter the contrastive
+softmax, and a block may hold padding only); `evaluate` merges the class
+ids over the model axis and gathers every data rank's predictions and
+targets on the host, so each rank computes the same global mAP and takes
+the same best-checkpoint decision; process 0 alone writes checkpoints and
+`history.json` (every rank holds the same state), the others wait at a
+barrier.
 `self.model` stays the bare module, so checkpoints carry no `module.`
 prefix and `load` works on every rank. TrainingConfig.data_parallel is
 read by nothing, as in the JAX package: the mesh sets the parallelism.
@@ -104,7 +107,9 @@ class YOLOCLIPTrainer:
         else:
             self._train_step = make_train_step(cfg)
         self.model = self.state.model
-        self._eval_step = make_eval_step(cfg, group=self._group)
+        self._eval_step = make_eval_step(
+            cfg, group=self._group,
+            shard_text=None if mesh is None else mesh.text_shard)
         self.best_map = 0.0
 
     @property
@@ -113,7 +118,8 @@ class YOLOCLIPTrainer:
 
     @property
     def _rank(self) -> int:
-        return 0 if self.mesh is None else self.mesh.rank
+        """This process's rank in the world (the writer is 0)."""
+        return 0 if self.mesh is None else self.mesh.process_index
 
     def _barrier(self) -> None:
         if self._group is not None:
@@ -123,7 +129,8 @@ class YOLOCLIPTrainer:
     def _encode_batch_text(self, text_prompts: List[List[str]]
                            ) -> torch.Tensor:
         """Per-sample prompt lists -> (B, Cb, E) on the device, zero-padded
-        to the class bucket."""
+        to the class bucket; under a model axis this rank's block of the
+        Cb classes."""
         dtype = next(self.model.parameters()).dtype   # fp32 master weights
         rows = [self.text_encoder(list(p)).to(self.device, dtype)
                 for p in text_prompts]
@@ -135,6 +142,8 @@ class YOLOCLIPTrainer:
                           dtype=dtype, device=self.device)
         for i, r in enumerate(rows):
             out[i, :r.shape[0]] = r
+        if self.mesh is not None:
+            out = out.narrow(1, *self.mesh.class_block(cmax))
         return out
 
     def _local(self, batch: Dict, accum: int = 1) -> Dict:
@@ -208,11 +217,11 @@ class YOLOCLIPTrainer:
         return out
 
     def _gather_host(self, *dicts):
-        """Each dict of numpy arrays concatenated over the ranks (rank
-        order) on every rank, through the host group."""
-        got = [None] * torch.distributed.get_world_size(self.mesh.host_group)
-        torch.distributed.all_gather_object(got, dicts,
-                                            group=self.mesh.host_group)
+        """Each dict of numpy arrays concatenated over the data ranks (rank
+        order) on every rank, through the host group of the data axis."""
+        group = self.mesh.host_data_group
+        got = [None] * torch.distributed.get_world_size(group)
+        torch.distributed.all_gather_object(got, dicts, group=group)
         return tuple({k: np.concatenate([g[i][k] for g in got])
                       for k in d} for i, d in enumerate(dicts))
 
