@@ -99,6 +99,17 @@ Phases, each printing its results; any failure exits non-zero:
  9c. stems     -- stem_s2d and stem_u8_s2d detectors against the plain
                   stem on the same weights and frames (the JAX package's
                   tolerances), and their detect_batch;
+ 9d. export   -- utils/export.py: the fp32, bf16 and int8 fp32 COCO-80
+                  detectors exported at bs=32, 640 px with NMS (conf -1.0)
+                  and saved; a fresh interpreter that imports only
+                  utils/export.py loads and runs each on the letterboxed
+                  frames: count, class ids and validity equal to the eager
+                  model + batched_nms, boxes and scores within the bounds;
+                  one call's launches (3 kernel-1, 1 kernel-2, 22 int8
+                  convs in the int8 graph); a bs=2 160-px artifact traced
+                  on the card, moved to the CPU, against the CPU eager path;
+                  export seconds, bytes, img/s beside eager; the custom-op
+                  dispatch A/B (bf16 float and int8 detect_batch);
  15. http, CLIs -- make_handler on a localhost ThreadingHTTPServer (POST
                   /detect with a stdlib-encoded PNG, POST /vocab, GET
                   /stats and /healthz), then `python -m
@@ -163,7 +174,8 @@ Phases, each printing its results; any failure exits non-zero:
  22. multihost -- the self-test (`parallel/multihost.py --selftest --model
                   2`) in 8 processes on cuda:0 (gloo) as a 4x2 grid, each
                   loss against the 1-process self-test.
-Each path that launches kernels (main path, prompts, int8, stems, canvas,
+Each path that launches kernels (main path, prompts, int8, stems, export,
+canvas,
 server, streaming, reparam, profile, training, the ddp ranks, dp serve,
 vocab tp, spatial) runs with the launch counters set to 0 just before it and read just after;
 the kernels line sums them. Two ranks or replicas on one card show
@@ -2122,6 +2134,270 @@ TRAIN_BS, TRAIN_WARMUP, TRAIN_STEPS, EVAL_IMAGES = 16, 3, 10, 32
 OVERFIT_STEPS = 120
 
 
+# ---------------------------------------------------------------------------
+# export: torch.export artifacts of the detector through the custom ops,
+# loaded in a fresh interpreter that imports only utils/export.py.
+
+EXPORT_SMALL = (2, 160, 160)   # the artifact traced on the card, run on CPU
+EXPORT_CHILD = r"""
+import json, statistics, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from yoloclip_tpu_torch.utils import export as E
+tmp = sys.argv[1]
+with open(tmp + '/manifest.json') as f:
+    man = json.load(f)
+x = torch.load(tmp + '/canvases.pt').cuda()
+
+def counts():
+    return {'similarity': E._sim.launches - E._sim.launches_bf16,
+            'similarity_bf16': E._sim.launches_bf16, 'nms': E._nms.launches,
+            'int8_conv': E._int8.launches - E._int8.launches_bf16,
+            'int8_conv_bf16': E._int8.launches_bf16}
+
+def zero():
+    E._sim.launches = E._sim.launches_bf16 = E._nms.launches = 0
+    E._int8.launches = E._int8.launches_bf16 = 0
+
+res = {}
+with torch.no_grad():
+    for name, path in man['cuda'].items():
+        t0 = time.perf_counter()
+        fn = E.load_exported(path)
+        load_s = time.perf_counter() - t0
+        fn(x)
+        torch.cuda.synchronize()
+        zero()
+        out = fn(x)
+        torch.cuda.synchronize()
+        launched = counts()
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        torch.save({k: v.cpu() for k, v in out.items()},
+                   f'{tmp}/{name}.out.pt')
+        res[name] = {'launches': launched, 'load_s': load_s,
+                     'ms': statistics.median(times) * 1e3}
+    fn = E.load_exported(man['cpu'], device='cpu')
+    zero()
+    out = fn(torch.load(tmp + '/small.pt'))
+    res['cpu'] = {'launches': counts()}
+    torch.save(out, tmp + '/cpu.out.pt')
+mods = sorted(m for m in sys.modules
+              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yoloclip_tpu')
+              or m.startswith(('yoloclip_tpu_torch.models',
+                               'yoloclip_tpu_torch.inference')))
+print(json.dumps({'res': res, 'mods': mods}))
+"""
+
+
+def _export_diff(tag, got, want):
+    """An artifact's NMS dict against the eager one: count, class ids and
+    validity equal, boxes within the cross-device bounds, scores within
+    SIM_ATOL. Returns (max |box diff|, max |score diff|, bit-equal)."""
+    for k in ('count', 'class_ids', 'valid'):
+        require(torch.equal(got[k].cpu(), want[k].cpu().to(got[k].dtype)),
+                f'[export] {tag}: {k} differs from the eager path')
+    gb, wb = got['boxes'].cpu(), want['boxes'].cpu()
+    require(torch.allclose(gb, wb, rtol=XDEV_BOX_RTOL, atol=XDEV_BOX_ATOL),
+            f'[export] {tag}: boxes differ from the eager path')
+    s_err = (got['scores'].cpu() - want['scores'].cpu()).abs().max().item()
+    require(s_err <= SIM_ATOL, f'[export] {tag}: scores differ by {s_err}')
+    same = all(torch.equal(got[k].cpu(), want[k].cpu().to(got[k].dtype))
+               for k in want)
+    return (gb - wb).abs().max().item(), s_err, same
+
+
+def _dispatch_ab(detectors, frames, rounds: int = 5) -> dict:
+    """img/s of each detector's detect_batch with each kernel's
+    implementation called straight, as the port's eager calls do, and
+    through the custom ops (`KernelOp.__call__` swapped for the
+    measurement), in turns; medians over the rounds. Also the host time
+    of one small kernel-2 call both ways."""
+    from yoloclip_tpu_torch.ops.kernels import library
+    straight = library.KernelOp.__call__
+
+    def through(self, lead, *args):
+        return self.op(lead, *args)
+
+    from yoloclip_tpu_torch.ops.kernels import nms
+    boxes = torch.rand((1, 32, 4), device='cuda')
+    boxes[..., 2:] += 1.0
+    valid = torch.ones((1, 32), dtype=torch.bool, device='cuda')
+
+    def host_us(calls: int = 2000) -> float:
+        """Host microseconds a call of a 32-box NMS keep (launches queue
+        up; the host's share is what the dispatcher adds to)."""
+        for _ in range(50):
+            nms.nms_keep(boxes, valid, 0.45)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            nms.nms_keep(boxes, valid, 0.45)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / calls * 1e6
+
+    rates = {(n, d): [] for n in list(detectors) + ['us a call']
+             for d in (True, False)}
+    try:
+        for _ in range(rounds):
+            for direct in (True, False):
+                library.KernelOp.__call__ = straight if direct else through
+                with torch.inference_mode():
+                    rates[('us a call', direct)].append(host_us())
+                for name, det in detectors.items():
+                    rates[(name, direct)].append(_img_per_s(det, frames))
+    finally:
+        library.KernelOp.__call__ = straight
+    return {k: statistics.median(v) for k, v in rates.items()}
+
+
+def phase_export(sim, nms, i8, det, bf, vocab_path, frames, tmp, card):
+    """`utils/export.py` on the card: the fp32, bf16 and int8 fp32 COCO-80
+    detectors (variant 'n', bs=32, 640 px, NMS in, conf -1.0) exported,
+    saved and run in a fresh interpreter that imports only
+    `utils/export.py`, against the eager model + batched_nms on the same
+    letterboxed frames; one artifact call's launches (3 kernel-1, 1
+    kernel-2, int8 22 int8 convs); a bs=2 160-px artifact traced on the
+    card run on the CPU against the CPU eager path; export seconds, bytes,
+    img/s beside eager; the custom-op dispatch A/B. Returns the launches
+    of the artifact calls."""
+    from yoloclip_tpu_torch.config import InferenceConfig
+    from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
+    from yoloclip_tpu_torch.ops.nms import batched_nms
+    from yoloclip_tpu_torch.ops.preprocess import letterbox_batch
+    from yoloclip_tpu_torch.utils.export import export_detector
+    nms_kw = dict(conf_threshold=-1.0, iou_threshold=det.iou_threshold,
+                  nms_topk=det.config.nms_topk,
+                  max_detections=det.config.max_detections)
+    ref_kw = dict(conf_threshold=-1.0, iou_threshold=det.iou_threshold,
+                  topk=det.config.nms_topk,
+                  max_detections=det.config.max_detections)
+    rng = np.random.RandomState(80)
+    calib = torch.from_numpy(rng.randint(
+        0, 256, (INT8_CALIB, 480, 640, 3), dtype=np.uint8)).cuda()
+    q32 = _detector(vocab_path)
+    q32.quantize_int8(calib)
+    qbf = _detector(vocab_path, 'bfloat16')
+    qbf.quantize_int8(calib)
+    dets = {'fp32': det, 'bf16': bf, 'int8': q32}
+    with torch.inference_mode():
+        canv, _ = letterbox_batch(frames, det.image_size)
+    canv = canv.clone()
+    torch.save(canv.cpu(), os.path.join(tmp, 'canvases.pt'))
+    B, H, W = canv.shape[:3]
+    man, info = {'cuda': {}}, {}
+    for name, d in dets.items():
+        path = os.path.join(tmp, f'{name}.pt2')
+        t0 = time.perf_counter()
+        export_detector(d.model, d.offline_vocabulary, (B, H, W), path,
+                        **nms_kw)
+        info[name] = (time.perf_counter() - t0, os.path.getsize(path))
+        man['cuda'][name] = path
+    # traced on the card, run on the CPU
+    small = os.path.join(tmp, 'small.pt2')
+    export_detector(det.model, det.offline_vocabulary, EXPORT_SMALL, small,
+                    include_nms=False)
+    man['cpu'] = small
+    xs = torch.from_numpy(np.random.RandomState(81).rand(
+        *EXPORT_SMALL, 3).astype(np.float32))
+    torch.save(xs, os.path.join(tmp, 'small.pt'))
+    with open(os.path.join(tmp, 'manifest.json'), 'w') as f:
+        json.dump(man, f)
+    print('[export] exported (bs=32, 640 px, NMS in; export + save): ' +
+          ', '.join(f'{n} {s:.1f} s {b / 2 ** 20:.1f} MiB'
+                    for n, (s, b) in info.items()) + f'  [{card}]')
+
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-c', EXPORT_CHILD, tmp],
+                          capture_output=True, text=True, timeout=600,
+                          env=env)
+    child_s = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f'[export] the loading process failed:\n{proc.stderr[-3000:]}')
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(child['mods'] == [], f'[export] the loading process imported '
+            f'{child["mods"]}')
+    res = child['res']
+
+    expect = {'fp32': {'similarity': 3, 'nms': 1},
+              'bf16': {'similarity_bf16': 3, 'nms': 1},
+              'int8': {'similarity': 3, 'nms': 1, 'int8_conv': INT8_BLOCKS}}
+    launches = {}
+    for name, d in dets.items():
+        got_n = res[name]['launches']
+        want_n = {k: expect[name].get(k, 0) for k in got_n}
+        require(got_n == want_n, f'[export] {name} artifact launched '
+                f'{got_n}, not {want_n}')
+        for k, v in got_n.items():
+            launches[k] = launches.get(k, 0) + v
+        got = torch.load(os.path.join(tmp, f'{name}.out.pt'))
+        with torch.inference_mode():
+            out = d.model(canv, d.offline_vocabulary, fused_scores=True)
+            want = batched_nms(out['boxes'], out['scores'], out['class_ids'],
+                               **ref_kw)
+        b_err, s_err, same = _export_diff(name, got, want)
+        def eager(d=d):
+            with torch.inference_mode():    # as detect_batch runs
+                o = d.model(canv, d.offline_vocabulary, fused_scores=True)
+                return batched_nms(o['boxes'], o['scores'], o['class_ids'],
+                                   **ref_kw)
+
+        eager_ms = _synced_ms(eager)
+        rate = _img_per_s(d, frames)
+        print(f'[export] {name} artifact in a fresh process (load '
+              f'{res[name]["load_s"]:.2f} s): one call launched {got_n}; '
+              f'vs eager model + batched_nms: count, class_ids, valid equal, '
+              f'max|box diff| {b_err:.3e}, max|score diff| {s_err:.3e}, '
+              f'bit-equal {same}; {B / res[name]["ms"] * 1e3:.1f} img/s '
+              f'({res[name]["ms"]:.3f} ms a call on canvases) vs eager '
+              f'{B / eager_ms * 1e3:.1f} img/s on the same canvases, eager '
+              f'detect_batch {rate:.1f} img/s  [{card}]')
+    require(res['cpu']['launches'] == {k: 0 for k in res['cpu']['launches']},
+            '[export] the artifact moved to the CPU launched a kernel')
+
+    cpu = YOLOCLIPDetector(InferenceConfig(host_preprocess=False),
+                           vocab_path=vocab_path, device='cpu', seed=0)
+    got = torch.load(os.path.join(tmp, 'cpu.out.pt'))
+    with torch.inference_mode():
+        want = cpu.model(xs, cpu.offline_vocabulary)
+    top2 = want['similarity'].topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < XDEV_TIE_GAP
+    s_err = (got['scores'] - want['scores']).abs().max().item()
+    bad = int(((got['class_ids'] != want['class_ids']) & ~tie).sum())
+    box_ok = torch.allclose(got['boxes'], want['boxes'], rtol=XDEV_BOX_RTOL,
+                            atol=XDEV_BOX_ATOL)
+    print(f'[export] bs=2 160-px artifact traced on the card, run on the CPU '
+          f'(move_to_device_pass) vs the CPU eager path: max|score diff| '
+          f'{s_err:.3e} (tol {XDEV_SCORE_ATOL:g}), id mismatches outside '
+          f'near-ties {bad}, boxes within rtol {XDEV_BOX_RTOL:g} atol '
+          f'{XDEV_BOX_ATOL:g} {box_ok}; loading process {child_s:.1f} s')
+    require(s_err <= XDEV_SCORE_ATOL and bad == 0 and box_ok,
+            '[export] the CPU-moved artifact disagrees with the CPU path')
+
+    ab = _dispatch_ab({'float bf16': bf, 'int8 bf16': qbf}, frames)
+    us_direct, us_op = ab[('us a call', True)], ab[('us a call', False)]
+    print(f'[export] dispatch A/B, host time of one kernel-2 call (32 boxes, '
+          f'median of 5 rounds of 2000 calls): straight {us_direct:.2f} us, '
+          f'through the custom op {us_op:.2f} us (+{us_op - us_direct:.2f} '
+          f'us a call)  [{card}]')
+    for name, calls in (('float bf16', 4), ('int8 bf16', 4 + INT8_BLOCKS)):
+        direct, op = ab[(name, True)], ab[(name, False)]
+        print(f'[export] dispatch A/B, {name} detect_batch bs={BATCH} (median '
+              f'of 5 rounds in turns, each a median of 10 synced calls; '
+              f'{calls} kernel calls a forward): straight {direct:.1f} img/s, '
+              f'through the custom ops {op:.1f} img/s, op cost '
+              f'{(direct - op) / direct * 100:.2f} % (the per-call cost '
+              f'predicts {(us_op - us_direct) * calls / (BATCH / direct * 1e6) * 100:.2f} %)  [{card}]')
+    return launches
+
+
 def _train_batch(n: int, seed: int, size: int = 640, classes: int = 80):
     """A synthetic detection batch at full width, numpy: 2-8 objects of
     32-256 px per image, `classes` class ids, 100 target slots, and every
@@ -3623,8 +3899,13 @@ def main() -> int:
         int8_launches = phase_int8_path(sim, nms, i8, det, bf, vocab_path,
                                         frames, card)
         stem_launches = phase_stems(sim, nms, vocab_path, frames)
+        t0 = time.perf_counter()
+        export_launches = phase_export(sim, nms, i8, det, bf, vocab_path,
+                                       frames, tmp, card)
+        print(f'[export] phase seconds: {time.perf_counter() - t0:.1f}  '
+              f'[{card}]')
         paths = [main_launches, prompt_launches, int8_launches,
-                 stem_launches,
+                 stem_launches, export_launches,
                  *phases_serving(sim, nms, det, bf, vocab_path, tmp, card),
                  phase_profile(sim, nms, bf, frames, tmp, card)]
         del det, bf

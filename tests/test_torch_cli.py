@@ -126,20 +126,32 @@ def test_stream_image_dir_source(files):
 
 
 def test_warmup_cli(files, caplog):
+    """The native build on the CPU route, then the JAX CLI's documented
+    command line (`yoloclip_tpu/cli/warmup.py`: --classes person,car
+    --batch-sizes 1,8,32 --int8) with its other flags, at 64 px: each
+    batch size and frame size runs once and is logged; also in the uint8
+    space-to-depth stem layout."""
     from yoloclip_tpu_torch import _build
     from yoloclip_tpu_torch.cli import warmup
     _, tower, _, _, _ = files
     caplog.set_level('INFO')
-    assert warmup.main(['--device', 'cpu']) == 0
-    assert 'native/dataload.cpp built and loaded' in caplog.text
-    assert 'csrc/' not in caplog.text          # no nvcc on the CPU route
-    assert _build._native_out('dataload').exists()
-    for extra in ([], ['--stem-u8-s2d']):
+    jax_line = ['--classes', 'person,car', '--batch-sizes', '1,8,32',
+                '--int8']
+    for extra in (['--frame-sizes', '48x80,100x30', '--host-preprocess',
+                   'on', '--conf', '0.1'], ['--stem-u8-s2d']):
         caplog.clear()
-        assert warmup.main(['--int8', '--device', 'cpu', '--image-size',
-                            '64', '--text-checkpoint', tower] + extra) == 0
+        assert warmup.main(jax_line + extra + [
+            '--device', 'cpu', '--image-size', '64',
+            '--text-checkpoint', tower]) == 0
+        assert 'native/dataload.cpp built and loaded' in caplog.text
+        assert 'csrc/' not in caplog.text      # no nvcc on the CPU route
         assert 'quantize_int8 calibration' in caplog.text
-        assert 'int8 detect_batch bs=2 @64px' in caplog.text
+        for bs in (1, 8, 32):
+            assert f'int8 detect_batch bs={bs} @64px' in caplog.text
+        if '--frame-sizes' in extra:
+            assert 'detect() 48x80' in caplog.text
+            assert 'detect() 100x30' in caplog.text
+    assert _build._native_out('dataload').exists()
 
 
 def test_demo_cli(files):
@@ -165,3 +177,38 @@ def test_coco_results_helpers_match_jax(tmp_path):
     jmetrics.save_coco_results(str(tmp_path / 'b.json'), got)
     assert (tmp_path / 'a.json').read_text() == \
         (tmp_path / 'b.json').read_text()
+
+
+CLIS = ('demo', 'detect', 'eval', 'export', 'inspect', 'serve', 'stream',
+        'train', 'warmup')
+
+
+def _option_strings(path):
+    """Every option string ('-x', '--x') given to an add_argument call in
+    a CLI's source."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {a.value for node in ast.walk(tree)
+            if isinstance(node, ast.Call)
+            and getattr(node.func, 'attr', None) == 'add_argument'
+            for a in node.args
+            if isinstance(a, ast.Constant) and isinstance(a.value, str)
+            and a.value.startswith('-')}
+
+
+@pytest.mark.parametrize('name', CLIS)
+def test_cli_flags_cover_jax(name):
+    """The port's parser of each CLI takes every option string of the JAX
+    package's, both read from their add_argument calls (the JAX CLIs are
+    not imported)."""
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    jax_cli = os.path.join(repo, 'yoloclip_tpu', 'cli', f'{name}.py')
+    port_cli = os.path.join(repo, 'yoloclip_tpu_torch', 'cli', f'{name}.py')
+    assert {os.path.basename(p)[:-3] for p in os.listdir(os.path.dirname(
+        jax_cli)) if p.endswith('.py') and p != '__init__.py'} == set(CLIS)
+    want = _option_strings(jax_cli)
+    assert want, name
+    assert want <= _option_strings(port_cli), sorted(
+        want - _option_strings(port_cli))

@@ -262,7 +262,8 @@ def test_unported_paths_raise(pair, weights, tower_npz, tmp_path):
     qdet = YOLOCLIPDetector(int8, vocab_path=path, device='cpu')
     got = qdet.detect(img)
     assert 0 < len(got) <= 4 and all(np.isfinite(d['score']) for d in got)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):   # orbax dir
+    with pytest.raises(NotImplementedError,
+                       match='tools/orbax_to_torch.py --text'):   # orbax dir
         YOLOCLIPDetector(cfg, vocab_path=path, text_checkpoint=str(tmp_path),
                          device='cpu')
 

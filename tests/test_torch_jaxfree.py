@@ -1,8 +1,10 @@
 """The port must run where JAX is not installed (the GPU machine has none).
 
 In a fresh interpreter: import every `yoloclip_tpu_torch` module, run a
-tiny CPU `detect_batch` from a JSON vocabulary, build a detector from class
-names with a miniature text tower and run `detect` with free-text prompts,
+tiny CPU `detect_batch` from a JSON vocabulary, print `cli.export`'s help,
+export that detector (`utils/export.py`) and run the artifact, build a
+detector from class names with a miniature text tower and run `detect`
+with free-text prompts,
 serve one request through a `DetectionServer` (the native host letterbox)
 and close it, run one `StreamingDetector.step`, quantize the detector to
 the int8 deploy graph (`quantize_int8`) and run a `detect_batch`, take
@@ -14,6 +16,10 @@ stage and trace a `detect_batch` (`utils/profiling.py`,
 `utils/general.py`), then check that neither
 jax, jaxlib, flax nor any module of the JAX package (`yoloclip_tpu`) was
 imported.
+
+`tools/` is outside the scan: its converter (`tools/orbax_to_torch.py`)
+reads JAX orbax checkpoints, so it imports JAX and the JAX package by
+design and runs where JAX is installed, never as part of the port.
 """
 
 import json
@@ -56,6 +62,17 @@ det = YOLOCLIPDetector(cfg, vocab_path=path, text_checkpoint=tower,
                        device='cpu', seed=0)
 out = det.detect_batch(np.zeros((1, 48, 64, 3), np.uint8))
 assert out['boxes'].shape == (1, 8, 4) and int(out['count'][0]) > 0
+from yoloclip_tpu_torch.cli.export import main as export_main
+try:
+    export_main(['--device', 'cpu', '--help'])
+except SystemExit as e:
+    assert e.code == 0
+from yoloclip_tpu_torch.utils.export import export_detector, load_exported
+art = export_detector(det.model, det.offline_vocabulary, (1, 64, 64),
+                      os.path.join(sys.argv[1], 'det.pt2'),
+                      conf_threshold=-1.0, nms_topk=32, max_detections=8)
+got = load_exported(art, device='cpu')(torch.rand(1, 64, 64, 3))
+assert got['boxes'].shape == (1, 8, 4) and int(got['count'][0]) > 0
 det = YOLOCLIPDetector(cfg, class_names=['cat', 'dog'], text_checkpoint=tower,
                        device='cpu', seed=0)
 dets = det.detect(np.zeros((48, 64, 3), np.uint8),

@@ -241,3 +241,24 @@ def test_kernel_algorithm_matches_greedy(K, kind):
     np.testing.assert_array_equal(_kernel_model(boxes, valid, thr), want)
     if kind == 'chain':
         assert want[1::2].all() and not want[2::2].any()
+
+
+@pytest.mark.parametrize('suppress', [True, False])
+def test_nms_op_cpu_impl_and_fake(suppress):
+    """`yoloclip::nms_keep`: the cpu implementation is the plain version
+    (a fresh tensor also when nothing is suppressed and the fixed point is
+    `valid` itself), the fake gives its shape, dtype and strides."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    rng = np.random.RandomState(5)
+    boxes = torch.from_numpy(random_candidates(rng, 40)[None].repeat(2, 0))
+    valid = torch.from_numpy(rng.rand(2, 40) > 0.3)
+    thr = 0.45 if suppress else 2.0
+    real = port_keep.KEEP_OP.op(boxes, valid, thr)
+    assert torch.equal(real, port_keep.nms_keep_plain(boxes, valid, thr))
+    assert suppress != torch.equal(real, valid)
+    assert real.data_ptr() != valid.data_ptr()
+    with FakeTensorMode() as mode:
+        fake = port_keep.KEEP_OP.op(mode.from_tensor(boxes),
+                                    mode.from_tensor(valid), thr)
+    assert (fake.shape, fake.dtype, fake.stride()) == (
+        real.shape, real.dtype, real.stride())

@@ -228,6 +228,35 @@ def test_int8_conv_wrapper_checks():
         int8_conv(x, *ok[:3], torch.ones(1), 1)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('stride,epilogue', [(1, True), (2, True),
+                                             (2, False)])
+def test_int8_conv_op_cpu_impl_and_fake(dtype, stride, epilogue):
+    """`yoloclip::int8_conv`: the cpu implementation is the plain version
+    bit for bit; the fake gives its shape, dtype (int32 without the
+    epilogue) and channels_last strides."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from yoloclip_tpu_torch.ops.kernels.int8_conv import CONV_OP
+    rng = np.random.RandomState(stride + 2 * epilogue)
+    x = torch.from_numpy(rng.randn(2, 64, 9, 7).astype(np.float32)).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    args = (x, torch.from_numpy(rng.randint(-127, 128, (128, 3, 3, 64))
+                                .astype(np.int8)),
+            torch.from_numpy(rng.rand(128).astype(np.float32) / 100),
+            torch.from_numpy(rng.randn(128).astype(np.float32)),
+            torch.tensor(0.02), stride, epilogue)
+    real = CONV_OP.op(*args)
+    assert torch.equal(real, int8_conv_plain(*args))
+    with FakeTensorMode() as mode:
+        fake = CONV_OP.op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                            else a for a in args))
+    assert (fake.shape, fake.dtype, fake.stride()) == (
+        real.shape, real.dtype, real.stride())
+    assert real.dtype == (dtype if epilogue else torch.int32)
+    assert real.is_contiguous(memory_format=torch.channels_last)
+
+
 @pytest.mark.parametrize('k,cin,cout,stride', [(3, 64, 128, 1),
                                                (3, 80, 160, 2),
                                                (3, 256, 256, 1),

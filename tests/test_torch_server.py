@@ -429,7 +429,8 @@ def test_build_server(tower, tmp_path):
     checkpoint directory as --model is refused."""
     from yoloclip_tpu_torch.cli.serve import build_server
     from yoloclip_tpu_torch.models.yolo_clip import build_model
-    with pytest.raises(NotImplementedError, match='ROADMAP.*orbax'):
+    with pytest.raises(NotImplementedError,
+                       match='orbax.*tools/orbax_to_torch.py'):
         build_server(_serve_args(model=str(tmp_path), text_checkpoint=tower))
     path = str(tmp_path / 'detector.pth')
     torch.save(build_model(ModelConfig(image_size=(SIZE, SIZE)),

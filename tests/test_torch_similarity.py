@@ -342,3 +342,49 @@ def test_bf16_plain_matches_pallas_unprojected(normalize_obj):
     assert not ((got_i.numpy() != np.asarray(want_i)) & ~tie).any()
     assert got_s[0, 5] == 0.0 and got_i[0, 5] == 0
     assert not (got_i == 140).any()
+
+
+def _fake_like(real_fn, *args):
+    """real_fn(*args) run under FakeTensorMode on fake copies of args."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode() as mode:
+        return real_fn(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                         else a for a in args))
+
+
+@pytest.mark.parametrize('mode', ['folded', 'unprojected'])
+def test_similarity_ops_cpu_impl_and_fake(mode):
+    """`yoloclip::fused_projected_similarity_argmax` and
+    `yoloclip::fused_similarity_argmax`: the cpu implementation is the
+    plain version (bit for bit, also through the wrapper under no_grad,
+    where an eager call skips the dispatcher);
+    the fake gives its shapes, dtypes and strides; backward through the
+    op raises (no autograd formula)."""
+    rng = np.random.RandomState(13)
+    text = torch.from_numpy(normed(rng, (2, 7, 128)))
+    if mode == 'folded':
+        rows = torch.from_numpy(rng.randn(2, 30, 128).astype(np.float32))
+        W = torch.from_numpy((rng.randn(128, 128) / 8).astype(np.float32))
+        b = torch.from_numpy(rng.randn(128).astype(np.float32))
+        op, args = port.FOLDED_OP.op, (rows, text, W, b, 5)
+        plain = port.similarity_argmax_plain(*args)
+        wrapper = lambda r: port.fused_projected_similarity_argmax(
+            r, text, W, b, 5)
+    else:
+        rows = torch.from_numpy(rng.randn(2, 30, 128).astype(np.float32))
+        op, args = port.UNPROJECTED_OP.op, (rows, text, 5, True)
+        plain = port.similarity_argmax_reference_plain(*args)
+        wrapper = lambda r: port.fused_similarity_argmax(r, text, 5, True)
+    real = op(*args)
+    with torch.no_grad():
+        eager = wrapper(rows)
+    for r, e, p in zip(real, eager, plain):
+        assert torch.equal(r, p) and torch.equal(e, p)
+    fake = _fake_like(op, *args)
+    for r, f in zip(real, fake):
+        assert (f.shape, f.dtype, f.stride()) == (r.shape, r.dtype,
+                                                  r.stride())
+    assert [t.dtype for t in real] == [torch.float32, torch.int32]
+    scores, _ = wrapper(rows.clone().requires_grad_())
+    with pytest.raises(RuntimeError, match='no autograd formula'):
+        scores.sum().backward()

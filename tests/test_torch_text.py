@@ -204,7 +204,8 @@ def test_checkpoint_files_load(mini_params, encoders, tmp_path):
                                rtol=0, atol=1e-6)
     # the .pth was stored in fp16: its weights round, the shapes agree
     assert from_pth(PROMPTS[:4]).shape == want.shape
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(NotImplementedError,
+                       match='tools/orbax_to_torch.py --text'):
         CLIPTextEncoder(checkpoint_path=str(tmp_path), device='cpu')
     with pytest.raises(ValueError, match='embed_dim'):
         CLIPTextEncoder(checkpoint_path=npz, embed_dim=256, device='cpu')

@@ -22,8 +22,11 @@ Pallas twin: `ops/kernels/int8_conv.py` (`csrc/int8_conv.cu`), the
 quantize -> s8 x s8 -> s32 conv -> dequant + bias + SiLU of an eligible
 ConvBlock, which replaces the XLA int8 conv of the JAX package's ConvBlock.
 
-Each kernel wrapper runs its plain PyTorch version for CPU tensors only;
-for CUDA tensors it launches the kernel or raises.
+Each kernel is a `torch.library` op (`ops/kernels/library.py`) whose cpu
+implementation is the plain PyTorch version and whose cuda implementation
+the kernel: a wrapper runs the plain version for CPU tensors only, and for
+CUDA tensors launches the kernel or raises. Being ops, the kernels stay in
+a `torch.export` artifact of the detector (`utils/export.py`).
 
 This package imports torch and never jax, and nothing of the JAX package:
 what it shares with it (the config dataclasses, the weight key map, the

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from yoloclip_tpu_torch import native
-from yoloclip_tpu_torch.config import InferenceConfig
+from yoloclip_tpu_torch.config import InferenceConfig, ModelConfig
 from yoloclip_tpu_torch.models.layers import space_to_depth2
 from yoloclip_tpu_torch.models.yolo_clip import (build_model,
                                                  cast_compute_dtype)
@@ -55,6 +55,8 @@ from yoloclip_tpu_torch.text.encoder import CLIPTextEncoder
 from yoloclip_tpu_torch.text.vocab import VocabularyBuilder
 from yoloclip_tpu_torch.utils.checkpoint import (is_training_checkpoint,
                                                  load_checkpoint)
+from yoloclip_tpu_torch.utils.convert import (is_reference_checkpoint,
+                                              reference_state_dicts)
 from yoloclip_tpu_torch.utils.visualize import draw_detections
 
 logger = logging.getLogger(__name__)
@@ -95,18 +97,27 @@ def _unpack_detections(packed: np.ndarray, names: Sequence[str]
     return dets, saturated
 
 
-def load_detector_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A detector checkpoint -> reference-layout state dict: a torch
-    `.pt`/`.pth` file holding one (or a module with `.state_dict()`), or a
-    training checkpoint (`utils/checkpoint.py`), whose EMA parameters are
-    served when it tracked them (over its BatchNorm buffers), as the JAX
-    detector serves `ema_params`."""
+def load_detector_weights(path: str, cfg: ModelConfig
+                          ) -> Tuple[Dict[str, torch.Tensor],
+                                     Optional[Dict[str, torch.Tensor]]]:
+    """A detector checkpoint -> (reference-layout state dict, the text
+    tower's OpenAI-layout state dict or None). The file is a torch
+    `.pt`/`.pth` holding a state dict (or a module with `.state_dict()`);
+    a training checkpoint (`utils/checkpoint.py`), whose EMA parameters
+    are served when it tracked them (over its BatchNorm buffers), as the
+    JAX detector serves `ema_params`; or a reference trainer checkpoint,
+    or state dict with the CLIP tower under `text_encoder.clip_model.*`
+    (`utils/convert.py::load_reference_checkpoint`), whose tower comes back
+    too. A JAX orbax directory is refused with the converter's command
+    line (`tools/orbax_to_torch.py`)."""
     ckpt = load_checkpoint(path)
     if is_training_checkpoint(ckpt):
-        return {**ckpt['model'], **(ckpt.get('ema') or {})}
+        return {**ckpt['model'], **(ckpt.get('ema') or {})}, None
+    if is_reference_checkpoint(ckpt):
+        return reference_state_dicts(ckpt, cfg)
     if hasattr(ckpt, 'state_dict'):
         ckpt = ckpt.state_dict()
-    return ckpt
+    return ckpt, None
 
 
 def _imread_rgb(path: str) -> np.ndarray:
@@ -130,10 +141,11 @@ class YOLOCLIPDetector:
         vocabulary is `config.class_names` when `config.use_offline_vocab`
         is set; otherwise every call must pass text_prompts.
         text_checkpoint: the text tower's weights (.npz or an OpenAI
-        .pt/.pth); None = random init from `seed`. state_dict: detector
+        .pt/.pth); None = the tower of a reference checkpoint at
+        model_path, else random init from `seed`. state_dict: detector
         weights in the reference key layout (e.g.
         `utils.convert.state_dict_from_jax`); None = the file at
-        model_path (`load_detector_state_dict`) or, with neither, random
+        model_path (`load_detector_weights`) or, with neither, random
         init from `seed`. device: where everything runs -- a CUDA device
         runs the kernels, the CPU their plain versions."""
         cfg = config or InferenceConfig()
@@ -145,8 +157,10 @@ class YOLOCLIPDetector:
         self.image_size = tuple(cfg.model.image_size)
         self.conf_threshold = cfg.conf_threshold
         self.iou_threshold = cfg.iou_threshold
+        text_state = None
         if state_dict is None and model_path is not None:
-            state_dict = load_detector_state_dict(model_path)
+            state_dict, text_state = load_detector_weights(model_path,
+                                                           cfg.model)
         if state_dict is None:
             logger.warning('No weights given: random-init weights '
                            '(shape/latency bring-up mode)')
@@ -165,6 +179,7 @@ class YOLOCLIPDetector:
         self.quantized = False
         self.text_encoder = CLIPTextEncoder(
             cfg.model.clip_model, cfg.model.embed_dim,
+            state_dict=None if text_checkpoint else text_state,
             checkpoint_path=text_checkpoint, seed=seed,
             dtype=cfg.model.dtype, device=self.device)
         self.vocab_builder = VocabularyBuilder(self.text_encoder)

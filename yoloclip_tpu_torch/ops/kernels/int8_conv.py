@@ -16,8 +16,10 @@ int8 `wq` (Cout, 3, 3, Cin), fp32 `wscale` and `qbias` (Cout,), a 0-d fp32
 returned as (B, Cout, Ho, Wo) channels_last. With epilogue=False the raw
 int32 accumulator comes back instead (the bit-exactness check only).
 
-`int8_conv` runs `int8_conv_plain` for CPU tensors and the CUDA kernel
-(`csrc/int8_conv.cu`) for CUDA tensors; it never swaps one for the other.
+`int8_conv` checks its arguments and calls the custom op
+`yoloclip::int8_conv` (`ops/kernels/library.py`), which runs
+`int8_conv_plain` for CPU tensors and the CUDA kernel (`csrc/int8_conv.cu`)
+for CUDA tensors; it never swaps one for the other.
 The plain version quantizes with torch.round, convolves in float64, where
 every sum of int8 products is exact (at most 9 * Cin * 127^2, 37 M at
 Cin = 256, past fp32's 2^24), and applies the same epilogue, each
@@ -39,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from yoloclip_tpu_torch import _build
+from yoloclip_tpu_torch.ops.kernels import library
 
 # Launches of the CUDA kernel (incremented only where it launches); the
 # bf16-input launches are also counted apart.
@@ -127,15 +130,23 @@ def _aligned(t: torch.Tensor, memory_format=torch.contiguous_format):
         memory_format=memory_format)
 
 
+def _new_out(x: torch.Tensor, wq: torch.Tensor, stride: int,
+             epilogue: bool) -> torch.Tensor:
+    """The kernel's uninitialised output, (B, Cout, Ho, Wo) channels_last;
+    also the op's fake."""
+    B, _, H, W = x.shape
+    return torch.empty(
+        (B, wq.shape[0], (H - 1) // stride + 1, (W - 1) // stride + 1),
+        dtype=x.dtype if epilogue else torch.int32, device=x.device,
+        memory_format=torch.channels_last)
+
+
 def _launch(x, wq, wscale, qbias, act_scale, stride, epilogue):
     global launches, launches_bf16
     lib, fns = _fns()
     B, cin, H, W = x.shape
     cout = wq.shape[0]
-    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    out = torch.empty((B, cout, Ho, Wo),
-                      dtype=x.dtype if epilogue else torch.int32,
-                      device=x.device, memory_format=torch.channels_last)
+    out = _new_out(x, wq, stride, epilogue)
     if out.numel() == 0:
         return out
     x = _aligned(x, torch.channels_last)
@@ -152,6 +163,17 @@ def _launch(x, wq, wscale, qbias, act_scale, stride, epilogue):
     return out
 
 
+def _conv_fake(x, wq, wscale, qbias, act_scale, stride, epilogue):
+    return _new_out(x, wq, stride, epilogue)
+
+
+CONV_OP = library.KernelOp(
+    'int8_conv', 'int8 conv',
+    '(Tensor x, Tensor wq, Tensor wscale, Tensor qbias, Tensor act_scale, '
+    'int stride, bool epilogue) -> Tensor',
+    int8_conv_plain, _launch, _conv_fake)
+
+
 def int8_conv(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
               qbias: torch.Tensor, act_scale: torch.Tensor, stride: int,
               epilogue: bool = True) -> torch.Tensor:
@@ -160,9 +182,5 @@ def int8_conv(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     silu(dequantized conv + qbias) (B, Cout, Ho, Wo) in x's dtype,
     channels_last (int32 accumulator with epilogue=False)."""
     _check(x, wq, wscale, qbias, act_scale, stride)
-    if x.device.type == 'cpu':
-        return int8_conv_plain(x, wq, wscale, qbias, act_scale, stride,
-                               epilogue)
-    if x.device.type == 'cuda':
-        return _launch(x, wq, wscale, qbias, act_scale, stride, epilogue)
-    raise RuntimeError(f'no int8 conv kernel for device {x.device}')
+    return CONV_OP(x, wq, wscale, qbias, act_scale, int(stride),
+                   bool(epilogue))

@@ -6,9 +6,11 @@ and no kept candidate ranked before it overlaps it with
 `pairwise_iou > iou_threshold` -- the exact greedy result of
 `yoloclip_tpu/ops/nms.py::_greedy_keep`.
 
-`nms_keep` runs `nms_keep_plain` (the fixed-point iteration of
-`_fixpoint_keep` over `pairwise_iou`) for CPU tensors and the CUDA kernel
-(`csrc/nms.cu`) for CUDA tensors; it never swaps one for the other. Both
+`nms_keep` calls the custom op `yoloclip::nms_keep`
+(`ops/kernels/library.py`), which runs `nms_keep_plain` (the fixed-point
+iteration of `_fixpoint_keep` over `pairwise_iou`) for CPU tensors and the
+CUDA kernel (`csrc/nms.cu`) for CUDA tensors; it never swaps one for the
+other. Both
 use the IoU of `ops/boxes.py::pairwise_iou` with every operation rounded
 on its own, so their keep masks are bit-identical.
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from yoloclip_tpu_torch import _build
+from yoloclip_tpu_torch.ops.kernels import library
 from yoloclip_tpu_torch.ops.boxes import pairwise_iou
 
 # Launches of the CUDA kernel (incremented only where it launches).
@@ -128,13 +131,28 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
+def _keep_cpu(boxes: torch.Tensor, valid: torch.Tensor,
+              iou_threshold: float) -> torch.Tensor:
+    keep = nms_keep_plain(boxes.float(), valid.to(torch.bool), iou_threshold)
+    # with nothing suppressed the plain fixed point is `valid` itself; an
+    # op's output must not alias its input
+    return keep.clone() if keep is valid else keep
+
+
+def _keep_fake(boxes: torch.Tensor, valid: torch.Tensor,
+               iou_threshold: float) -> torch.Tensor:
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
+KEEP_OP = library.KernelOp(
+    'nms_keep', 'NMS',
+    '(Tensor boxes, Tensor valid, float iou_threshold) -> Tensor',
+    _keep_cpu, _launch, _keep_fake)
+
+
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
              iou_threshold: float) -> torch.Tensor:
     """boxes (B, K, 4) xyxy sorted by score (best first), valid (B, K)
     bool -> keep (B, K) bool."""
     thr = float(np.float32(iou_threshold))   # compared in float32, as in JAX
-    if boxes.device.type == 'cpu':
-        return nms_keep_plain(boxes.float(), valid.to(torch.bool), thr)
-    if boxes.device.type == 'cuda':
-        return _launch(boxes, valid, thr)
-    raise RuntimeError(f'no NMS kernel for device {boxes.device}')
+    return KEEP_OP(boxes, valid, thr)

@@ -22,8 +22,12 @@ lowest argmax of obj . t over c < num_valid, the max divided by
 max(||obj||, 1e-12) when normalize_obj is set, without materialising
 (B, A, C). Plain version: `similarity_argmax_reference_plain`.
 
-Each wrapper runs its plain version for CPU tensors and the CUDA kernel for
-CUDA tensors; it never swaps one for the other. The kernel runs both
+Each mode is a custom op (`ops/kernels/library.py`):
+`yoloclip::fused_projected_similarity_argmax` and
+`yoloclip::fused_similarity_argmax`, whose cpu implementation is the plain
+version and whose cuda implementation the kernel; the wrappers call them,
+so each runs its plain version for CPU tensors and the CUDA kernel for
+CUDA tensors, and never swaps one for the other. The kernel runs both
 products on the tensor cores: bf16 as it is, fp32 as 3xTF32 (each operand
 split into TF32 high and low parts inside the kernel).
 
@@ -44,6 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from yoloclip_tpu_torch import _build
+from yoloclip_tpu_torch.ops.kernels import library
 from yoloclip_tpu_torch.parallel.collectives import ClassShard, merge_argmax
 
 NEG = -1e30
@@ -172,6 +177,27 @@ def _launch(h: torch.Tensor, ops: dict, C: int, E: int, nvalid: int
     return scores, ids
 
 
+def _folded_cuda(h: torch.Tensor, text: torch.Tensor, kernel: torch.Tensor,
+                 bias: torch.Tensor, num_valid: Optional[int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    ops = _prepare_folded(h.dtype, text, kernel, bias)
+    nvalid = text.shape[1] if num_valid is None else num_valid
+    return _launch(h, ops, text.shape[1], kernel.shape[1], nvalid)
+
+
+def _rows_fake(rows: torch.Tensor, *_) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, A) float32 scores and int32 ids of rows (B, A, D)."""
+    shape = rows.shape[:2]
+    return (rows.new_empty(shape, dtype=torch.float32),
+            rows.new_empty(shape, dtype=torch.int32))
+
+
+FOLDED_OP = library.KernelOp(
+    'fused_projected_similarity_argmax', 'similarity',
+    '(Tensor h, Tensor text, Tensor kernel, Tensor bias, int? num_valid) '
+    '-> (Tensor, Tensor)', similarity_argmax_plain, _folded_cuda, _rows_fake)
+
+
 def fused_projected_similarity_argmax(h: torch.Tensor, text: torch.Tensor,
                                       kernel: torch.Tensor,
                                       bias: torch.Tensor,
@@ -186,14 +212,8 @@ def fused_projected_similarity_argmax(h: torch.Tensor, text: torch.Tensor,
         h = h[None]
     if text.dim() == 2:
         text = text[None].expand(h.shape[0], -1, -1)
-    if h.device.type == 'cpu':
-        s, i = similarity_argmax_plain(h, text, kernel, bias, num_valid)
-    elif h.device.type == 'cuda':
-        ops = _prepare_folded(h.dtype, text, kernel, bias)
-        nvalid = text.shape[1] if num_valid is None else int(num_valid)
-        s, i = _launch(h, ops, text.shape[1], kernel.shape[1], nvalid)
-    else:
-        raise RuntimeError(f'no similarity kernel for device {h.device}')
+    s, i = FOLDED_OP(h, text, kernel, bias,
+                     None if num_valid is None else int(num_valid))
     return (s[0], i[0]) if squeeze else (s, i)
 
 
@@ -242,6 +262,20 @@ def _launch_unprojected(obj: torch.Tensor, text: torch.Tensor, nvalid: int,
     return scores, ids
 
 
+def _unprojected_cuda(obj: torch.Tensor, text: torch.Tensor,
+                      num_valid: Optional[int], normalize_obj: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    nvalid = text.shape[1] if num_valid is None else num_valid
+    return _launch_unprojected(obj, text, nvalid, normalize_obj)
+
+
+UNPROJECTED_OP = library.KernelOp(
+    'fused_similarity_argmax', 'similarity',
+    '(Tensor obj, Tensor text, int? num_valid, bool normalize_obj) '
+    '-> (Tensor, Tensor)', similarity_argmax_reference_plain,
+    _unprojected_cuda, _rows_fake)
+
+
 def fused_similarity_argmax(obj: torch.Tensor, text: torch.Tensor,
                             num_valid: Optional[int] = None,
                             normalize_obj: bool = False
@@ -254,14 +288,9 @@ def fused_similarity_argmax(obj: torch.Tensor, text: torch.Tensor,
         obj = obj[None]
     if text.dim() == 2:
         text = text[None].expand(obj.shape[0], -1, -1)
-    if obj.device.type == 'cpu':
-        s, i = similarity_argmax_reference_plain(obj, text, num_valid,
-                                                 normalize_obj)
-    elif obj.device.type == 'cuda':
-        nvalid = text.shape[1] if num_valid is None else int(num_valid)
-        s, i = _launch_unprojected(obj, text, nvalid, normalize_obj)
-    else:
-        raise RuntimeError(f'no similarity kernel for device {obj.device}')
+    s, i = UNPROJECTED_OP(obj, text,
+                          None if num_valid is None else int(num_valid),
+                          bool(normalize_obj))
     return (s[0], i[0]) if squeeze else (s, i)
 
 

@@ -23,7 +23,8 @@ import torch
 
 from yoloclip_tpu_torch.text.model import CLIPTextTransformer, init_text_weights
 from yoloclip_tpu_torch.text.tokenizer import CLIPTokenizer, default_tokenizer
-from yoloclip_tpu_torch.utils.convert import text_state_dict_from_flax
+from yoloclip_tpu_torch.utils.convert import (
+    flax_text_params_from_state_dict, text_state_dict_from_flax)
 
 
 def _bucket(n: int) -> int:
@@ -124,6 +125,11 @@ class CLIPTextEncoder:
         """The "a photo of a {}" template over each class name."""
         return self(['a photo of a ' + v for v in vocabulary])
 
+    def trainable_params(self) -> Dict[str, torch.nn.Parameter]:
+        """The tower's parameters by name. The tower is frozen (no
+        optimizer sees it); a fine-tuning path would start from these."""
+        return dict(self.model.named_parameters())
+
     def quality_issues(self) -> List[str]:
         """Degraded-quality conditions a serving stack must surface:
         embeddings from a random-init tower or a zero-merge tokenizer look
@@ -149,9 +155,9 @@ def load_text_tower_state_dict(path: str) -> Dict[str, torch.Tensor]:
     the tower lacks are not read)."""
     if os.path.isdir(path):
         raise NotImplementedError(
-            f'{path} is a directory: orbax checkpoints are not read by the '
-            'port (ROADMAP.md, queue A: orbax text-tower checkpoints); save '
-            'the tower as .npz')
+            f'{path} is a directory: JAX orbax text-tower checkpoints are '
+            'not read by the port. Convert it on a machine with JAX: python '
+            f'tools/orbax_to_torch.py --text {path} tower.pth')
     if path.endswith('.npz'):
         tree: Dict = {}
         with np.load(path, allow_pickle=False) as data:
@@ -167,3 +173,27 @@ def load_text_tower_state_dict(path: str) -> Dict[str, torch.Tensor]:
         sd = sd.state_dict()
     return {k: v.detach().float() for k, v in sd.items()
             if isinstance(v, torch.Tensor)}
+
+
+def save_text_tower_params(tower: Union['CLIPTextEncoder', torch.nn.Module,
+                                        Dict[str, torch.Tensor]],
+                           path: str) -> None:
+    """Write a text tower (an encoder, its `CLIPTextTransformer`, or an
+    OpenAI-layout state dict) as the JAX package's `.npz`: its flax param
+    tree flattened to `a/b/c` keys, fp32. `load_text_tower_state_dict`
+    and the JAX package's `load_text_tower_params` read it back."""
+    if isinstance(tower, CLIPTextEncoder):
+        tower = tower.model
+    sd = tower.state_dict() if isinstance(tower, torch.nn.Module) else tower
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node: Dict, prefix: str) -> None:
+        for k, v in node.items():
+            key = f'{prefix}/{k}' if prefix else k
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                flat[key] = np.asarray(v)
+
+    walk(flax_text_params_from_state_dict(sd), '')
+    np.savez(path, **flat)

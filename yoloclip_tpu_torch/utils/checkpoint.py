@@ -41,11 +41,10 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     """The dict `save_checkpoint` wrote, tensors on the CPU."""
     if os.path.isdir(path):
         raise NotImplementedError(
-            f'{path} is a directory: orbax checkpoints are not read by the '
-            'port (ROADMAP.md, queue A item 2: orbax checkpoints, whose '
-            'converter must import both frameworks); convert the variables '
-            'with utils.convert.state_dict_from_jax and torch.save the '
-            'state dict')
+            f'{path} is a directory: JAX orbax checkpoints are not read by '
+            'the port. Convert it on a machine with JAX: python '
+            f'tools/orbax_to_torch.py {path} model.pt (its EMA parameters '
+            'when present), then load model.pt')
     return torch.load(path, map_location='cpu', weights_only=True)
 
 

@@ -15,11 +15,18 @@ package:
 repo's module layout; `quant_state_dict_from_jax` the int8 deploy model's
 from the JAX package's `quantize_variables` output; and
 `text_state_dict_from_flax` the CLIP text tower's in the OpenAI layout.
+
+Reference torch checkpoints need no key map (the port's keys and its text
+tower's are the reference's): `load_reference_checkpoint` unwraps a
+trainer checkpoint's `model_state_dict` and splits off the CLIP tower
+(`extract_text_tower`), as the JAX package's functions of those names do.
+JAX orbax directories convert on a machine with JAX through
+`tools/orbax_to_torch.py`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -247,3 +254,111 @@ def text_state_dict_from_flax(params: Dict[str, Any]
             p + 'mlp.c_proj.bias': _tensor(blk['c_proj']['bias']),
         })
     return sd
+
+
+def flax_text_params_from_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of `text_state_dict_from_flax`: an OpenAI-layout text
+    tower -> the JAX text tower's param tree of fp32 numpy arrays (the
+    layout of the JAX package's `convert_openai_state_dict`)."""
+    def a(key):
+        return torch.as_tensor(sd[key]).detach().cpu().float().numpy()
+
+    params: Dict[str, Any] = {
+        'token_embedding': a('token_embedding.weight'),
+        'positional_embedding': a('positional_embedding'),
+        'text_projection': a('text_projection'),
+        'ln_final': {'scale': a('ln_final.weight'),
+                     'bias': a('ln_final.bias')},
+    }
+    i = 0
+    while f'transformer.resblocks.{i}.ln_1.weight' in sd:
+        p = f'transformer.resblocks.{i}.'
+        params[f'resblocks_{i}'] = {
+            'ln_1': {'scale': a(p + 'ln_1.weight'),
+                     'bias': a(p + 'ln_1.bias')},
+            'ln_2': {'scale': a(p + 'ln_2.weight'),
+                     'bias': a(p + 'ln_2.bias')},
+            'attn': {
+                'in_proj_weight': a(p + 'attn.in_proj_weight'),
+                'in_proj_bias': a(p + 'attn.in_proj_bias'),
+                'out_proj_weight': a(p + 'attn.out_proj.weight'),
+                'out_proj_bias': a(p + 'attn.out_proj.bias'),
+            },
+            'c_fc': {'kernel': a(p + 'mlp.c_fc.weight').T,
+                     'bias': a(p + 'mlp.c_fc.bias')},
+            'c_proj': {'kernel': a(p + 'mlp.c_proj.weight').T,
+                       'bias': a(p + 'mlp.c_proj.bias')},
+        }
+        i += 1
+    return params
+
+
+TEXT_PREFIX = 'text_encoder.clip_model.'
+
+
+def extract_text_tower(state_dict: Dict[str, Any],
+                       prefix: str = TEXT_PREFIX) -> Dict[str, torch.Tensor]:
+    """The CLIP text tower of a reference checkpoint (the full CLIP model
+    under `text_encoder.clip_model.*`) -> its OpenAI-layout state dict,
+    fp32: the tower's keys with the prefix stripped (`visual.*` and the
+    other keys of a full CLIP model are not read). Raises KeyError when the
+    prefix holds no text tower, as the JAX package's function does."""
+    sub = {k[len(prefix):]: v for k, v in state_dict.items()
+           if k.startswith(prefix)}
+    if 'transformer.resblocks.0.ln_1.weight' not in sub:
+        raise KeyError(f'no {prefix}transformer.resblocks.*.ln_1.weight '
+                       'keys: not a CLIP text tower')
+    keep = ('token_embedding.', 'positional_embedding', 'text_projection',
+            'ln_final.', 'transformer.resblocks.')
+    return {k: torch.as_tensor(v).detach().float() for k, v in sub.items()
+            if k.startswith(keep)}
+
+
+def load_reference_checkpoint(path: str, cfg: ModelConfig
+                              ) -> Tuple[Dict[str, torch.Tensor],
+                                         Optional[Dict[str, torch.Tensor]]]:
+    """A reference torch `.pth` (a trainer checkpoint holding
+    `model_state_dict`, or a bare state dict) -> (the detector's state
+    dict, its text tower's OpenAI-layout state dict or None).
+
+    The detector keys are those of `build_key_map(cfg)` that the file holds
+    (the auxiliary box towers only when present), floats in fp32, with
+    BatchNorm's `num_batches_tracked` set to 0 where the file has none;
+    every other key (the text encoder among them) is not read, as in the
+    JAX package. Loaded with `weights_only=True`: a reference
+    trainer checkpoint (model, AdamW and OneCycleLR state dicts, epoch)
+    holds only tensors and plain containers."""
+    return reference_state_dicts(
+        torch.load(path, map_location='cpu', weights_only=True), cfg)
+
+
+def is_reference_checkpoint(obj: Any) -> bool:
+    """A reference trainer checkpoint, or a state dict carrying the
+    reference's text encoder."""
+    return isinstance(obj, dict) and ('model_state_dict' in obj or any(
+        isinstance(k, str) and k.startswith('text_encoder.') for k in obj))
+
+
+def reference_state_dicts(ckpt: Any, cfg: ModelConfig
+                          ) -> Tuple[Dict[str, torch.Tensor],
+                                     Optional[Dict[str, torch.Tensor]]]:
+    """`load_reference_checkpoint` on an already loaded object."""
+    sd = ckpt.get('model_state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
+    out: Dict[str, torch.Tensor] = {}
+    for tkey, _, _ in build_key_map(cfg):
+        if tkey not in sd:
+            if '.box_conv.' in tkey:
+                continue
+            raise KeyError(f'missing reference key: {tkey}')
+        out[tkey] = torch.as_tensor(sd[tkey]).detach().float()
+        if tkey.endswith('.bn.running_var'):
+            nbt = tkey[:-len('running_var')] + 'num_batches_tracked'
+            out[nbt] = torch.as_tensor(
+                sd.get(nbt, torch.tensor(0))).to(torch.long)
+    text = None
+    if any(k.startswith(TEXT_PREFIX) for k in sd):
+        try:
+            text = extract_text_tower(sd)
+        except KeyError:
+            text = None
+    return out, text

@@ -1,11 +1,13 @@
-"""Box and label drawing. The port's copy of `draw_detections` from
+"""Box and label drawing and the precision-recall plot. The port's copy of
+`draw_detections` and `plot_precision_recall_curve` from
 `yoloclip_tpu/utils/visualize.py`: an HSV colour wheel, cv2 when present,
-else a pure-numpy rectangle outline."""
+else a pure-numpy rectangle outline; matplotlib, imported only by the plot
+(not every machine has it)."""
 
 from __future__ import annotations
 
 import colorsys
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -46,3 +48,24 @@ def draw_detections(image: np.ndarray, detections: Sequence[Dict],
             img[y1:y2 + 1, [x1, x2]] = color
             img[[y1, y2], x1:x2 + 1] = color
     return img
+
+
+def plot_precision_recall_curve(precisions: np.ndarray, recalls: np.ndarray,
+                                class_name: str = '',
+                                save_path: Optional[str] = None):
+    """The PR curve as a matplotlib figure (Agg backend), saved to
+    save_path (and closed) when given."""
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots(figsize=(6, 5))
+    ax.plot(recalls, precisions)
+    ax.set_xlabel('Recall')
+    ax.set_ylabel('Precision')
+    ax.set_title(f'PR curve {class_name}'.strip())
+    ax.set_xlim(0, 1)
+    ax.set_ylim(0, 1.05)
+    if save_path:
+        fig.savefig(save_path, bbox_inches='tight')
+        plt.close(fig)
+    return fig
