@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from yoloclip_tpu.config import InferenceConfig as JaxInferenceConfig
 from yoloclip_tpu.config import ModelConfig as JaxModelConfig
@@ -230,3 +231,35 @@ def test_spatial_deploy_variants(files, variant):
     assert [x['class_id'] for x in got] == [x['class_id'] for x in want]
     np.testing.assert_allclose([x['score'] for x in got],
                                [x['score'] for x in want], **tol)
+
+
+@pytest.mark.parametrize('shape,size', [((2, 3, 16, 16), (3, 3)),
+                                        ((1, 2, 8, 5), (3, 3)),
+                                        ((1, 2, 4, 4), (1, 3))])
+def test_adaptive_max_pool_deterministic_backward(shape, size):
+    """Under torch.use_deterministic_algorithms the I-Pool's adaptive max
+    pool (overlapping windows, ties included) takes the index_put_
+    backward, with F.adaptive_max_pool2d's output and gradient exactly
+    (integer values: every sum is exact)."""
+    from yoloclip_tpu_torch.parallel.spatial import _adaptive_max_pool
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randint(-3, 4, shape).astype(np.float32))
+    g = torch.from_numpy(rs.randint(-5, 6, shape[:2] + size)
+                         .astype(np.float32))
+    xr = x.clone().requires_grad_()
+    want = F.adaptive_max_pool2d(xr, size)
+    want.backward(g)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        xd = x.clone().requires_grad_()
+        got = _adaptive_max_pool(xd, size)
+        assert type(got.grad_fn).__name__ == \
+            '_DeterministicAdaptiveMaxPoolBackward'
+        got.backward(g)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert torch.equal(got, want)
+    assert torch.equal(xd.grad, xr.grad)
+    assert type(_adaptive_max_pool(xd, size).grad_fn).__name__ != \
+        '_DeterministicAdaptiveMaxPoolBackward'

@@ -209,7 +209,9 @@ class YOLOCLIPDetector:
         calibration: 'max' or 'percentile'. The weights fold from the fp32
         state the detector was built from. The whole serve graph stays
         (I-Pool included, in float), so prompts and vocabulary swaps keep
-        working. Irreversible: a second call raises."""
+        working. The int8-stored edges follow the threshold in force
+        (`models/layers.py::STORE_INT8_MIN_ELEMS`; off by default), as in
+        the JAX detector. Irreversible: a second call raises."""
         if self.quantized:
             raise RuntimeError('detector is already quantized (the swap is '
                                'irreversible); build a new YOLOCLIPDetector '

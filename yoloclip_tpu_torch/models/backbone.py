@@ -5,6 +5,12 @@ Returns (c3, c4, c5) at strides 8/16/32. Module names follow the reference
 torch layout: `stage{s}.0` conv, `stage{s}.1` CSP layer, `stage4.2` SPPF.
 `cfg.stem_s2d` runs the stem over the space-to-depth layout;
 `cfg.stem_u8_s2d` takes the (B, 12, H/2, W/2) 0..255 canvas as input.
+
+`store_out` marks the edges the int8 deploy graph may store as int8
+(`models/layers.py::QT`), the JAX package's: single-consumer edges into a
+ConvBlock, the stem -> stage1 conv and the stage1 / stage4 CSP outputs
+(into the stage2 conv and SPPF). An edge read twice (a conv feeding a CSP
+layer) or feeding the neck (c3, c4) is never marked.
 """
 
 from __future__ import annotations
@@ -25,10 +31,11 @@ class YOLOv8Backbone(nn.Module):
         dp = cfg.backbone_depths()
         q = cfg.quant
         self.stem = ConvBlock(3, ch[0], 3, 2, quant=q, s2d=cfg.stem_s2d,
-                              s2d_pre=cfg.stem_u8_s2d)
+                              s2d_pre=cfg.stem_u8_s2d, store_out=True)
         for s in range(1, 5):
             layers = [ConvBlock(ch[s - 1], ch[s], 3, 2, quant=q),
-                      CSPLayer(ch[s], ch[s], dp[s - 1], q)]
+                      CSPLayer(ch[s], ch[s], dp[s - 1], q,
+                               store_out=s in (1, 4))]
             if s == 4:
                 layers.append(SPPF(ch[4], ch[4], 5, q))
             setattr(self, f'stage{s}', nn.Sequential(*layers))

@@ -9,8 +9,10 @@ spells out, so converted weights load with strict=True.
 deploy graph (`quant='int8'`, `ops/quantize.py`), the BN-folded float conv
 {wf, fbias} or, for a block that passes `quant_eligible`, the int8 conv
 {wq, wscale, qbias, act_scale} through the hand-written kernel
-(`ops/kernels/int8_conv.py`). The JAX package's int8-stored `QT` edges are
-not ported: they are off at its default threshold. BatchNorm trains by
+(`ops/kernels/int8_conv.py`). A block marked `store_out` may hand its
+consumer an int8-stored edge (`QT`) instead of a float tensor, where the
+edge is large enough (`store_int8_eligible`; off at the default
+threshold, as in the JAX package). BatchNorm trains by
 flax's rule (`BatchNorm2d`), over the global batch under data parallelism.
 Under a height partition (`parallel/spatial.py`) every ConvBlock and
 SPPF pool runs through `spatial.halo`: the unchanged op on its rows
@@ -21,7 +23,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+import os
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -31,6 +34,44 @@ from torch import nn
 from yoloclip_tpu_torch.ops.kernels.int8_conv import int8_conv
 from yoloclip_tpu_torch.parallel import spatial
 from yoloclip_tpu_torch.parallel.collectives import all_gather_stack
+
+
+class QT(NamedTuple):
+    """An int8-stored activation edge of the int8 deploy graph: `q` int8
+    (B, C, H, W) channels_last, its 0-d fp32 dequantization `scale`, and
+    the compute dtype the edge stands for (the port's blocks take their
+    dtype from their input). A BN-folded consumer dequantizes on read
+    (`as_float`); an int8 conv consumer reads `q` as it is, with `scale`
+    in its epilogue in place of its own `act_scale`."""
+    q: torch.Tensor
+    scale: torch.Tensor
+    dtype: torch.dtype
+
+
+# Per-sample output elements (C H W) from which a `store_out` block stores
+# its output as a QT edge: read at import from the same environment
+# variable as the JAX package, with its default (off). The JAX package
+# measured the stored edges as an end-to-end loss on v5e and keeps them for
+# hardware where the trade may differ.
+STORE_INT8_MIN_ELEMS = int(os.environ.get('YOLOCLIP_STORE_INT8_MIN_ELEMS',
+                                          1 << 62))
+
+
+def store_int8_eligible(h: int, w: int, c: int) -> bool:
+    """Whether an (h, w, c) per-sample output is stored as int8: at least
+    32 channels and STORE_INT8_MIN_ELEMS elements (the module global, read
+    at call time)."""
+    return c >= 32 and h * w * c >= STORE_INT8_MIN_ELEMS
+
+
+def as_float(x: Union[torch.Tensor, QT], dtype: torch.dtype
+             ) -> torch.Tensor:
+    """A QT edge dequantized to `dtype` (q and scale each cast, then one
+    product, rounded once), or a float tensor as it is."""
+    if isinstance(x, QT):
+        return x.q.to(dtype) * x.scale.to(dtype)
+    return x
+
 
 # W8A8 eligibility thresholds, copied from the JAX package (measured there
 # on v5e: int8 wins on wide 3x3 convs and loses on narrow and 1x1 ones).
@@ -174,11 +215,20 @@ class ConvBlock(nn.Module):
     s32 conv -> dequant + bias + SiLU in one kernel launch; any other block
     carries the BN-folded fp32 kernel `wf` (Cout, Cin, k, k) and `fbias`,
     and runs conv, + fbias in fp32, SiLU, a cast to the compute dtype.
-    Both keep float in, float out."""
+
+    Int8-stored edges (int8 graph only). A block built with store_out=True
+    returns its output as a `QT` where `store_int8_eligible` holds for the
+    output's per-sample (C, H, W), H the whole frame's under a height
+    partition: clamp(round(y / out_scale), +-127) of the fp32 post-SiLU y,
+    before any cast to the compute dtype. Its 0-d fp32 `out_scale` is an
+    optional buffer, present where the loaded state dict holds it; an
+    eligible output without it raises, naming the block. A QT input is
+    dequantized on read by a BN-folded block and read as int8 by an int8
+    conv block, its scale in place of `act_scale`."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 1, quant: str = 'none', s2d: bool = False,
-                 s2d_pre: bool = False):
+                 s2d_pre: bool = False, store_out: bool = False):
         super().__init__()
         if s2d and s2d_pre:
             raise ValueError('s2d and s2d_pre are mutually exclusive')
@@ -188,6 +238,9 @@ class ConvBlock(nn.Module):
                 's=%d)' % (kernel_size, stride))
         self.k, self.stride, self.pad = kernel_size, stride, kernel_size // 2
         self.s2d, self.s2d_pre = s2d, s2d_pre
+        # the block's name in its model, for error messages (YOLOCLIP
+        # sets it)
+        self.block_name = 'ConvBlock'
         if quant == 'none':
             self.mode = 'float'
             self.conv = (_ConvKernel(cin, cout, kernel_size)
@@ -200,6 +253,9 @@ class ConvBlock(nn.Module):
             # (cin = 3 fails quant_eligible): keep that explicit
             assert not (s2d or s2d_pre), \
                 's2d/s2d_pre blocks must not take the int8 wq path'
+            # every store_out site is a 1x1 conv or the stem, so no int8
+            # conv block stores its output (nor does one in JAX)
+            assert not store_out, 'an int8 conv block stores no QT edge'
             self.mode = 'int8'
             self.register_buffer('wq', torch.zeros(
                 cout, kernel_size, kernel_size, cin, dtype=torch.int8))
@@ -214,6 +270,20 @@ class ConvBlock(nn.Module):
         else:
             raise ValueError(f"ConvBlock quant must be 'none' or 'int8', "
                              f'got {quant!r}')
+        # a store_out site: calibration records its output's range in the
+        # float graph; a BN-folded block stores it in the int8 graph
+        self.store_out = store_out
+        if store_out and self.mode == 'folded':
+            self.register_buffer('out_scale', None)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # out_scale is in the state dict exactly where calibration found
+        # the edge eligible: the buffer follows it
+        if self.store_out and self.mode == 'folded':
+            self.out_scale = (torch.ones(())
+                              if prefix + 'out_scale' in state_dict
+                              else None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -227,24 +297,56 @@ class ConvBlock(nn.Module):
             memory_format=torch.channels_last)
         return F.conv2d(x, w2, bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Union[torch.Tensor, QT]
+                ) -> Union[torch.Tensor, QT]:
         # rows of the op (kernel, stride, padding above): s2d_pre's input
         # rows are space-to-depth rows, a 2x2 conv padded one row above
         rows = (2, 1, 1) if self.s2d_pre else (self.k, self.stride, self.pad)
-        return spatial.halo(self._forward, x, *rows)
+        if isinstance(x, QT):
+            # the halo rows of an int8 edge are int8; the scale is shared
+            y = spatial.halo(
+                lambda q: self._forward(QT(q, x.scale, x.dtype)), x.q, *rows)
+        else:
+            y = spatial.halo(self._forward, x, *rows)
+        if self.store_out and self.mode == 'folded':
+            return self._store(y, x.dtype)
+        return y
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _store(self, y: torch.Tensor, dt: torch.dtype
+               ) -> Union[torch.Tensor, QT]:
+        """The fp32 post-SiLU output y as a QT edge where eligible, else y
+        in the compute dtype dt."""
+        _, c, h, w = y.shape
+        if not store_int8_eligible(spatial.global_rows(h), w, c):
+            return y.to(dt)
+        if self.out_scale is None:
+            raise KeyError(f'ConvBlock {self.block_name}: its {c}x'
+                           f'{spatial.global_rows(h)}x{w} output is an '
+                           f'int8-stored edge at STORE_INT8_MIN_ELEMS='
+                           f'{STORE_INT8_MIN_ELEMS}, but the state dict has '
+                           'no out_scale for it (calibrate and quantize '
+                           'with the same threshold)')
+        q = torch.clamp(torch.round(y.float() / self.out_scale), -127, 127)
+        return QT(q.to(torch.int8), self.out_scale, dt)
+
+    def _forward(self, x: Union[torch.Tensor, QT]) -> torch.Tensor:
         if self.mode == 'int8':
+            if isinstance(x, QT):
+                return int8_conv(x.q, self.wq, self.wscale, self.qbias,
+                                 x.scale, self.stride, out_dtype=x.dtype)
             return int8_conv(x, self.wq, self.wscale, self.qbias,
                              self.act_scale, self.stride)
         dt = x.dtype
         if self.mode == 'folded':
+            x = as_float(x, dt)
             w = self.wf * (1.0 / 255.0) if self.s2d_pre else self.wf
             w = w.to(dt)
             if dt == torch.float32:
                 return F.silu(self._conv(x, w, self.fbias))
-            # the conv's output + fbias in fp32, one cast at the end
-            return F.silu(self._conv(x, w) + self.fbias[:, None, None]).to(dt)
+            # the conv's output + fbias in fp32, one cast at the end (a
+            # storing block quantizes the fp32 value: _store casts)
+            y = F.silu(self._conv(x, w) + self.fbias[:, None, None])
+            return y if self.store_out else y.to(dt)
         w = self.conv.weight
         if self.s2d_pre:
             w = w * (1.0 / 255.0)
@@ -253,38 +355,44 @@ class ConvBlock(nn.Module):
 
 class DarkBottleneck(nn.Module):
     """1x1 squeeze to c/2 -> 3x3 expand to c; residual when the input
-    already has c channels and shortcut=True."""
+    already has c channels and shortcut=True. cv1 -> cv2 is a ConvBlock ->
+    ConvBlock edge, so cv1 may store it as int8."""
 
     def __init__(self, cin: int, cout: int, shortcut: bool = True,
                  quant: str = 'none'):
         super().__init__()
-        self.cv1 = ConvBlock(cin, cout // 2, 1, quant=quant)
+        self.cv1 = ConvBlock(cin, cout // 2, 1, quant=quant, store_out=True)
         self.cv2 = ConvBlock(cout // 2, cout, 3, quant=quant)
         self.add = shortcut and cin == cout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Union[torch.Tensor, QT]) -> torch.Tensor:
         y = self.cv2(self.cv1(x))
-        return x + y if self.add else y
+        return as_float(x, y.dtype) + y if self.add else y
 
 
 class CSPLayer(nn.Module):
-    """y1 = bottlenecks(cv1(x)); y2 = cv2(x); out = cv3(cat(y1, y2))."""
+    """y1 = bottlenecks(cv1(x)); y2 = cv2(x); out = cv3(cat(y1, y2)).
+    store_out: cv3's output may be an int8 edge (the caller's consumer
+    takes a QT)."""
 
     def __init__(self, cin: int, cout: int, n_bottlenecks: int = 1,
-                 quant: str = 'none'):
+                 quant: str = 'none', store_out: bool = False):
         super().__init__()
         c_ = cout // 2
         self.cv1 = ConvBlock(cin, c_, 1, quant=quant)
         self.cv2 = ConvBlock(cin, c_, 1, quant=quant)
-        self.cv3 = ConvBlock(2 * c_, cout, 1, quant=quant)
+        self.cv3 = ConvBlock(2 * c_, cout, 1, quant=quant,
+                             store_out=store_out)
         self.bottlenecks = nn.ModuleList(
             DarkBottleneck(c_, c_, True, quant) for _ in range(n_bottlenecks))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Union[torch.Tensor, QT]
+                ) -> Union[torch.Tensor, QT]:
         y1 = self.cv1(x)
         for m in self.bottlenecks:
             y1 = m(y1)
-        return self.cv3(torch.cat([y1, self.cv2(x)], dim=1))
+        y2 = self.cv2(x)
+        return self.cv3(torch.cat([as_float(y1, y2.dtype), y2], dim=1))
 
 
 class SPPF(nn.Module):
@@ -299,7 +407,7 @@ class SPPF(nn.Module):
         self.cv2 = ConvBlock(4 * c_, cout, 1, quant=quant)
         self.k = kernel_size
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Union[torch.Tensor, QT]) -> torch.Tensor:
         x = self.cv1(x)
         p = self.k // 2
         pool = functools.partial(F.max_pool2d, kernel_size=self.k, stride=1,

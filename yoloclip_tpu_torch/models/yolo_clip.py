@@ -31,8 +31,8 @@ from yoloclip_tpu_torch.models.backbone import YOLOv8Backbone
 from yoloclip_tpu_torch.models.heads import (BoxHead, TextContrastiveHead,
                                              decode_boxes, flatten_levels)
 from yoloclip_tpu_torch.models.heads import Proj1x1
-from yoloclip_tpu_torch.models.layers import (MultiHeadAttention, _ConvKernel,
-                                              at_least_fp32)
+from yoloclip_tpu_torch.models.layers import (ConvBlock, MultiHeadAttention,
+                                              _ConvKernel, at_least_fp32)
 from yoloclip_tpu_torch.models.neck import RepVLPAN
 from yoloclip_tpu_torch.ops.kernels.similarity import (
     NEG, fused_projected_similarity_argmax,
@@ -61,6 +61,9 @@ class YOLOCLIP(nn.Module):
                                 cfg.cls_alpha, cfg.cls_beta, with_aux_box, q)
             for c in fc)
         self.box_head = BoxHead(fc, cfg.hidden_dim, cfg.reg_max, q)
+        for name, m in self.named_modules():
+            if isinstance(m, ConvBlock):
+                m.block_name = name
 
     def forward(self, images: torch.Tensor, text: torch.Tensor,
                 fused_scores: bool = False,

@@ -16,6 +16,12 @@ int8 `wq` (Cout, 3, 3, Cin), fp32 `wscale` and `qbias` (Cout,), a 0-d fp32
 returned as (B, Cout, Ho, Wo) channels_last. With epilogue=False the raw
 int32 accumulator comes back instead (the bit-exactness check only).
 
+Int8 input (an int8-stored edge, `models/layers.py::QT`; the JAX
+package's `layers.py:260-266`): x is int8 already, `act_scale` is the
+edge's scale, there is no quantize step, and the output dtype (fp32 or
+bf16, the block's) is given as `out_dtype`. The kernel copies the int8
+halo straight from global memory; the epilogue is the same.
+
 `int8_conv` checks its arguments and calls the custom op
 `yoloclip::int8_conv` (`ops/kernels/library.py`), which runs
 `int8_conv_plain` for CPU tensors and the CUDA kernel (`csrc/int8_conv.cu`)
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,9 +51,11 @@ from yoloclip_tpu_torch import _build
 from yoloclip_tpu_torch.ops.kernels import library
 
 # Launches of the CUDA kernel (incremented only where it launches); the
-# bf16-input launches are also counted apart.
+# launches of bf16 blocks (bf16 output) and those with int8 input are also
+# counted apart.
 launches = 0
 launches_bf16 = 0
+launches_s8 = 0
 _count_lock = threading.Lock()   # shards on threads launch too
 
 _lib_fns = None
@@ -61,10 +70,11 @@ def quantize_plain(x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
 
 def int8_conv_plain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                     qbias: torch.Tensor, act_scale: torch.Tensor, stride: int,
-                    epilogue: bool = True) -> torch.Tensor:
+                    epilogue: bool = True,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The plain PyTorch version of `int8_conv` (same arguments)."""
     k = wq.shape[1]
-    q = quantize_plain(x, act_scale)
+    q = x if x.dtype == torch.int8 else quantize_plain(x, act_scale)
     w = wq.permute(0, 3, 1, 2)                       # (Cout, Cin, kh, kw)
     acc = F.conv2d(q.double(), w.double(), None, stride, k // 2).to(
         torch.int32)
@@ -72,35 +82,51 @@ def int8_conv_plain(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
         return acc.contiguous(memory_format=torch.channels_last)
     scale = wscale.float() * act_scale.float()
     y = acc.float() * scale[:, None, None] + qbias.float()[:, None, None]
-    return F.silu(y).to(x.dtype).contiguous(memory_format=torch.channels_last)
+    return F.silu(y).to(out_dtype or x.dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+# (input dtype, output dtype) -> the C launcher
+_SYMBOLS = {(torch.float32, torch.float32): 'yc_int8_conv_f32',
+            (torch.bfloat16, torch.bfloat16): 'yc_int8_conv_bf16',
+            (torch.int8, torch.float32): 'yc_int8_conv_s8_f32',
+            (torch.int8, torch.bfloat16): 'yc_int8_conv_s8_bf16'}
 
 
 def _fns():
-    """The loaded library and its two C launchers, argtypes set once."""
+    """The loaded library and its four C launchers, argtypes set once."""
     global _lib_fns
     if _lib_fns is None:
         lib = _build.load('int8_conv')
         fns = {}
-        for dt, sym in ((torch.float32, 'yc_int8_conv_f32'),
-                        (torch.bfloat16, 'yc_int8_conv_bf16')):
+        for dts, sym in _SYMBOLS.items():
             fn = getattr(lib, sym)
             # x, wq, wscale, qbias, act_scale, out, B, H, W, Cin, Cout,
             # stride, epilogue, stream
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            fns[dt] = fn
+            fns[dts] = fn
         _lib_fns = (lib, fns)
     return _lib_fns
 
 
 def _check(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
-           qbias: torch.Tensor, act_scale: torch.Tensor, stride: int) -> None:
+           qbias: torch.Tensor, act_scale: torch.Tensor, stride: int,
+           out_dtype: Optional[torch.dtype]) -> None:
     if x.dim() != 4:
         raise ValueError(f'int8 conv takes x (B, Cin, H, W), got '
                          f'{tuple(x.shape)}')
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f'int8 conv takes fp32 or bf16 input, got {x.dtype}')
+    if x.dtype == torch.int8:
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f'int8 conv of an int8 x takes out_dtype fp32 '
+                             f'or bf16, got {out_dtype}')
+    elif x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'int8 conv takes fp32, bf16 or int8 input, got '
+                         f'{x.dtype}')
+    elif out_dtype not in (None, x.dtype):
+        raise ValueError(f'int8 conv of a {x.dtype} x gives {x.dtype}, '
+                         f'not out_dtype {out_dtype}')
     cout, kh, kw, cin = wq.shape
     if wq.dtype != torch.int8 or (kh, kw) != (3, 3) or cin != x.shape[1]:
         raise ValueError(f'int8 conv takes int8 wq (Cout, 3, 3, {x.shape[1]})'
@@ -131,56 +157,63 @@ def _aligned(t: torch.Tensor, memory_format=torch.contiguous_format):
 
 
 def _new_out(x: torch.Tensor, wq: torch.Tensor, stride: int,
-             epilogue: bool) -> torch.Tensor:
+             epilogue: bool, out_dtype: Optional[torch.dtype] = None
+             ) -> torch.Tensor:
     """The kernel's uninitialised output, (B, Cout, Ho, Wo) channels_last;
     also the op's fake."""
     B, _, H, W = x.shape
     return torch.empty(
         (B, wq.shape[0], (H - 1) // stride + 1, (W - 1) // stride + 1),
-        dtype=x.dtype if epilogue else torch.int32, device=x.device,
-        memory_format=torch.channels_last)
+        dtype=(out_dtype or x.dtype) if epilogue else torch.int32,
+        device=x.device, memory_format=torch.channels_last)
 
 
-def _launch(x, wq, wscale, qbias, act_scale, stride, epilogue):
-    global launches, launches_bf16
+def _launch(x, wq, wscale, qbias, act_scale, stride, epilogue,
+            out_dtype=None):
+    global launches, launches_bf16, launches_s8
     lib, fns = _fns()
     B, cin, H, W = x.shape
     cout = wq.shape[0]
-    out = _new_out(x, wq, stride, epilogue)
+    block_dtype = out_dtype or x.dtype
+    out = _new_out(x, wq, stride, epilogue, out_dtype)
     if out.numel() == 0:
         return out
     x = _aligned(x, torch.channels_last)
     wq = _aligned(wq)
-    err = fns[x.dtype](x.data_ptr(), wq.data_ptr(), wscale.data_ptr(),
-                       qbias.data_ptr(), act_scale.data_ptr(),
-                       out.data_ptr(), B, H, W, cin, cout, stride,
-                       int(epilogue),
-                       torch.cuda.current_stream(x.device).cuda_stream)
+    err = fns[x.dtype, block_dtype](
+        x.data_ptr(), wq.data_ptr(), wscale.data_ptr(), qbias.data_ptr(),
+        act_scale.data_ptr(), out.data_ptr(), B, H, W, cin, cout, stride,
+        int(epilogue), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, 'int8 conv kernel launch')
     with _count_lock:
         launches += 1
-        launches_bf16 += x.dtype == torch.bfloat16
+        launches_bf16 += block_dtype == torch.bfloat16
+        launches_s8 += x.dtype == torch.int8
     return out
 
 
-def _conv_fake(x, wq, wscale, qbias, act_scale, stride, epilogue):
-    return _new_out(x, wq, stride, epilogue)
+def _conv_fake(x, wq, wscale, qbias, act_scale, stride, epilogue,
+               out_dtype=None):
+    return _new_out(x, wq, stride, epilogue, out_dtype)
 
 
 CONV_OP = library.KernelOp(
     'int8_conv', 'int8 conv',
     '(Tensor x, Tensor wq, Tensor wscale, Tensor qbias, Tensor act_scale, '
-    'int stride, bool epilogue) -> Tensor',
+    'int stride, bool epilogue, ScalarType? out_dtype=None) -> Tensor',
     int8_conv_plain, _launch, _conv_fake)
 
 
 def int8_conv(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
               qbias: torch.Tensor, act_scale: torch.Tensor, stride: int,
-              epilogue: bool = True) -> torch.Tensor:
+              epilogue: bool = True,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x (B, Cin, H, W) fp32/bf16, channels_last; wq int8 (Cout, 3, 3,
     Cin); wscale, qbias fp32 (Cout,); act_scale 0-d fp32; stride 1 or 2 ->
     silu(dequantized conv + qbias) (B, Cout, Ho, Wo) in x's dtype,
-    channels_last (int32 accumulator with epilogue=False)."""
-    _check(x, wq, wscale, qbias, act_scale, stride)
+    channels_last (int32 accumulator with epilogue=False). An int8 x is
+    the quantized input itself, act_scale its scale, and the output is in
+    out_dtype (fp32 or bf16, required)."""
+    _check(x, wq, wscale, qbias, act_scale, stride, out_dtype)
     return CONV_OP(x, wq, wscale, qbias, act_scale, int(stride),
-                   bool(epilogue))
+                   bool(epilogue), out_dtype)

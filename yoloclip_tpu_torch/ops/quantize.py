@@ -13,7 +13,11 @@ JAX package:
   * activations: one scale a block, act_scale = max(amax / 127, 1e-12),
     from the max-abs of the block's input over a short calibration run
     ('max'), or from its 99.9th percentile ('percentile', max-reduced over
-    batches).
+    batches);
+  * int8-stored edges: a `store_out` block whose output is eligible
+    (`models.layers.store_int8_eligible` at calibration) also gets
+    out_scale = max(out_amax / 127, 1e-12), out_amax the max-abs of its
+    float post-SiLU output, in either scheme.
 
 `calibrate_amax` records the input statistics of every ConvBlock with
 forward hooks on the float model (the JAX package sows them from a
@@ -34,9 +38,11 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from yoloclip_tpu_torch.models.layers import ConvBlock, quant_eligible
+from yoloclip_tpu_torch.models.layers import (ConvBlock, quant_eligible,
+                                              store_int8_eligible)
 from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP, cast_compute_dtype
 from yoloclip_tpu_torch.ops.reparam import build_reparam_forward
+from yoloclip_tpu_torch.parallel import spatial
 
 BN_EPS = 1e-5          # ConvBlock's BatchNorm epsilon
 _MIN_SCALE = 1e-12
@@ -71,10 +77,18 @@ def calibrate_amax(model: YOLOCLIP, batches: Iterable[Tuple[Any, Any]],
     """Run the float model on each (images, text) batch and return, per
     ConvBlock name, {'in_amax': max |x|} (and {'in_p999': the 99.9th |x|
     percentile} with percentile=True) of its input in fp32, each
-    max-reduced over the batches. forward_kwargs go to the model, so the
-    calibration runs the graph that will be served (class_mask,
-    skip_image_pool)."""
+    max-reduced over the batches. A `store_out` block whose output passes
+    `store_int8_eligible` (the threshold in force) also gets
+    {'out_amax': max |y|, 'out_store': 1} of its post-SiLU output y, as
+    the JAX package's 'calib' graph sows them. forward_kwargs go to the
+    model, so the calibration runs the graph that will be served
+    (class_mask, skip_image_pool)."""
     stats: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def merge(name, cur):
+        old = stats.setdefault(name, {})
+        for k, v in cur.items():
+            old[k] = v if k not in old else torch.maximum(old[k], v)
 
     def hook(name):
         def record(_module, args):
@@ -82,13 +96,22 @@ def calibrate_amax(model: YOLOCLIP, batches: Iterable[Tuple[Any, Any]],
             cur = {'in_amax': ax.max()}
             if percentile:
                 cur['in_p999'] = percentile_999(ax)
-            old = stats.get(name)
-            stats[name] = cur if old is None else {
-                k: torch.maximum(old[k], v) for k, v in cur.items()}
+            merge(name, cur)
         return record
 
-    handles = [m.register_forward_pre_hook(hook(n))
-               for n, m in model.named_modules() if isinstance(m, ConvBlock)]
+    def out_hook(name):
+        def record(_module, _args, y):
+            _, c, h, w = y.shape
+            if store_int8_eligible(spatial.global_rows(h), w, c):
+                merge(name, {'out_amax': y.detach().float().abs().max(),
+                             'out_store': y.new_ones((), dtype=torch.float32)})
+        return record
+
+    blocks = [(n, m) for n, m in model.named_modules()
+              if isinstance(m, ConvBlock)]
+    handles = [m.register_forward_pre_hook(hook(n)) for n, m in blocks]
+    handles += [m.register_forward_hook(out_hook(n)) for n, m in blocks
+                if m.store_out]
     ran = False
     try:
         with torch.inference_mode():
@@ -129,9 +152,21 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().float().numpy()
 
 
+def _out_scale(prefix: str, a_node: Optional[Dict]
+               ) -> Dict[str, torch.Tensor]:
+    """{prefix.out_scale} where calibration stored the block's output, as
+    the JAX package's `_out_scale`; else nothing."""
+    if a_node and float(a_node.get('out_store', 0.0)) > 0:
+        scale = max(float(a_node['out_amax']) / 127.0, _MIN_SCALE)
+        return {f'{prefix}.out_scale': torch.tensor(np.float32(scale))}
+    return {}
+
+
 def _quantize_convblock(sd: Dict[str, torch.Tensor], prefix: str,
-                        amax) -> Dict[str, torch.Tensor]:
-    """One ConvBlock's float entries -> its deploy entries."""
+                        amax, a_node: Optional[Dict] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """One ConvBlock's float entries -> its deploy entries (a_node: its
+    calibration statistics, for out_scale)."""
     kernel = _np(sd[f'{prefix}.conv.weight'])          # (O, I, k, k)
     gamma = _np(sd[f'{prefix}.bn.weight'])
     beta = _np(sd[f'{prefix}.bn.bias'])
@@ -145,7 +180,8 @@ def _quantize_convblock(sd: Dict[str, torch.Tensor], prefix: str,
     cout, cin, k = kernel.shape[:3]
     if not quant_eligible(k, cin, cout):
         return {f'{prefix}.wf': torch.from_numpy(w.astype(np.float32)),
-                f'{prefix}.fbias': torch.from_numpy(b.astype(np.float32))}
+                f'{prefix}.fbias': torch.from_numpy(b.astype(np.float32)),
+                **_out_scale(prefix, a_node)}
     if amax is None:
         raise KeyError('missing calibration amax for eligible ConvBlock '
                        '(run calibrate_amax first)')
@@ -168,7 +204,8 @@ def quantize_state(state_dict: Dict[str, torch.Tensor],
     """A float model's state dict (fp32 weights) -> the int8 model's: every
     ConvBlock (`{p}.conv.weight` + `{p}.bn.*`) becomes {wq, wscale, qbias,
     act_scale} (if `quant_eligible`) or the BN-folded {wf, fbias}, using
-    `amax` from `calibrate_amax`; everything else passes through."""
+    `amax` from `calibrate_amax`, plus `out_scale` where calibration
+    stored the block's output; everything else passes through."""
     _pick_act_amax(None, calibration)       # validates the scheme
     prefixes = [k[:-len('.conv.weight')] for k in state_dict
                 if k.endswith('.conv.weight')
@@ -179,7 +216,8 @@ def quantize_state(state_dict: Dict[str, torch.Tensor],
     for p in prefixes:
         try:
             out.update(_quantize_convblock(
-                state_dict, p, _pick_act_amax(amax.get(p), calibration)))
+                state_dict, p, _pick_act_amax(amax.get(p), calibration),
+                amax.get(p)))
         except KeyError as e:
             raise KeyError(f'{e.args[0]}: ConvBlock {p}') from None
     return out

@@ -225,49 +225,56 @@ def _selftest_loss(num_processes: int = 1,
     from yoloclip_tpu_torch.train.train_state import (create_train_state,
                                                       make_train_step)
 
+    # one thread, as the ranks run, so the reduction orders agree; the
+    # caller's thread count comes back after (an in-process reference)
+    threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = TrainingConfig(model=ModelConfig(image_size=(S, S)),
-                         max_objects=M, batch_size=B)
-    model = YOLOCLIP(cfg.model)
-    init_weights(model, torch.Generator().manual_seed(0))
-    images, boxes, cids, text = _selftest_inputs()
-    batch = {'images': images, 'boxes': boxes, 'class_ids': cids,
-             'valid_mask': np.ones((B, M), bool), 'text': text}
-    mesh = None
-    if num_processes > 1:
-        shared = (device.split(':')[0] == 'cpu'
-                  or num_processes > torch.cuda.device_count())
-        initialize(coordinator, num_processes, process_id, device=device,
-                   backend='gloo' if shared else None)
-        mesh = create_mesh(n_model=n_model)
-        local = place_batch(batch, mesh)
-        local['text'] = place_text(text, mesh)
-        state = create_train_state(model, cfg, mesh.local_device)
-        step = make_sharded_train_step(cfg, mesh)(state)
-    else:
-        local = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-        state = create_train_state(model, cfg, device)
-        step = make_train_step(cfg)
-    text_local = local.pop('text')
-    loss = float(step(state, local, text_local)['loss'])
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = TrainingConfig(model=ModelConfig(image_size=(S, S)),
+                             max_objects=M, batch_size=B)
+        model = YOLOCLIP(cfg.model)
+        init_weights(model, torch.Generator().manual_seed(0))
+        images, boxes, cids, text = _selftest_inputs()
+        batch = {'images': images, 'boxes': boxes, 'class_ids': cids,
+                 'valid_mask': np.ones((B, M), bool), 'text': text}
+        mesh = None
+        if num_processes > 1:
+            shared = (device.split(':')[0] == 'cpu'
+                      or num_processes > torch.cuda.device_count())
+            initialize(coordinator, num_processes, process_id, device=device,
+                       backend='gloo' if shared else None)
+            mesh = create_mesh(n_model=n_model)
+            local = place_batch(batch, mesh)
+            local['text'] = place_text(text, mesh)
+            state = create_train_state(model, cfg, mesh.local_device)
+            step = make_sharded_train_step(cfg, mesh)(state)
+        else:
+            local = {k: torch.from_numpy(v).to(device)
+                     for k, v in batch.items()}
+            state = create_train_state(model, cfg, device)
+            step = make_train_step(cfg)
+        text_local = local.pop('text')
+        loss = float(step(state, local, text_local)['loss'])
 
-    if ckpt_dir:
-        from yoloclip_tpu_torch.utils.checkpoint import (load_checkpoint,
-                                                         save_checkpoint)
-        path = os.path.join(ckpt_dir, 'selftest.pt')
-        if process_index() == 0:   # one writer; the rest read it
-            save_checkpoint(path, state.model.state_dict(),
-                            step=state.step)
-        if mesh is not None:
-            dist.barrier(group=mesh.host_group)
-        restored = load_checkpoint(path)
-        assert restored['step'] == 1
-        assert all(torch.isfinite(v).all() for v in
-                   restored['model'].values() if v.is_floating_point())
-        _selftest_trainer(mesh, ckpt_dir, device, n_model)
-    return loss
+        if ckpt_dir:
+            from yoloclip_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                             save_checkpoint)
+            path = os.path.join(ckpt_dir, 'selftest.pt')
+            if process_index() == 0:   # one writer; the rest read it
+                save_checkpoint(path, state.model.state_dict(),
+                                step=state.step)
+            if mesh is not None:
+                dist.barrier(group=mesh.host_group)
+            restored = load_checkpoint(path)
+            assert restored['step'] == 1
+            assert all(torch.isfinite(v).all() for v in
+                       restored['model'].values() if v.is_floating_point())
+            _selftest_trainer(mesh, ckpt_dir, device, n_model)
+        return loss
+    finally:
+        torch.set_num_threads(threads)
 
 
 class _StubTextEncoder:

@@ -23,7 +23,11 @@ processes):
     stride-2 grid, the shard's first row being even), each of SPPF's
     chained 5x5 pools 2 rows each side. cuDNN, the space-to-depth stems
     and the int8 conv kernel run as they are. Nearest x2 upsample, concat,
-    eval-mode BatchNorm, 1x1 convs and the max-sigmoid gate need none;
+    eval-mode BatchNorm, 1x1 convs and the max-sigmoid gate need none.
+    An int8-stored edge (`models/layers.py::QT`) crosses a halo as its
+    int8 rows, its scale shared; whether a block stores one is decided on
+    the whole frame's rows (`global_rows`), as GSPMD's global shapes
+    decide it for the JAX package;
   * global ops: I-Pool's 3x3 adaptive max pool (`adaptive_max_pool3`)
     takes each window's max over the shard's rows (-inf where it has
     none), then a MAX all-reduce, so the text after I-Pool is the same on
@@ -116,6 +120,13 @@ def current() -> Optional[HeightShard]:
     return _PARTITION.get()
 
 
+def global_rows(rows: int) -> int:
+    """The whole frame's rows at the level where this thread's shard
+    holds `rows` (`rows` itself outside a partition)."""
+    sh = current()
+    return rows if sh is None else sh.ranges(rows)[-1][1]
+
+
 def _edge_rows(x: torch.Tensor, k: int) -> torch.Tensor:
     """(B, C, 2k, W): the first k rows, then the last k (zero-padded where
     the shard holds fewer than k)."""
@@ -161,13 +172,49 @@ def halo(op: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
     return y[:, :, a // stride:a // stride + h // stride]
 
 
+class _DeterministicAdaptiveMaxPool(torch.autograd.Function):
+    """F.adaptive_max_pool2d with a backward that adds the gradients of
+    overlapping windows in a fixed order (`index_put_` with accumulate,
+    deterministic under torch.use_deterministic_algorithms). CUDA's own
+    backward adds them atomically in no fixed order and has no
+    deterministic mode, so without this a training run on the card could
+    not be repeated bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, size: Tuple[int, int]
+                ) -> torch.Tensor:
+        y, idx = F.adaptive_max_pool2d(x, size, return_indices=True)
+        ctx.save_for_backward(idx)
+        ctx.shape = x.shape
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        idx, = ctx.saved_tensors
+        n, c, h, w = ctx.shape
+        plane = torch.arange(n * c, device=idx.device).view(n, c, 1, 1)
+        flat = (idx + plane * (h * w)).reshape(-1)
+        gx = g.new_zeros(n * c * h * w).index_put_(
+            (flat,), g.reshape(-1), accumulate=True)
+        return gx.view(n, c, h, w), None
+
+
+def _adaptive_max_pool(x: torch.Tensor, size: Tuple[int, int]
+                       ) -> torch.Tensor:
+    if (torch.are_deterministic_algorithms_enabled()
+            and torch.is_grad_enabled() and x.requires_grad):
+        return _DeterministicAdaptiveMaxPool.apply(x, size)
+    return F.adaptive_max_pool2d(x, size)
+
+
 def adaptive_max_pool3(x: torch.Tensor) -> torch.Tensor:
     """F.adaptive_max_pool2d(x, (3, 3)) of the whole frame's map, from
     this thread's rows: each window row's max over the rows the shard
-    holds (-inf where it holds none), then a MAX all-reduce."""
+    holds (-inf where it holds none), then a MAX all-reduce. Under
+    torch.use_deterministic_algorithms its backward is deterministic."""
     sh = current()
     if sh is None:
-        return F.adaptive_max_pool2d(x, (3, 3))
+        return _adaptive_max_pool(x, (3, 3))
     h = x.shape[2]
     r0, r1 = sh.ranges(h)[sh.index]
     H = sh.ranges(h)[-1][1]
@@ -175,8 +222,8 @@ def adaptive_max_pool3(x: torch.Tensor) -> torch.Tensor:
     for i in range(3):
         lo, hi = max(i * H // 3, r0), min(-(-(i + 1) * H // 3), r1)
         if lo < hi:
-            rows.append(F.adaptive_max_pool2d(x[:, :, lo - r0:hi - r0],
-                                              (1, 3)))
+            rows.append(_adaptive_max_pool(x[:, :, lo - r0:hi - r0],
+                                           (1, 3)))
         else:
             rows.append(x.new_full(x.shape[:2] + (1, 3), float('-inf')))
     return col.group_max(torch.cat(rows, dim=2), sh.group)

@@ -26,6 +26,7 @@ JAX orbax directories convert on a machine with JAX through
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -180,6 +181,26 @@ def state_dict_from_jax(variables: Dict[str, Any],
     return out
 
 
+def _out_scale_scopes(tree, path: Tuple[str, ...] = ()):
+    """The scope path of every 'out_scale' leaf of a flax tree."""
+    for k, v in tree.items():
+        if hasattr(v, 'items'):
+            yield from _out_scale_scopes(v, path + (k,))
+        elif k == 'out_scale':
+            yield path
+
+
+def _store_out_blocks(cfg: ModelConfig) -> set:
+    """Names of the ConvBlocks of the int8 model that may store their
+    output as an int8 edge (built on the meta device: no weights)."""
+    from yoloclip_tpu_torch.models.layers import ConvBlock
+    from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP
+    with torch.device('meta'):
+        model = YOLOCLIP(dataclasses.replace(cfg, quant='int8'))
+    return {n for n, m in model.named_modules()
+            if isinstance(m, ConvBlock) and m.store_out}
+
+
 def quant_state_dict_from_jax(qvariables: Dict[str, Any],
                               cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The JAX package's int8 deploy variables ({'params'} from
@@ -188,8 +209,12 @@ def quant_state_dict_from_jax(qvariables: Dict[str, Any],
     either {wq (k, k, I, O) int8, wscale, qbias, act_scale}, which become
     `wq` in the kernel's (O, k, k, I) layout and the fp32 scales, or the
     BN-folded {wf (k, k, I, O), fbias}, which become `wf` (O, I, k, k) and
-    `fbias`; every other entry converts as in `state_dict_from_jax`."""
+    `fbias`; a block's `out_scale` (its int8-stored output edge) becomes
+    `out_scale`, and raises KeyError where the port's block is no
+    `store_out` site; every other entry converts as in
+    `state_dict_from_jax`."""
     out: Dict[str, torch.Tensor] = {}
+    blocks = {}    # flax scope -> port ConvBlock name
     for tkey, fpath, transform in build_key_map(cfg):
         if tkey.endswith(('.bn.weight', '.bn.bias', '.bn.running_mean',
                           '.bn.running_var')):
@@ -201,6 +226,7 @@ def quant_state_dict_from_jax(qvariables: Dict[str, Any],
             except KeyError:
                 continue
             tp = tkey[:-len('.conv.weight')]
+            blocks[fpath[:-2]] = tp
             if 'wq' in node:
                 wq = np.asarray(node['wq'], np.int8)
                 out[f'{tp}.wq'] = torch.from_numpy(
@@ -217,6 +243,16 @@ def quant_state_dict_from_jax(qvariables: Dict[str, Any],
         except KeyError:
             continue
         out[tkey] = _tensor(_to_torch_layout(arr, transform))
+    scopes = list(_out_scale_scopes(qvariables))
+    stores = _store_out_blocks(cfg) if scopes else set()
+    for scope in scopes:
+        tp = blocks.get(scope)
+        if tp not in stores:
+            raise KeyError(f'out_scale at {"/".join(scope[1:])}: no '
+                           f'store_out ConvBlock of the port takes it (the '
+                           f'block there: {tp})')
+        out[f'{tp}.out_scale'] = _tensor(
+            _get(qvariables, scope)['out_scale'])
     return out
 
 
