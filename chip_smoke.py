@@ -96,6 +96,27 @@ Phases, each printing its results; any failure exits non-zero:
                   card's; the free-running difference and its rounding
                   flips printed), img/s of float and int8 fp32 and bf16 in
                   turns, stage times, 8 server requests vs detect();
+ 9g. graphs    -- the per-shape programs (inference/program.py, CUDA
+                  graphs) of the float fp32, float bf16 and int8 bf16
+                  detectors at bs=32, 640 px, COCO-80: each detect_batch
+                  program's replay against its eager body (ids, counts,
+                  validity, saturation exact; scores and boxes within
+                  GRAPH_ATOL), a result held across the next call
+                  unchanged, the launches of GRAPH_CALLS replays equal to
+                  that many eager calls', img/s in turns (eager, program,
+                  program, eager), device ms a call and idle share from a
+                  trace of each, the hand kernels' events in the trace of
+                  the program calls equal to their counters' increments,
+                  warm-up and capture seconds; then in
+                  bf16 both detect() branches against their eager bodies,
+                  the server's warmed buckets against an eager server (8
+                  requests), two threads at once on the graph pool
+                  (detect_batch and the 32-bucket, POOL_CALLS each, every
+                  result against its eager body; requests/s and p50/p95 of 16 closed-loop
+                  clients and the dispatch step of a batch of 32, in
+                  turns), the streaming step against its eager step, a
+                  body that calls .item() raising at capture, and the
+                  graph pool's GiB;
  9e. int8 edges -- the int8-stored edges (YOLOCLIP_STORE_INT8_MIN_ELEMS;
                   the port's threshold set for the phase, restored
                   after): the int8 conv's int8-input mode vs its plain
@@ -187,7 +208,10 @@ Phases, each printing its results; any failure exits non-zero:
  22. multihost -- the self-test (`parallel/multihost.py --selftest --model
                   2`) in 8 processes on cuda:0 (gloo) as a 4x2 grid, each
                   loss against the 1-process self-test.
-Each path that launches kernels (main path, prompts, int8, int8 edges,
+Every detect_batch, detect(), server bucket and streaming step runs as
+its program, captured at its first call: the launch counters count the
+first call's eager run and every replay, never the capture.
+Each path that launches kernels (main path, prompts, int8, graphs, int8 edges,
 stems, export, canvas, server, streaming, reparam, profile, training, the
 ddp ranks, dp serve, vocab tp, spatial) runs with the launch counters set
 to 0 just before it and read just after;
@@ -910,9 +934,13 @@ def _synced_ms(fn, iters: int = 10) -> float:
     return statistics.median(times) * 1e3
 
 
-def _img_per_s(det, frames, iters: int = 10) -> float:
-    return frames.shape[0] / _synced_ms(lambda: det.detect_batch(frames),
-                                        iters) * 1e3
+def _img_per_s(det, frames, iters: int = 10, eager: bool = False
+               ) -> float:
+    """detect_batch img/s: its program, or with eager=True its eager body
+    (the path before the programs)."""
+    fn = ((lambda: det._detect_batch_eager(frames, det.offline_vocabulary))
+          if eager else (lambda: det.detect_batch(frames)))
+    return frames.shape[0] / _synced_ms(fn, iters) * 1e3
 
 
 def _stage_ms(det, frames, sim) -> dict:
@@ -1009,13 +1037,17 @@ def phase_timing(det, bf, lvis_det, frames, sim, nms, card: str):
     fp32 = _img_per_s(det, frames)
     peak = torch.cuda.max_memory_allocated() / 2**30
     bf16 = _img_per_s(bf, frames)
+    fp32_e, bf16_e = (_img_per_s(d, frames, eager=True) for d in (det, bf))
     print(f'[time] detect_batch bs={BATCH} 640px COCO-80 variant n, frames '
           f'480x640 uint8 already on the card, conf 0.25: '
           f'fp32 {fp32:.1f} img/s (peak {peak:.2f} GiB), '
-          f'bf16 {bf16:.1f} img/s  [{card}]')
+          f'bf16 {bf16:.1f} img/s (programs); eager bodies: fp32 '
+          f'{fp32_e:.1f}, bf16 {bf16_e:.1f} img/s  [{card}]')
     lvis = _img_per_s(lvis_det, frames)
+    lvis_e = _img_per_s(lvis_det, frames, eager=True)
     print(f'[time] detect_batch bs={BATCH} 640px LVIS-scale {LVIS_C} '
-          f'classes (folded path) fp32: {lvis:.1f} img/s  [{card}]')
+          f'classes (folded path) fp32: {lvis:.1f} img/s (program), eager '
+          f'body {lvis_e:.1f} img/s  [{card}]')
     for name, d in (('COCO-80 fp32', det), ('COCO-80 bf16', bf),
                     (f'LVIS-{LVIS_C} fp32', lvis_det)):
         ms = _stage_ms(d, frames, sim)
@@ -1978,7 +2010,7 @@ def phase_int8_path(sim, nms, i8, det, bf, vocab_path, frames, card):
     INT8_CALIB seeded frames; bf16 and fp32 detect_batch at bs=32 (22
     launches a forward), card vs CPU at bs=2 on the same quantized state,
     img/s beside the float detectors (det, bf), stage times, a server.
-    Returns the launches of the path."""
+    Returns the launches of the path and the bf16 int8 detector."""
     from yoloclip_tpu_torch.inference.server import DetectionServer
     from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP
     from yoloclip_tpu_torch.ops.preprocess import letterbox_batch
@@ -2047,9 +2079,11 @@ def phase_int8_path(sim, nms, i8, det, bf, vocab_path, frames, card):
 
     # throughput beside the float detectors, in turns
     rates = {}
-    for name, d in (('float fp32', det), ('int8 fp32', q32),
-                    ('int8 bf16', qbf), ('float bf16', bf)):
-        rates[name] = _img_per_s(d, frames)
+    for eager in (True, False):
+        for name, d in (('float fp32', det), ('int8 fp32', q32),
+                        ('int8 bf16', qbf), ('float bf16', bf)):
+            rates[f'{name} {"eager" if eager else "program"}'] = _img_per_s(
+                d, frames, eager=eager)
     print(f'[time] detect_batch bs={BATCH} 640px COCO-80, median of 10 '
           f'synced calls, in this order: ' + ', '.join(
               f'{k} {v:.1f} img/s' for k, v in rates.items())
@@ -2108,7 +2142,380 @@ def phase_int8_path(sim, nms, i8, det, bf, vocab_path, frames, card):
           f'single={delta:.3e} (int8 rounding flips), detections compared '
           f'(above the first possible order flip) / kept: {compared}; '
           f'launches {srv_launches}')
-    return {k: launches[k] + srv_launches[k] for k in launches}
+    return {k: launches[k] + srv_launches[k] for k in launches}, qbf
+
+
+# ---------------------------------------------------------------------------
+# [graphs]: the per-shape programs (inference/program.py)
+# ---------------------------------------------------------------------------
+
+# A program's replay against its eager body: the same kernels on the same
+# inputs in the same order, so bit-equal is expected; above this it fails.
+GRAPH_ATOL = 1e-6
+GRAPH_CALLS = 3          # program calls counted against the eager counts
+GRAPH_TRACED = 5         # calls a span in the eager / program trace
+GRAPH_SERVE_PER = 16     # requests a client in the serving A/B
+
+
+def _graph_diff(tag, got, want) -> float:
+    """A program's batched NMS dict against the eager body's: counts,
+    validity, saturation and class ids exact; the max |diff| of scores
+    and boxes, which fails above GRAPH_ATOL."""
+    for k in ('count', 'valid', 'prefilter_saturated', 'class_ids'):
+        require(torch.equal(got[k], want[k]), f'[graphs] {tag}: {k} differ')
+    err = max((got[k].float() - want[k].float()).abs().max().item()
+              for k in ('scores', 'boxes'))
+    require(err <= GRAPH_ATOL,
+            f'[graphs] {tag}: max|diff| {err:.3e} > {GRAPH_ATOL:g}')
+    return err
+
+
+def _same_lists(tag, got, want) -> None:
+    """Detection lists of a program and of its eager body: ids exact,
+    scores within GRAPH_ATOL, int boxes within 1 px."""
+    require(len(got) == len(want), f'[graphs] {tag}: {len(got)} vs '
+            f'{len(want)} detections')
+    for a, b in zip(got, want):
+        require(a['class_id'] == b['class_id']
+                and abs(a['score'] - b['score']) <= GRAPH_ATOL
+                and max(abs(p - q) for p, q in zip(a['box'], b['box'])) <= 1,
+                f'[graphs] {tag}: {a} vs {b}')
+
+
+class _EagerPrograms:
+    """Stands in for a server's ProgramCache: each body runs eagerly on
+    its inputs moved to the device (the server as it ran before the
+    programs), for the serving A/B."""
+
+    def run(self, name, key, body, inputs, device):
+        return body(*(x.to(device, non_blocking=True) for x in inputs))
+
+
+def _serve_ab(srv, pool) -> tuple:
+    """SERVE_CLIENTS closed-loop clients x GRAPH_SERVE_PER mixed frames:
+    (requests/s, p50 ms, p95 ms)."""
+    srv.reset_stats()
+    errors = []
+
+    def client(c):
+        try:
+            for i in range(GRAPH_SERVE_PER):
+                srv.detect(pool[(c * GRAPH_SERVE_PER + i) % len(pool)],
+                           timeout=120)
+        except Exception as e:            # reported below, fails the run
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    st = srv.stats()
+    n = SERVE_CLIENTS * GRAPH_SERVE_PER
+    require(not errors and st['requests'] == n,
+            f'[graphs] serving: {errors[:1]} {st}')
+    return n / wall, st['p50_latency_ms'], st['p95_latency_ms']
+
+
+def _dispatch_ms(srv, bdet, pool) -> float:
+    """Median synced ms of one full bf16 batch through the server's
+    dispatch step (assemble, upload, canvas program, download)."""
+    from yoloclip_tpu_torch.inference.server import _Request
+    reqs = []
+    for f in (pool * 2)[:BATCH]:
+        canvas, scale = bdet._host_letterbox(f)
+        reqs.append(_Request(canvas, scale, np.asarray(
+            [f.shape[1], f.shape[0]], np.float32), [], None))
+
+    def dispatch():
+        with torch.inference_mode():
+            _, done = srv._launch(reqs, BATCH, bdet.offline_vocabulary)
+        for ev in done:
+            ev.synchronize()
+    return _synced_ms(dispatch)
+
+
+# Each hand kernel's device event (a substring of its demangled name); an
+# NMS launch runs two, the mask build and the scan
+HAND_KERNELS = ('similarity_wgmma', 'nms_mask', 'nms_scan', 'int8_conv_wgmma')
+# calls of each of two threads at once on one graph pool
+POOL_CALLS = 16
+
+
+def _hand_counts(sim, nms, i8) -> dict:
+    """The hand kernels' launch counters, as device events count them."""
+    return {'similarity_wgmma': sim.launches + sim.unprojected_launches,
+            'nms_mask': nms.launches, 'nms_scan': nms.launches,
+            'int8_conv_wgmma': i8.launches}
+
+
+def _hand_events(kernels: dict) -> dict:
+    """The device events of each hand kernel in `device_summary`'s
+    kernels."""
+    return {k: sum(n for name, (_, n) in kernels.items() if k in name)
+            for k in HAND_KERNELS}
+
+
+def _shared_pool_threads(det, srv, frames, pool) -> None:
+    """Two threads at once on one device's graph pool, started together:
+    one calls det.detect_batch(frames) (its program), the other the
+    server's warmed BATCH-bucket program on BATCH mixed canvases,
+    POOL_CALLS each, neither waiting for the device. Every result must
+    equal its eager body's on the same inputs: a replay queued between
+    another program's replay and its clone-out would hand that caller
+    memory the other program wrote."""
+    text = det.offline_vocabulary
+    want_batch = det._detect_batch_eager(frames, text)
+    canv, meta = [], []
+    for f in (pool * 2)[:BATCH]:
+        canvas, scale = det._host_letterbox(f)
+        canv.append(canvas)
+        meta.append([scale, f.shape[1], f.shape[0]])
+    canv = torch.from_numpy(np.stack(canv)).pin_memory()
+    meta = torch.tensor(meta, dtype=torch.float32).pin_memory()
+    m = meta.cuda()
+    want_srv = det._detect_canvases(canv.cuda(), text, m[:, 0], m[:, 1:])
+    bucket = next(p for p in srv.programs.programs()
+                  if p.name == 'bucket' and p.static[0].shape[0] == BATCH)
+    start = threading.Barrier(2)
+    got_batch, got_srv, errors = [], [], []
+
+    def calls(fn, out):
+        try:
+            start.wait(timeout=60)
+            for _ in range(POOL_CALLS):
+                out.append(fn())
+        except Exception as e:            # reported below, fails the run
+            errors.append(e)
+
+    threads = [threading.Thread(target=calls, args=(
+                   lambda: det.detect_batch(frames), got_batch)),
+               threading.Thread(target=calls, args=(
+                   lambda: bucket((canv, text, meta)), got_srv))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    require(not errors and len(got_batch) == len(got_srv) == POOL_CALLS,
+            f'[graphs] two threads on one graph pool: {errors[:1]}')
+    for i, got in enumerate(got_batch):
+        _graph_diff(f'detect_batch on a thread, call {i}', got, want_batch)
+    for i, got in enumerate(got_srv):
+        err = (got - want_srv).abs().max().item()
+        require(err <= GRAPH_ATOL, f'[graphs] server bucket on a thread, '
+                f'call {i}: packed max|diff| {err:.3e}')
+
+
+def _forced_sync_raises() -> bool:
+    """A body that syncs (`.item()`) raises at capture, naming the program
+    and its key; a capture after it still works."""
+    from yoloclip_tpu_torch.inference.program import ProgramCache
+    cache = ProgramCache()
+    x = torch.arange(4.0, device='cuda')
+    try:
+        cache.run('forced sync', ('probe',),
+                  lambda t: t * float(t.sum().item()), (x,), x.device)
+    except RuntimeError as e:
+        raised = "'forced sync'" in str(e) and 'probe' in str(e)
+    else:
+        raised = False
+    for _ in range(2):                    # captured, then replayed
+        after = cache.run('after', (), lambda t: t * 2, (x,), x.device)
+    return raised and torch.equal(after, x * 2) and cache.count() == 1
+
+
+def phase_graphs(sim, nms, i8, detectors, frames, tmp, card) -> dict:
+    """[graphs]: each detector's detect_batch program (CUDA graph replay)
+    against its eager body; launch counts under replay; img/s in turns;
+    device ms and idle share from a trace of each; capture seconds; the
+    graph pool; both detect() branches, the server's warmed buckets and
+    the streaming step against their eager bodies; the serving A/B; a
+    body that syncs raises at capture. detectors: (name, detector) with
+    COCO-80 vocabularies. Returns the launches of the counted calls."""
+    from yoloclip_tpu_torch.inference import program
+    from yoloclip_tpu_torch.inference.detector import _unpack_detections
+    from yoloclip_tpu_torch.inference.server import DetectionServer
+    from yoloclip_tpu_torch.inference.streaming import StreamingDetector
+    from yoloclip_tpu_torch.utils.profiling import (annotate, device_summary,
+                                                    trace)
+    t_start = time.perf_counter()
+    rng = np.random.RandomState(90)
+    frames2 = torch.from_numpy(rng.randint(
+        0, 256, tuple(frames.shape), dtype=np.uint8)).cuda()
+    total = {}
+    for name, d in detectors:
+        text = d.offline_vocabulary
+        eager = lambda f: d._detect_batch_eager(f, text)   # noqa: E731
+        d.detect_batch(frames)                 # captured if it was not
+        # replays against the eager body; a held result across a call
+        got = d.detect_batch(frames)
+        held = {k: v.clone() for k, v in got.items()}
+        err = _graph_diff(f'{name} detect_batch', got, eager(frames))
+        got2 = d.detect_batch(frames2)
+        err = max(err, _graph_diff(f'{name} detect_batch, other frames',
+                                   got2, eager(frames2)))
+        require(all(torch.equal(got[k], held[k]) for k in held),
+                f'[graphs] {name}: a held result changed on the next call')
+        # launches: the eager body once, then GRAPH_CALLS replays
+        _zero_int8(sim, nms, i8)
+        eager(frames)
+        torch.cuda.synchronize()
+        per_call = _int8_counts_all(sim, nms, i8)
+        _zero_int8(sim, nms, i8)
+        for _ in range(GRAPH_CALLS):
+            d.detect_batch(frames)
+        torch.cuda.synchronize()
+        launches = _int8_counts_all(sim, nms, i8)
+        require(launches == {k: GRAPH_CALLS * v for k, v in per_call.items()}
+                and launches['nms'] == GRAPH_CALLS,
+                f'[graphs] {name}: {GRAPH_CALLS} replays launched '
+                f'{launches}, the eager body {per_call} a call')
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        # img/s in turns: eager, program, program, eager
+        rates = [_img_per_s(d, frames, eager=e)
+                 for e in (True, False, False, True)]
+        # device ms a call and idle share, eager and program
+        # and the hand kernels' events in the program span against the
+        # counters' increments over the same calls
+        log_dir = os.path.join(tmp, f'graphs_{name.replace(" ", "_")}')
+        counted = {}
+        with trace(log_dir) as prof:
+            for tag, fn in (('eager', lambda: eager(frames)),
+                            ('program', lambda: d.detect_batch(frames))):
+                with annotate(f'{tag} x{GRAPH_TRACED}'):
+                    before = _hand_counts(sim, nms, i8)
+                    for _ in range(GRAPH_TRACED):
+                        fn()
+                    torch.cuda.synchronize()
+                    counted[tag] = {k: v - before[k] for k, v in
+                                    _hand_counts(sim, nms, i8).items()}
+        summ = {tag: device_summary(prof, span=f'{tag} x{GRAPH_TRACED}')
+                for tag in ('eager', 'program')}
+        events = _hand_events(summ['program']['kernels'])
+        require(events == counted['program']
+                and events['nms_scan'] == GRAPH_TRACED,
+                f'[graphs] {name}: the trace of {GRAPH_TRACED} program calls '
+                f'holds the hand kernels\' events {events}, their counters '
+                f'rose by {counted["program"]}')
+        progs = [p for p in d.programs.programs()
+                 if p.name == 'detect_batch'
+                 and tuple(p.static[0].shape) == tuple(frames.shape)]
+        print(f'[graphs] {name} detect_batch bs={BATCH} 640 px COCO-80, '
+              f'program (CUDA graph replay) vs eager body: ids, counts, '
+              f'valid, saturation exact, max|score/box diff|={err:.3e} (tol '
+              f'{GRAPH_ATOL:g}); a held result unchanged; launches of '
+              f'{GRAPH_CALLS} replays {launches} = {GRAPH_CALLS} x eager; '
+              f'hand kernels\' events in the trace of {GRAPH_TRACED} '
+              f'program calls {events} = their counters\' increments; '
+              f'img/s median of 10 synced calls in turns eager '
+              f'{rates[0]:.1f}, program {rates[1]:.1f}, program '
+              f'{rates[2]:.1f}, eager {rates[3]:.1f}; device ms a call / '
+              f'idle share eager '
+              f'{summ["eager"]["busy_ms"] / GRAPH_TRACED:.3f} / '
+              f'{_share(summ["eager"]["idle_share"])}, program '
+              f'{summ["program"]["busy_ms"] / GRAPH_TRACED:.3f} / '
+              f'{_share(summ["program"]["idle_share"])}; warm-up '
+              + ', '.join(f'{p.warmup_s:.3f}' for p in progs)
+              + ' s, capture ' + ', '.join(f'{p.capture_s:.3f}' for p in progs)
+              + f' s  [{card}]')
+    dev = torch.device('cuda', torch.cuda.current_device())
+
+    # both detect() branches, float bf16, against their eager bodies
+    _, bdet = detectors[1]
+    text = bdet.offline_vocabulary
+    frame = frames[0].cpu().numpy()
+    bdet.detect(frame)                     # the device-letterbox program
+    got = bdet.detect(frame)
+    want = _unpack_detections(bdet._detect_eager(
+        torch.as_tensor(frame).cuda(), text).cpu().numpy(),
+        bdet.class_names)[0]
+    _same_lists('detect() device letterbox', got, want)
+    cfg = bdet.config
+    bdet.config = dataclasses.replace(cfg, host_preprocess='auto')
+    try:
+        bdet.detect(frame)                 # the canvas program
+        got = bdet.detect(frame)
+    finally:
+        bdet.config = cfg
+    canvas, scale = bdet._host_letterbox(frame)
+    meta = torch.tensor([[scale, frame.shape[1], frame.shape[0]]],
+                        device='cuda')
+    want = _unpack_detections(bdet._detect_canvases(
+        torch.from_numpy(canvas)[None].cuda(), text, meta[:, 0],
+        meta[:, 1:])[0].cpu().numpy(), bdet.class_names)[0]
+    _same_lists('detect() canvas', got, want)
+
+    # the server: warmed buckets vs the eager server, then the A/B
+    pool = _mixed_frames(91, 24)
+    srv = DetectionServer(bdet, max_batch=BATCH, max_delay_ms=300.0)
+    esrv = DetectionServer(bdet, max_batch=BATCH, max_delay_ms=300.0)
+    esrv.programs = _EagerPrograms()
+    try:
+        t0 = time.perf_counter()
+        seconds = srv.warmup()
+        warm_s = time.perf_counter() - t0
+        reqs = pool[:8]
+        got = [f.result(timeout=120) for f in [srv.submit(f) for f in reqs]]
+        want = [f.result(timeout=120) for f in [esrv.submit(f) for f in reqs]]
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_lists(f'server request {i}', g, w)
+        t0 = time.perf_counter()
+        _shared_pool_threads(bdet, srv, frames, pool)
+        threads_s = time.perf_counter() - t0
+        for server in (srv, esrv):       # [server]'s flush delay
+            server.max_delay_s = 0.005
+        ab = [_serve_ab(s, pool) for s in (esrv, srv, srv, esrv)]
+        disp = [_dispatch_ms(s, bdet, pool) for s in (esrv, srv, srv, esrv)]
+        n_buckets = srv.programs.count('bucket')
+    finally:
+        srv.close()
+        esrv.close()
+    print(f'[graphs] server, bf16, max_batch {BATCH}: warmup() captured '
+          f'{n_buckets} bucket programs in {warm_s:.2f} s (per bucket: '
+          + ', '.join(f'bs={b} {t:.3f}' for b, t in seconds.items())
+          + f' s); 8 mixed requests identical to the eager server\'s; '
+          f'two threads at once on the device\'s graph pool, '
+          f'{POOL_CALLS} detect_batch calls and {POOL_CALLS} calls of '
+          f'the {BATCH}-bucket ({threads_s:.2f} s): every result equal to '
+          f'its eager body\'s; '
+          f'{SERVE_CLIENTS} closed-loop clients x {GRAPH_SERVE_PER} frames '
+          f'(max_delay 5 ms) in turns eager, program, program, eager: '
+          f'requests/s '
+          + ', '.join(f'{r:.1f}' for r, _, _ in ab) + '; p50 ms '
+          + ', '.join(f'{p:.2f}' for _, p, _ in ab) + '; p95 ms '
+          + ', '.join(f'{p:.2f}' for _, _, p in ab)
+          + f'; dispatch step of a batch of {BATCH} (assemble, upload, '
+          f'canvas program, download; median of 10 synced) ms '
+          + ', '.join(f'{m:.2f}' for m in disp) + f'  [{card}]')
+
+    # the streaming step's program vs the eager step
+    from yoloclip_tpu_torch.cli.stream import _synthetic_source
+    sd = StreamingDetector(bdet.model, text, STREAMS, STREAM_HW, bdet.config)
+    source = _synthetic_source(STREAMS, STREAM_HW)
+    sd.step(source(0))                     # captured
+    serr = 0.0
+    for k in (1, 2):
+        f = source(k)
+        serr = max(serr, _graph_diff(f'streaming step {k}', sd.step(f),
+                                     sd._step(torch.as_tensor(f).cuda())))
+    require(sd.programs.count('step') == 1, '[graphs] one step program')
+    # before the failed capture below, which retires the device's pool
+    pool_gib = program.pool_bytes(dev) / 2 ** 30
+    reserved_gib = torch.cuda.memory_reserved(dev) / 2 ** 30
+    raised = _forced_sync_raises()
+    require(raised, '[graphs] a body that syncs did not raise at capture '
+            'naming its program, or a capture after it failed')
+    print(f'[graphs] streaming step bf16, {STREAMS} x {STREAM_HW[0]}x'
+          f'{STREAM_HW[1]}: program vs eager step max|diff|={serr:.3e}; '
+          f'detect() device-letterbox and canvas programs: detections '
+          f'equal to their eager bodies\'; a body calling .item() raised at '
+          f'capture={raised}; graph pool on {dev}: {pool_gib:.2f} GiB (of '
+          f'{reserved_gib:.2f} GiB reserved); phase seconds '
+          f'{time.perf_counter() - t_start:.1f}  [{card}]')
+    return total
 
 
 # The int8-stored edges (models/layers.py::QT): (tag, threshold, stored
@@ -2515,11 +2922,12 @@ def _export_diff(tag, got, want):
 
 
 def _dispatch_ab(detectors, frames, rounds: int = 5) -> dict:
-    """img/s of each detector's detect_batch with each kernel's
-    implementation called straight, as the port's eager calls do, and
-    through the custom ops (`KernelOp.__call__` swapped for the
-    measurement), in turns; medians over the rounds. Also the host time
-    of one small kernel-2 call both ways."""
+    """img/s of each detector's eager detect_batch body (a replayed
+    program dispatches nothing) with each kernel's implementation called
+    straight, as the port's eager calls do, and through the custom ops
+    (`KernelOp.__call__` swapped for the measurement), in turns; medians
+    over the rounds. Also the host time of one small kernel-2 call both
+    ways."""
     from yoloclip_tpu_torch.ops.kernels import library
     straight = library.KernelOp.__call__
 
@@ -2552,7 +2960,8 @@ def _dispatch_ab(detectors, frames, rounds: int = 5) -> dict:
                 with torch.inference_mode():
                     rates[('us a call', direct)].append(host_us())
                 for name, det in detectors.items():
-                    rates[(name, direct)].append(_img_per_s(det, frames))
+                    rates[(name, direct)].append(
+                        _img_per_s(det, frames, eager=True))
     finally:
         library.KernelOp.__call__ = straight
     return {k: statistics.median(v) for k, v in rates.items()}
@@ -2659,8 +3068,8 @@ def phase_export(sim, nms, i8, det, bf, vocab_path, frames, tmp, card):
               f'max|box diff| {b_err:.3e}, max|score diff| {s_err:.3e}, '
               f'bit-equal {same}; {B / res[name]["ms"] * 1e3:.1f} img/s '
               f'({res[name]["ms"]:.3f} ms a call on canvases) vs eager '
-              f'{B / eager_ms * 1e3:.1f} img/s on the same canvases, eager '
-              f'detect_batch {rate:.1f} img/s  [{card}]')
+              f'{B / eager_ms * 1e3:.1f} img/s on the same canvases, '
+              f'detect_batch (program) {rate:.1f} img/s  [{card}]')
     require(res['cpu']['launches'] == {k: 0 for k in res['cpu']['launches']},
             '[export] the artifact moved to the CPU launched a kernel')
 
@@ -4233,8 +4642,12 @@ def main() -> int:
         res = phase_timing(det, bf, lvis_det, frames, sim, nms, card)
         del lvis_det
         res_i8 = time_int8(i8, shapes, card)
-        int8_launches = phase_int8_path(sim, nms, i8, det, bf, vocab_path,
-                                        frames, card)
+        int8_launches, qbf = phase_int8_path(sim, nms, i8, det, bf,
+                                             vocab_path, frames, card)
+        graph_launches = phase_graphs(
+            sim, nms, i8, (('float fp32', det), ('float bf16', bf),
+                           ('int8 bf16', qbf)), frames, tmp, card)
+        del qbf
         edge_launches, s8_err, res_s8 = phase_int8_edges(
             sim, nms, i8, vocab_path, frames, shapes, card)
         stem_launches = phase_stems(sim, nms, vocab_path, frames)
@@ -4244,7 +4657,8 @@ def main() -> int:
         print(f'[export] phase seconds: {time.perf_counter() - t0:.1f}  '
               f'[{card}]')
         paths = [main_launches, prompt_launches, int8_launches,
-                 edge_launches, stem_launches, export_launches,
+                 graph_launches, edge_launches, stem_launches,
+                 export_launches,
                  *phases_serving(sim, nms, det, bf, vocab_path, tmp, card),
                  phase_profile(sim, nms, bf, frames, tmp, card)]
         del det, bf

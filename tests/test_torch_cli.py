@@ -130,7 +130,7 @@ def test_warmup_cli(files, caplog):
     command line (`yoloclip_tpu/cli/warmup.py`: --classes person,car
     --batch-sizes 1,8,32 --int8) with its other flags, at 64 px: each
     batch size and frame size runs once and is logged; also in the uint8
-    space-to-depth stem layout."""
+    space-to-depth stem layout; each fills its program."""
     from yoloclip_tpu_torch import _build
     from yoloclip_tpu_torch.cli import warmup
     _, tower, _, _, _ = files
@@ -151,6 +151,10 @@ def test_warmup_cli(files, caplog):
         if '--frame-sizes' in extra:
             assert 'detect() 48x80' in caplog.text
             assert 'detect() 100x30' in caplog.text
+        # a program for each batch size, and with --host-preprocess on
+        # one canvas program for both frame sizes
+        n = 4 if '--frame-sizes' in extra else 3
+        assert f'{n} programs filled on cpu' in caplog.text
     assert _build._native_out('dataload').exists()
 
 

@@ -282,8 +282,8 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
 
     server, detector = build_server(args)
-    # one batch per bucket size before the first request, so no live
-    # request pays a batch size's first-call setup
+    # capture every bucket's program before the first request, so no
+    # live request pays a batch size's warm-up and capture
     seconds = server.warmup()
     server.reset_stats()
     logger.info('warmup: %s', ', '.join(f'bs={b} {s:.2f}s'

@@ -1,26 +1,29 @@
 """Warmup for serving deployments. Counterpart of
 `yoloclip_tpu/cli/warmup.py`.
 
-What lasts between processes is the build: the nvcc kernels (`csrc/`) and
-the g++ host library (`native/`) in `_kernels/`. This CLI builds each one
-that is missing or older than its source, loads it and reports the time,
-so that the first serving process only loads them. Eager PyTorch keeps no
-compile cache, so unlike the JAX package there is no per-shape program to
-fill. The per-shape first-call setup (lazy CUDA module loading, cuDNN)
-lasts only in the process that pays it: `DetectionServer.warmup()` pays it
-for every bucket inside the server, and `cli.serve` calls it and logs its
-seconds before it takes traffic.
+Two things are filled, as the JAX CLI fills its compile cache:
+
+  * The build, which lasts between processes: the nvcc kernels (`csrc/`)
+    and the g++ host library (`native/`) in `_kernels/`. This CLI builds
+    each one that is missing or older than its source, loads it and
+    reports the time, so that the first serving process only loads them.
+  * This process's per-shape programs (`inference/program.py`), the
+    counterpart of JAX's jitted executables: --batch-sizes captures the
+    `detect_batch` program of each size, --frame-sizes the `detect()`
+    program of each HxW frame (under --host-preprocess 'auto'/'on' the
+    one canvas program serves every frame size, as in JAX; 'off' captures
+    one program a size), each call timed and logged with the programs'
+    warm-up and capture seconds. A CUDA graph does not outlive its
+    process, and the JAX package's persistent compile cache
+    (`utils/general.enable_compile_cache`) has no counterpart here: a
+    serving process captures its own programs, and `cli.serve` calls
+    `DetectionServer.warmup()`, which captures every bucket before it
+    takes traffic. On the CPU the programs run their bodies, uncaptured.
 
 --int8 also checks the W8A8 deploy graph end to end on this machine, as the
 JAX CLI's --int8 does: the detector calibrates on 4 seeded random frames
 (`quantize_int8`) against the --classes vocabulary, timed (--stem-u8-s2d:
-in the uint8 space-to-depth stem layout).
-
-The JAX CLI's flags run as they do there, each call timed and logged:
---batch-sizes runs one `detect_batch` for each size, --frame-sizes one
-`detect()` for each HxW frame, with --conf and --host-preprocess in the
-detector's config. Here they fill no cache: they pay this process's
-first-call set-up and show that the path runs on this machine.
+in the uint8 space-to-depth stem layout), before the programs are filled.
 
     python -m yoloclip_tpu_torch.cli.warmup              # kernels + native
     python -m yoloclip_tpu_torch.cli.warmup --device cpu # native only
@@ -41,7 +44,7 @@ logger = logging.getLogger('yoloclip_tpu_torch.warmup')
 def _drive(args) -> None:
     """The detector at --image-size: --int8's calibration, then one timed
     detect_batch for each --batch-sizes and one detect() for each
-    --frame-sizes."""
+    --frame-sizes, each filling its program."""
     from yoloclip_tpu_torch.config import InferenceConfig, ModelConfig
     from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
     S = args.image_size
@@ -73,6 +76,11 @@ def _drive(args) -> None:
         n = len(det.detect(frame))
         logger.info('detect() %dx%d: %.1fs, %d detections', h, w,
                     time.time() - t0, n)
+    for p in det.programs.programs():
+        logger.info('program %s %s: warm-up %.2fs, capture %.2fs', p.name,
+                    [tuple(s.shape) for s in p.static], p.warmup_s,
+                    p.capture_s)
+    logger.info('%d programs filled on %s', det.programs.count(), det.device)
 
 
 def main(argv=None) -> int:
@@ -83,10 +91,12 @@ def main(argv=None) -> int:
     ap.add_argument('--classes', default='person,car',
                     help='comma-separated vocabulary of the detector')
     ap.add_argument('--batch-sizes', default='1,32',
-                    help='comma-separated detect_batch sizes to run')
+                    help='comma-separated detect_batch sizes whose programs '
+                         'to capture')
     ap.add_argument('--frame-sizes', default='',
                     help='comma-separated HxW single-image detect() input '
-                         'resolutions to run (e.g. 1080x1920,480x854)')
+                         'resolutions whose programs to capture (e.g. '
+                         '1080x1920,480x854)')
     ap.add_argument('--host-preprocess', default='auto',
                     choices=['auto', 'on', 'off'],
                     help="detect()'s preprocessing route: 'auto'/'on' the "

@@ -26,10 +26,21 @@ space-to-depth canvas. In bf16 only the convs, linears and attention are
 cast (`models/yolo_clip.py::cast_compute_dtype`): BatchNorm and the obj_2
 projection stay fp32, as in the JAX package.
 
+Each path runs as a per-shape program (`inference/program.py`), as the
+JAX detector runs one jitted program per static shape: `detect_batch`
+keyed on the frames' (B, H, W), the canvas program on the canvas, the
+device-letterbox `detect()` on the frame's (H, W), each also on the
+vocabulary size and the thresholds. On CUDA a program is a CUDA graph
+captured at its first call and replayed after; the text tower stays
+outside it. `_detect_batch_eager`, `_detect_canvases` and `_detect_eager`
+are the programs' bodies, callable on their own.
+
 `parallel/spatial.py::spatialize_detector` re-routes the canvas program
 (`_canvas_model`) and `detect_batch` (`_batch_model`) through a height
 split over a mesh, as the JAX package rebuilds its canvas and batch
 programs; the device-letterbox path stays on the detector's own model.
+The split runs threads and in-process exchanges, so those two paths then
+run their eager bodies.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ import torch
 
 from yoloclip_tpu_torch import native
 from yoloclip_tpu_torch.config import InferenceConfig, ModelConfig
+from yoloclip_tpu_torch.inference.program import ProgramCache, detection_key
 from yoloclip_tpu_torch.models.layers import space_to_depth2
 from yoloclip_tpu_torch.models.yolo_clip import (build_model,
                                                  cast_compute_dtype)
@@ -177,6 +189,8 @@ class YOLOCLIPDetector:
         self._batch_model = None
         self.spatial_mesh = None
         self.quantized = False
+        # the per-shape programs of detect_batch, detect() and its canvas
+        self.programs = ProgramCache()
         self.text_encoder = CLIPTextEncoder(
             cfg.model.clip_model, cfg.model.embed_dim,
             state_dict=None if text_checkpoint else text_state,
@@ -234,6 +248,7 @@ class YOLOCLIPDetector:
         # the programs run the new model unpartitioned, as the JAX
         # detector rebuilds its programs here
         self._canvas_model = self._batch_model = self.spatial_mesh = None
+        self.programs.clear()
         # keep config.model in step, so callers passing self.config on
         # (the stream CLI) see the int8 graph
         self.config = dataclasses.replace(
@@ -283,6 +298,12 @@ class YOLOCLIPDetector:
         # as the JAX package keeps its Pallas kernel to the accelerator
         return (self.config.fused_similarity
                 and self.device.type == 'cuda')
+
+    def _program_key(self, model=None) -> tuple:
+        """What a program of `model` (default: the detector's own) bakes
+        in beyond its inputs' shapes and its device."""
+        return detection_key(model or self.model, self._nms_args(),
+                             self._use_fused_similarity())
 
     def _nms_args(self) -> Dict:
         c = self.config
@@ -371,9 +392,21 @@ class YOLOCLIPDetector:
                      ) -> Dict[str, torch.Tensor]:
         """Same-size frames (B, H, W, 3) uint8 -> the batched NMS dict
         (boxes (B, D, 4), scores, class_ids, valid, count,
-        prefilter_saturated), left on the device."""
+        prefilter_saturated), left on the device. Runs the program of the
+        frames' shape (`_detect_batch_eager` under a height split)."""
         text, _ = self._text(text_prompts)
-        images = torch.as_tensor(images, device=self.device)
+        images = torch.as_tensor(images)
+        if self._batch_model is not None:
+            return self._detect_batch_eager(images.to(self.device), text)
+        return self.programs.run('detect_batch', self._program_key(),
+                                 self._detect_batch_eager, (images, text),
+                                 self.device)
+
+    @torch.inference_mode()
+    def _detect_batch_eager(self, images: torch.Tensor, text: torch.Tensor
+                            ) -> Dict[str, torch.Tensor]:
+        """The body of `detect_batch`'s program: letterbox -> model ->
+        rescale -> batched NMS, frames on the device."""
         h, w = images.shape[1], images.shape[2]
         canvases, scale = letterbox_batch_for(self.config.model)(
             images, self.image_size)
@@ -382,6 +415,39 @@ class YOLOCLIPDetector:
         boxes = rescale_boxes(out['boxes'], scale, (h, w))
         return batched_nms(boxes, out['scores'], out['class_ids'],
                            **self._nms_args())
+
+    def _canvas_program(self, canvases: torch.Tensor, text: torch.Tensor,
+                        meta: torch.Tensor) -> torch.Tensor:
+        """`_detect_canvases` as the program of the canvases' shape (eager
+        under a height split). meta (B, 3) float32: each canvas's scale
+        and original (w, h), on any device (pinned: the upload stays
+        asynchronous)."""
+        if self._canvas_model is not None:
+            m = meta.to(self.device)
+            return self._detect_canvases(canvases.to(self.device), text,
+                                         m[:, 0], m[:, 1:])
+        return self.programs.run('canvas', self._program_key(),
+                                 self._canvas_body(), (canvases, text, meta),
+                                 self.device)
+
+    def _canvas_body(self, model=None):
+        """The canvas program's body over (canvases, text, meta)."""
+        return lambda canv, text, meta: self._detect_canvases(
+            canv, text, meta[:, 0], meta[:, 1:], model=model)
+
+    @torch.inference_mode()
+    def _detect_eager(self, image: torch.Tensor, text: torch.Tensor
+                      ) -> torch.Tensor:
+        """The body of the device-letterbox `detect()` program: one frame
+        (H, W, 3) on the device -> packed detections (max_det + 1, 6)."""
+        canvas, scale = letterbox_batch_for(self.config.model)(
+            image[None], self.image_size)
+        out = self.model(canvas, text,
+                         fused_scores=self._use_fused_similarity())
+        boxes = rescale_boxes(out['boxes'][0], scale, image.shape[:2])
+        return _pack_detections(nms_fixed(
+            boxes, out['scores'][0], class_ids=out['class_ids'][0],
+            **self._nms_args()))
 
     def detect(self, image: Union[str, np.ndarray],
                text_prompts: Optional[Sequence[str]] = None) -> List[Dict]:
@@ -401,23 +467,14 @@ class YOLOCLIPDetector:
         if hp in ('auto', True) and self._host_letterbox_available():
             canvas, scale = self._host_letterbox(orig)
             h, w = orig.shape[:2]
-            packed = self._detect_canvases(
-                torch.from_numpy(canvas)[None].to(self.device), text,
-                torch.tensor([scale], dtype=torch.float32,
-                             device=self.device),
-                torch.tensor([[w, h]], dtype=torch.float32,
-                             device=self.device))[0]
+            packed = self._canvas_program(
+                torch.from_numpy(canvas)[None], text,
+                torch.tensor([[scale, w, h]], dtype=torch.float32))[0]
         else:
-            with torch.inference_mode():
-                canvas, scale = letterbox_batch_for(self.config.model)(
-                    torch.as_tensor(orig, device=self.device)[None],
-                    self.image_size)
-                out = self.model(canvas, text,
-                                 fused_scores=self._use_fused_similarity())
-                boxes = rescale_boxes(out['boxes'][0], scale, orig.shape[:2])
-                packed = _pack_detections(nms_fixed(
-                    boxes, out['scores'][0], class_ids=out['class_ids'][0],
-                    **self._nms_args()))
+            # the program of this frame size, as JAX's static orig_hw
+            packed = self.programs.run(
+                'detect', self._program_key(), self._detect_eager,
+                (torch.as_tensor(orig), text), self.device)
         packed = packed.cpu().numpy()       # the ONE device -> host copy
         detections, saturated = _unpack_detections(packed, names)
         if saturated:

@@ -1,0 +1,258 @@
+"""Per-shape detection programs: the port's counterpart of `jax.jit`'s
+cache of compiled executables.
+
+The JAX package builds each inference path as ONE jitted program per
+static shape (`yoloclip_tpu/inference/detector.py`'s detect, canvas and
+batch programs, the server's bucket programs, the streaming step) and
+replays the compiled executable on every later call. Here a program is a
+`torch.cuda.CUDAGraph` captured once per key and replayed with one host
+call. On the CPU, which only the tests ask for, the same program runs its
+body on the same static buffers without capture.
+
+  * The key is what JAX retraces on: every input's shape and dtype, the
+    device, plus what the caller adds (`detection_key`: the model by
+    identity, the scoring route, the NMS settings). The conf and IoU
+    thresholds are in the key too: JAX passes them traced, but the NMS
+    kernel takes the IoU by value (`ops/kernels/nms.py`) and the
+    confidence mask compares with a Python float, so a new threshold pair
+    captures a new program.
+  * A program owns static input buffers. A call `copy_`s its inputs into
+    them (non_blocking: a pinned source stays asynchronous), replays, and
+    CLONES the outputs: JAX returns fresh arrays on every call, and a
+    result the caller holds must not change when the next call replays.
+  * Every program on a device captures into ONE graph pool, so a
+    program's static outputs may lie in memory that another program uses
+    for its intermediates. A call therefore holds its DEVICE's lock from
+    the copy-in through the replay to the clone-out, all queued on the
+    device's current stream (its default stream in this package: the
+    server's threads, the streaming loop, the detector), so no other
+    program's replay is queued between a replay and its clone.
+  * The first call of a key runs the body eagerly on the static buffers,
+    on the capture stream, and returns that result: the warm-up pays the
+    first-call set-up (kernel attributes, cuDNN and cuBLAS state for the
+    stream) outside the capture, and is the call's one execution of the
+    body. Then the body is captured with capture_error_mode
+    'thread_local': the server's completer thread keeps copying while a
+    capture runs.
+  * No fallback: a capture that fails raises, naming the program and its
+    key; nothing runs eagerly in its place on a later call.
+  * Launch counters stay true: the kernel wrappers count where they are
+    called, and a capture calls them without running anything, so the
+    capture's increments (`ops/kernels.read_counts`) are taken back and
+    added again on every replay. A thread launching kernels eagerly while
+    another captures would have its launches taken back too: captures run
+    before traffic (`DetectionServer.warmup`, `cli/warmup.py`) or on the
+    one thread that launches.
+  * Graphs do not outlive the process: there is no counterpart of the
+    JAX package's persistent compile cache.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from yoloclip_tpu_torch.ops.kernels import add_counts, read_counts
+
+# One capture at a time in the process (torch.cuda.graph's own rule).
+_capture_lock = threading.Lock()
+# device -> (graph pool handle, capture stream), shared by every program
+# captured on the device (retired after a failed capture)
+_shared: Dict[torch.device, tuple] = {}
+# device -> the lock every program on the device holds from copy-in to
+# clone-out (never retired: programs of a retired pool keep using it)
+_device_locks: Dict[torch.device, threading.Lock] = {}
+
+
+def _device(device: torch.device) -> torch.device:
+    """`device` with its index ('cuda' -> the current 'cuda:N')."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
+def _device_lock(device: torch.device) -> threading.Lock:
+    got = _device_locks.get(device)
+    if got is None:    # setdefault: racing threads all get the first lock
+        got = _device_locks.setdefault(device, threading.Lock())
+    return got
+
+
+def detection_key(model, nms_args: Dict, fused: bool) -> tuple:
+    """What a detection program bakes in beyond its inputs' shapes and
+    dtypes and its device: the model it runs, by identity (a quantized,
+    split or replicated model is another object and selects programs of
+    its own; the key keeps it alive, so its id is never reused), the
+    scoring route, the int8-stored edges' threshold, and the NMS settings
+    with the thresholds in float32."""
+    from yoloclip_tpu_torch.models import layers
+    return (model, fused, layers.STORE_INT8_MIN_ELEMS) + tuple(
+        (k, float(np.float32(v)) if isinstance(v, float) else v)
+        for k, v in sorted(nms_args.items()))
+
+
+def _map(fn, out):
+    """fn over the tensors of a program's output: a tensor or a dict."""
+    if isinstance(out, dict):
+        return {k: fn(v) for k, v in out.items()}
+    return fn(out)
+
+
+def _pool_and_stream(device: torch.device) -> tuple:
+    """(graph pool handle, capture stream) of `device`, made once."""
+    got = _shared.get(device)
+    if got is None:
+        got = _shared.setdefault(device, (torch.cuda.graph_pool_handle(),
+                                          torch.cuda.Stream(device)))
+    return got
+
+
+def pool_bytes(device: torch.device) -> int:
+    """Bytes the caching allocator holds in `device`'s shared graph pool
+    (0 before the first capture there)."""
+    if device not in _shared:
+        return 0
+    pool = tuple(_shared[device][0])
+    return sum(s['total_size'] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get('segment_pool_id', ())) == pool)
+
+
+class ShapeProgram:
+    """One program: static input buffers on `device`, and on CUDA the
+    graph captured from `body` over them. Build with `ShapeProgram.build`,
+    which also returns the first call's result."""
+
+    def __init__(self, name: str, key: tuple, body: Callable,
+                 inputs: Sequence[torch.Tensor], device: torch.device):
+        device = _device(device)
+        self.name, self.key, self.device = name, key, device
+        self._body = body
+        self._lock = _device_lock(device)   # copy-in -> replay -> clone-out
+        self.static = [torch.empty(x.shape, dtype=x.dtype, device=device)
+                       for x in inputs]
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs = None
+        self._delta: Dict[str, int] = {}
+        self.warmup_s = self.capture_s = 0.0
+
+    @classmethod
+    def build(cls, name: str, key: tuple, body: Callable,
+              inputs: Sequence[torch.Tensor], device: torch.device):
+        """(program, the result of its first call on `inputs`)."""
+        prog = cls(name, key, body, inputs, device)
+        with prog._lock, torch.inference_mode():
+            prog._copy_in(inputs)
+            if prog.device.type != 'cuda':
+                return prog, _map(torch.clone, body(*prog.static))
+            return prog, prog._capture()
+
+    def _copy_in(self, inputs: Sequence[torch.Tensor]) -> None:
+        for s, x in zip(self.static, inputs):
+            s.copy_(x, non_blocking=True)
+
+    def _capture(self):
+        """Warm the body up on the capture stream (the first call's
+        result), then capture it. Raises, naming the program, if the
+        capture fails. Both under the process's capture lock: work queued
+        on the capture stream while another thread captures would land in
+        that thread's graph."""
+        pool, stream = _pool_and_stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with _capture_lock:
+            t0 = time.perf_counter()
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                first = _map(torch.clone, self._body(*self.static))
+            current.wait_stream(stream)
+            for t in (first.values() if isinstance(first, dict)
+                      else (first,)):
+                t.record_stream(current)      # the caller reads it there
+            t1 = time.perf_counter()
+            before = read_counts()
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode='thread_local'):
+                    out = self._body(*self.static)
+            except Exception as e:
+                _end_failed_capture(self.device, current)
+                raise RuntimeError(f'capture of program {self.name!r} with '
+                                   f'key {self.key} failed: {e}') from e
+            finally:
+                # the capture ran nothing: take its counts back
+                self._delta = {k: n - before.get(k, 0)
+                               for k, n in read_counts().items()
+                               if n != before.get(k, 0)}
+                add_counts({k: -n for k, n in self._delta.items()})
+        self.graph, self.outputs = graph, out
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+        return first
+
+    def __call__(self, inputs: Sequence[torch.Tensor]):
+        """Copy `inputs` in, run, and return a clone of the outputs."""
+        with self._lock, torch.inference_mode():
+            self._copy_in(inputs)
+            if self.graph is None:            # the CPU: no capture
+                return _map(torch.clone, self._body(*self.static))
+            self.graph.replay()
+            add_counts(self._delta)
+            return _map(torch.clone, self.outputs)
+
+
+def _end_failed_capture(device: torch.device,
+                        current: torch.cuda.Stream) -> None:
+    """After a failed capture, retire the device's pool and capture
+    stream, and make `current` this thread's stream again: once
+    capture_end raises on the invalidated capture, torch.cuda.graph's exit
+    leaves the pool recording the capture stream's allocations (a later
+    capture into it is refused) and the capture stream current. The next
+    capture on the device makes a new pool and stream; the old pool's
+    memory stays with the programs captured into it."""
+    _shared.pop(device, None)
+    torch.cuda.set_stream(current)
+
+
+class ProgramCache:
+    """Programs by (name, key, input shapes and dtypes), built on first
+    use. Thread-safe: a miss builds under the cache's lock, so two threads
+    never capture the same key twice."""
+
+    def __init__(self):
+        self._programs: Dict[tuple, ShapeProgram] = {}
+        self._lock = threading.Lock()
+
+    def run(self, name: str, key: tuple, body: Callable,
+            inputs: Sequence[torch.Tensor], device: torch.device):
+        """body(*static inputs) -> a tensor or a dict of tensors, run as
+        the program of (name, key, the inputs' shapes and dtypes) on
+        `device`; returns a fresh copy of its outputs."""
+        device = _device(device)
+        full = (name, device, key) + tuple((tuple(x.shape), x.dtype)
+                                           for x in inputs)
+        prog = self._programs.get(full)
+        if prog is None:
+            with self._lock:
+                prog = self._programs.get(full)
+                if prog is None:
+                    prog, first = ShapeProgram.build(name, full, body,
+                                                     inputs, device)
+                    self._programs[full] = prog
+                    return first
+        return prog(inputs)
+
+    def count(self, name: Optional[str] = None) -> int:
+        """Programs built, all or those of `name`."""
+        return sum(name is None or k[0] == name for k in self._programs)
+
+    def programs(self):
+        return list(self._programs.values())
+
+    def clear(self) -> None:
+        """Drop every program (the model they captured changed)."""
+        with self._lock:
+            self._programs = {}

@@ -14,9 +14,11 @@ detection-dict list (the schema of `YOLOCLIPDetector.detect`).
     clients letterbox in parallel), into the fixed model canvas.
   * Partial batches pad to the smallest power-of-two BUCKET that holds
     them, so the upload and the device work follow the occupancy; mean
-    occupancy and mean bucket are in `stats()`. `warmup()` runs every
-    bucket once, so lazy module loading and cuDNN's first-call setup for
-    each batch size are paid before traffic.
+    occupancy and mean bucket are in `stats()`. Each bucket runs as its
+    own program on each replica (`inference/program.py`: a CUDA graph
+    replayed with one host call), as the JAX server jits one executable a
+    bucket; `warmup()` captures every bucket before traffic, smallest
+    first.
   * Two pipeline threads: the dispatcher assembles and launches batch k+1
     while the completer waits for batch k. On the card the dispatcher
     never waits for the device: canvases go up from a fresh pinned host
@@ -28,7 +30,9 @@ detection-dict list (the schema of `YOLOCLIPDetector.detect`).
     thread-local.
   * Vocabulary hot swap: `set_vocabulary` encodes the class names once and
     swaps the (text, names) pair in one assignment; the next batch scores
-    against it.
+    against it. The text is a program input copied into its static
+    buffer, so a vocabulary of the same size reuses the programs, as in
+    JAX; another size captures its own.
   * A quantized detector (`quantize_int8`) serves unchanged. Under
     `stem_u8_s2d` the host canvases and their upload stay (B, th, tw, 3)
     uint8; the canvas program space-to-depths them on the card for the
@@ -44,7 +48,7 @@ detection-dict list (the schema of `YOLOCLIPDetector.detect`).
     `spatial=True` additionally splits each frame's HEIGHT over the
     'model' axis (`parallel/spatial.py`: batch over 'data' x height over
     'model'): a data row's replica is its cells' height split, one thread
-    a cell.
+    a cell; those replicas run the canvas body eagerly.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ import torch
 
 from yoloclip_tpu_torch.inference.detector import (_imread_rgb,
                                                    _unpack_detections)
+from yoloclip_tpu_torch.inference.program import ProgramCache
 
 logger = logging.getLogger(__name__)
 
@@ -148,6 +153,8 @@ class DetectionServer:
         self._vocab: Tuple[torch.Tensor, List[str]] = (
             detector.offline_vocabulary, list(detector.class_names))
         self._texts: Dict[torch.device, torch.Tensor] = {}   # per device
+        # one program a (replica, bucket, vocabulary size)
+        self.programs = ProgramCache()
 
         # stats (guarded by _stats_lock)
         self._stats_lock = threading.Lock()
@@ -247,10 +254,11 @@ class DetectionServer:
             self._latencies = []
 
     def warmup(self) -> Dict[int, float]:
-        """Run one dummy batch per bucket size, smallest first, before
-        serving: the first batch of a new size pays lazy module loading and
-        cuDNN's algorithm setup, a latency spike no live request should
-        take. Returns the seconds each bucket's run took (synchronised)."""
+        """Capture every bucket's program on every replica, smallest bucket
+        first, with one dummy batch each, before serving: the first batch
+        of a new size pays the warm-up and the capture, a latency spike no
+        live request should take. Returns the seconds each bucket took
+        (synchronised)."""
         th, tw = self.detector.image_size
         text, names = self._vocab
         seconds = {}
@@ -341,13 +349,21 @@ class DetectionServer:
             mview[i, 0] = r.scale
             mview[i, 1:] = r.orig_wh
         n = b // len(self._replicas)
+        det = self.detector
         outs = []
         for k, (model, dev) in enumerate(self._replicas):
             rows = slice(k * n, (k + 1) * n)
-            m = meta[rows].to(dev, non_blocking=True)
-            outs.append(self.detector._detect_canvases(
-                canv[rows].to(dev, non_blocking=True),
-                self._text_on(text, dev), m[:, 0], m[:, 1:], model=model))
+            if self.spatial:     # threads and exchanges: eager
+                m = meta[rows].to(dev, non_blocking=True)
+                outs.append(det._detect_canvases(
+                    canv[rows].to(dev, non_blocking=True),
+                    self._text_on(text, dev), m[:, 0], m[:, 1:],
+                    model=model))
+            else:    # the pinned rows go straight into the static buffers
+                outs.append(self.programs.run(
+                    'bucket', det._program_key(model),
+                    det._canvas_body(model), (canv[rows], text, meta[rows]),
+                    dev))
         if not cuda:
             return torch.cat(outs), []
         host = torch.empty((b,) + outs[0].shape[1:], dtype=outs[0].dtype,

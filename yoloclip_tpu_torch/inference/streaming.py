@@ -2,7 +2,10 @@
 `yoloclip_tpu/inference/streaming.py`.
 
   * All N streams step together as ONE batch: device letterbox (uint8 in,
-    the only host-to-device transfer), model forward, batched NMS.
+    the only host-to-device transfer), model forward, batched NMS. The
+    step is one program a replica (`inference/program.py`: a CUDA graph
+    captured at the first step and replayed after), as the JAX step is
+    one jitted program.
   * `run` overlaps host frame acquisition with device work: a producer
     thread assembles batch k+1 while the device runs batch k. On the card
     each step's result comes down with non_blocking copies into pinned
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from yoloclip_tpu_torch.config import InferenceConfig
+from yoloclip_tpu_torch.inference.program import ProgramCache, detection_key
 from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP
 from yoloclip_tpu_torch.ops.nms import batched_nms
 from yoloclip_tpu_torch.ops.preprocess import (letterbox_batch_for,
@@ -69,6 +73,7 @@ class StreamingDetector:
         self._replicas = [(m, d, text.to(d))
                           for m, d in zip(replicas, devices)]
         self.text = self._replicas[0][2]
+        self.programs = ProgramCache()    # one step program a replica
 
     @torch.inference_mode()
     def _step(self, frames: torch.Tensor, model=None, text=None
@@ -80,23 +85,35 @@ class StreamingDetector:
                                     self.text if text is None else text,
                                     fused_scores=self.fused)
         boxes = rescale_boxes(out['boxes'], scale, self.frame_hw)
-        # the JAX step passes no class_agnostic: class-agnostic NMS
         return batched_nms(boxes, out['scores'], out['class_ids'],
-                           c.conf_threshold, c.iou_threshold,
-                           topk=c.nms_topk, max_detections=c.max_detections)
+                           **self._nms_args())
+
+    def _nms_args(self) -> Dict:
+        c = self.cfg
+        # the JAX step passes no class_agnostic: class-agnostic NMS
+        return dict(conf_threshold=c.conf_threshold,
+                    iou_threshold=c.iou_threshold, topk=c.nms_topk,
+                    max_detections=c.max_detections)
 
     def step(self, frames: np.ndarray) -> Dict[str, torch.Tensor]:
         """frames: (n_streams, H, W, 3) uint8 -> batched NMS dict on the
         device (the first replica's under a mesh)."""
         frames = torch.as_tensor(frames)
         if len(self._replicas) == 1:
-            return self._step(frames.to(self.device))
+            return self._run(0, frames)
         n = self.n_streams // len(self._replicas)
-        outs = [self._step(frames[k * n:(k + 1) * n].to(dev), model, text)
-                for k, (model, dev, text) in enumerate(self._replicas)]
+        outs = [self._run(k, frames[k * n:(k + 1) * n])
+                for k in range(len(self._replicas))]
         return {key: torch.cat([o[key].to(self.device, non_blocking=True)
                                 for o in outs])
                 for key in outs[0]}
+
+    def _run(self, k: int, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Replica k's step program on its share of the frames."""
+        model, dev, text = self._replicas[k]
+        return self.programs.run(
+            'step', detection_key(model, self._nms_args(), self.fused),
+            lambda f, t: self._step(f, model, t), (frames, text), dev)
 
     def _fetch(self, out: Dict[str, torch.Tensor]):
         """Start the copy of one step's result to the host: (host tensors,

@@ -24,7 +24,7 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import NamedTuple, Optional, Union
+from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -121,8 +121,22 @@ def s2d_kernel3(w3: torch.Tensor) -> torch.Tensor:
     are structurally zero."""
     _, _, C, O = w3.shape
     table = torch.cat([w3.reshape(9 * C, O), w3.new_zeros((1, O))])
-    idx = torch.from_numpy(_s2d_index(C)).to(w3.device)
-    return table[idx]
+    return table[_s2d_index_on(C, w3.device)]
+
+
+# (C, device) -> `_s2d_index(C)` on the device. The s2d stems rewrite
+# their kernel on every forward, so the index is uploaded once and never
+# evicted: a captured program (`inference/program.py`) reads it at a
+# fixed address, and an upload inside a capture would raise.
+_S2D_INDEX_ON: Dict[tuple, torch.Tensor] = {}
+
+
+def _s2d_index_on(C: int, device: torch.device) -> torch.Tensor:
+    idx = _S2D_INDEX_ON.get((C, device))
+    if idx is None:    # setdefault: racing threads all get the first upload
+        idx = _S2D_INDEX_ON.setdefault(
+            (C, device), torch.from_numpy(_s2d_index(C)).to(device))
+    return idx
 
 
 class _ConvKernel(nn.Module):

@@ -48,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from yoloclip_tpu_torch import _build
-from yoloclip_tpu_torch.ops.kernels import library
+from yoloclip_tpu_torch.ops.kernels import library, register_counters
 
 # Launches of the CUDA kernel (incremented only where it launches); the
 # launches of bf16 blocks (bf16 output) and those with int8 input are also
@@ -57,6 +57,8 @@ launches = 0
 launches_bf16 = 0
 launches_s8 = 0
 _count_lock = threading.Lock()   # shards on threads launch too
+register_counters(__name__, _count_lock,
+                  ('launches', 'launches_bf16', 'launches_s8'))
 
 _lib_fns = None
 

@@ -31,12 +31,13 @@ import numpy as np
 import torch
 
 from yoloclip_tpu_torch import _build
-from yoloclip_tpu_torch.ops.kernels import library
+from yoloclip_tpu_torch.ops.kernels import library, register_counters
 from yoloclip_tpu_torch.ops.boxes import pairwise_iou
 
 # Launches of the CUDA kernel (incremented only where it launches).
 launches = 0
 _count_lock = threading.Lock()   # shards on threads launch too
+register_counters(__name__, _count_lock, ('launches',))
 
 # `stages` of the C launcher: the mask build, the greedy scan, or both.
 BUILD, SCAN, BOTH = 1, 2, 3

@@ -48,7 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from yoloclip_tpu_torch import _build
-from yoloclip_tpu_torch.ops.kernels import library
+from yoloclip_tpu_torch.ops.kernels import library, register_counters
 from yoloclip_tpu_torch.parallel.collectives import ClassShard, merge_argmax
 
 NEG = -1e30
@@ -60,6 +60,9 @@ launches_bf16 = 0
 unprojected_launches = 0
 unprojected_launches_bf16 = 0
 _count_lock = threading.Lock()   # shards on threads launch too
+register_counters(__name__, _count_lock,
+                  ('launches', 'launches_bf16', 'unprojected_launches',
+                   'unprojected_launches_bf16'))
 
 
 def _fold_text(text: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,

@@ -13,7 +13,7 @@ rounded to uint8, no /255, space-to-depth'd to (B, th/2, tw/2, 12).
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -40,13 +40,28 @@ def _bilinear_matrix(src: int, dst: int) -> np.ndarray:
     return W
 
 
+# (src, dst, device) -> the matrix on the device, uploaded once and never
+# evicted: a captured program (`inference/program.py`) reads it at a fixed
+# address, and an upload inside a capture would raise.
+_ON_DEVICE: Dict[tuple, torch.Tensor] = {}
+
+
+def _bilinear_on(src: int, dst: int, device: torch.device) -> torch.Tensor:
+    key = (src, dst, device)
+    m = _ON_DEVICE.get(key)
+    if m is None:    # setdefault: racing threads all get the first upload
+        m = _ON_DEVICE.setdefault(
+            key, torch.from_numpy(_bilinear_matrix(src, dst)).to(device))
+    return m
+
+
 def _resize(x: torch.Tensor, rh: int, rw: int) -> torch.Tensor:
     """(B, h, w, C) float32 -> (B, rh, rw, C) bilinear, as two matmuls."""
     B, h, w, C = x.shape
     if (rh, rw) == (h, w):
         return x   # the half-pixel matrix at src == dst is the identity
-    Rh = torch.from_numpy(_bilinear_matrix(h, rh)).to(x.device)
-    Rw = torch.from_numpy(_bilinear_matrix(w, rw)).to(x.device)
+    Rh = _bilinear_on(h, rh, x.device)
+    Rw = _bilinear_on(w, rw, x.device)
     t = torch.matmul(Rh, x.reshape(B, h, w * C))           # (B, rh, w*C)
     t = t.reshape(B, rh, w, C).transpose(2, 3)             # (B, rh, C, w)
     return torch.matmul(t, Rw.t()).transpose(2, 3)         # (B, rh, rw, C)
@@ -123,6 +138,6 @@ def rescale_boxes(boxes: torch.Tensor, scale: float,
     The scale is applied in float32, as the JAX package does."""
     oh, ow = orig_hw
     boxes = boxes / float(np.float32(scale))
-    hi = torch.tensor([ow, oh, ow, oh], dtype=boxes.dtype,
-                      device=boxes.device)
+    hi = boxes.new_empty(4)      # filled on the device: no upload
+    hi[0::2], hi[1::2] = ow, oh
     return torch.minimum(boxes.clamp_min(0), hi)

@@ -379,7 +379,9 @@ def spatialize_detector(detector, mesh,
     through a height split over `height_axis`, and `detect_batch()`
     through batch over `batch_axis` (if given) x height over the rest of
     `height_axis`. Returns the detector (changed in place). The
-    device-letterbox path stays single-device."""
+    device-letterbox path stays single-device. The split runs threads and
+    in-process exchanges, so the two re-routed paths run eagerly: their
+    programs (`inference/program.py`) are dropped."""
     names = _axes(height_axis)
     if batch_axis is not None:
         # a mesh axis cannot split two dims at once: drop the batch axis
@@ -391,4 +393,5 @@ def spatialize_detector(detector, mesh,
     detector._canvas_model = single.forward(replicas)
     detector._batch_model = batched.forward(replicas)
     detector.spatial_mesh = mesh
+    detector.programs.clear()    # the split paths run their eager bodies
     return detector

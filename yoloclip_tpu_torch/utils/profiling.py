@@ -14,7 +14,8 @@
     (empty without one).
 
 The JAX module's `xla_dump` has no counterpart: the port compiles no HLO
-(its kernels are CUDA C++ built by `_build.py`, the rest runs eagerly).
+(its kernels are CUDA C++ built by `_build.py`; the rest runs eagerly,
+or replayed as the CUDA graphs of `inference/program.py`).
 """
 
 from __future__ import annotations
@@ -55,11 +56,12 @@ def annotate(name: str):
 
 def device_summary(prof: profile, span: Optional[str] = None) -> Dict:
     """A finished profile's device activity: {'kernels': {name: (ms,
-    count)}, 'busy_ms', 'span_ms', 'idle_share'} over the span of the
-    annotation `span` (default: the first to the last device activity).
-    Annotations mirrored on the device timeline are not counted as
-    kernels. `idle_share` is None where the profiler recorded no device
-    activity."""
+    count)} of the activities that start in the span, 'busy_ms',
+    'span_ms', 'idle_share'} over the span of the annotation `span`
+    (default: the first to the last device activity). Annotations
+    mirrored on the device timeline are not counted as kernels.
+    `idle_share` is None where the profiler recorded no device activity.
+    """
     events = prof.events()
     marks = {e.name for e in events if e.is_user_annotation}
     dev = [e for e in events
@@ -77,6 +79,8 @@ def device_summary(prof: profile, span: Optional[str] = None) -> Dict:
         t0 = t1 = None
     kernels: Dict[str, list] = {}
     for e in dev:
+        if t0 is not None and not t0 <= e.time_range.start < t1:
+            continue
         k = kernels.setdefault(e.name, [0.0, 0])
         k[0] += (e.time_range.end - e.time_range.start) / 1e3
         k[1] += 1
