@@ -160,16 +160,29 @@ Phases, each printing its results; any failure exits non-zero:
                   same step in float64 on the CPU (loss parts, gradients,
                   BatchNorm buffers, parameters); at bs=16 with the 80
                   COCO prompts a sample, step ms, img/s and peak memory
-                  for compat fp32, clean fp32 and clean bf16; evaluate
-                  with NMS on 32 images (kernel 2); a torch.profiler
-                  breakdown of one clean step (top 10 kernels, idle
-                  share); the overfit twin of tests/test_convergence.py
+                  for compat fp32, clean fp32 and clean bf16 (the
+                  trainer's train programs); evaluate with NMS on 32
+                  images (kernel 2); a torch.profiler breakdown of one
+                  clean step (top 10 kernels, idle share); the overfit
+                  twin of tests/test_convergence.py
                   (121 clean deterministic steps at 128 px, bs=4),
                   served from its checkpoint by YOLOCLIPDetector
                   (kernels 1 and 2): one
                   box per image, class 0, IoU >= 0.5; then cli.eval on
                   those images written as PNG files, where the machine
                   can decode them (it says so where it cannot).
+16g. train graphs -- under deterministic algorithms, at bs=16, 640 px:
+                  compat fp32, clean fp32 with grad_accum_steps=2 and EMA,
+                  clean bf16, each 3 steps through the trainer's train
+                  program and 3 through the eager body from one seeded
+                  state, every state tensor and loss part bit-equal; the
+                  eval program (NMS on) equal to its body, kernel 2 once a
+                  replay; step ms in turns eager, program, program, eager,
+                  device ms and idle share, peak GiB, capture s and the
+                  top-10 breakdown of each; the text tower's encode
+                  programs (the 1203-class vocabulary, 8 online prompts)
+                  bit-equal to the eager tower, build ms in turns; the
+                  graph pool; a grad program that syncs raises at capture.
  17. ddp       -- parallel/ on the one card: two ranks on cuda:0 through
                   gloo (NCCL refuses two ranks on one device) take a compat
                   fp32 and a clean bf16 step at global bs=16 (8 a rank),
@@ -208,13 +221,14 @@ Phases, each printing its results; any failure exits non-zero:
  22. multihost -- the self-test (`parallel/multihost.py --selftest --model
                   2`) in 8 processes on cuda:0 (gloo) as a 4x2 grid, each
                   loss against the 1-process self-test.
-Every detect_batch, detect(), server bucket and streaming step runs as
-its program, captured at its first call: the launch counters count the
-first call's eager run and every replay, never the capture.
+Every detect_batch, detect(), server bucket and streaming step, the
+trainer's train and eval steps (one device) and the text tower's encode
+run as their programs, captured at the first call: the launch counters
+count the first call's eager run and every replay, never the capture.
 Each path that launches kernels (main path, prompts, int8, graphs, int8 edges,
-stems, export, canvas, server, streaming, reparam, profile, training, the
-ddp ranks, dp serve, vocab tp, spatial) runs with the launch counters set
-to 0 just before it and read just after;
+stems, export, canvas, server, streaming, reparam, profile, training, train
+graphs, the ddp ranks, dp serve, vocab tp, spatial) runs with the launch
+counters set to 0 just before it and read just after;
 the kernels line sums them. Two ranks or replicas on one card show
 correctness, not scaling.
 The line before the last is {"kernels": [...]}; the last line is
@@ -225,6 +239,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -2309,21 +2324,35 @@ def _shared_pool_threads(det, srv, frames, pool) -> None:
                 f'call {i}: packed max|diff| {err:.3e}')
 
 
-def _forced_sync_raises() -> bool:
+def _forced_sync_raises(grad: bool = False) -> bool:
     """A body that syncs (`.item()`) raises at capture, naming the program
-    and its key; a capture after it still works."""
+    and its key; a capture after it still works. grad: both bodies run a
+    backward, as a train program does (`ProgramCache.run(grad=True)`)."""
     from yoloclip_tpu_torch.inference.program import ProgramCache
     cache = ProgramCache()
     x = torch.arange(4.0, device='cuda')
+    w = torch.nn.Parameter(torch.ones(4, device='cuda'))
+
+    def synced(t):
+        if grad:
+            (w * t).sum().backward()
+        return t * float(t.sum().item())
+
+    def fine(t):
+        if not grad:
+            return t * 2
+        w.grad = None
+        (w * t * 2).sum().backward()
+        return w.grad
+
     try:
-        cache.run('forced sync', ('probe',),
-                  lambda t: t * float(t.sum().item()), (x,), x.device)
+        cache.run('forced sync', ('probe',), synced, (x,), x.device, grad)
     except RuntimeError as e:
         raised = "'forced sync'" in str(e) and 'probe' in str(e)
     else:
         raised = False
     for _ in range(2):                    # captured, then replayed
-        after = cache.run('after', (), lambda t: t * 2, (x,), x.device)
+        after = cache.run('after', (), fine, (x,), x.device, grad)
     return raised and torch.equal(after, x * 2) and cache.count() == 1
 
 
@@ -3272,9 +3301,23 @@ def phase_training(nms, text_encoder, tmp: str, card: str) -> None:
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         require(all(np.isfinite(v) for v in losses.values()),
                 f'non-finite {assigner} {dtype} training loss')
-        print(f'[train] {assigner} {dtype} bs={TRAIN_BS} 640 px: '
-              f'{ms:.2f} ms/step, {TRAIN_BS / ms * 1e3:.1f} img/s, peak '
-              f'{peak:.2f} GiB, loss {losses["loss"]:.4f} ({card})')
+        # the same epoch through the eager body, for the reading beside
+        program_step = trainer._train_step
+        trainer._train_step = trainer._train_step_eager
+        try:
+            trainer.train_epoch([batch] * TRAIN_WARMUP, 1)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trainer.train_epoch([batch] * TRAIN_STEPS, 1)
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t) / TRAIN_STEPS * 1e3
+        finally:
+            trainer._train_step = program_step
+        print(f'[train] {assigner} {dtype} bs={TRAIN_BS} 640 px '
+              f'(train_epoch, the train program): {ms:.2f} ms/step, '
+              f'{TRAIN_BS / ms * 1e3:.1f} img/s, peak {peak:.2f} GiB, loss '
+              f'{losses["loss"]:.4f}; the eager body {eager_ms:.2f} ms/step, '
+              f'{TRAIN_BS / eager_ms * 1e3:.1f} img/s ({card})')
         if (assigner, dtype) == ('topk_center', 'float32'):
             before = nms.launches
             t = time.perf_counter()
@@ -3289,8 +3332,24 @@ def phase_training(nms, text_encoder, tmp: str, card: str) -> None:
                     'evaluate did not launch kernel 2 once a batch')
             require(np.isfinite(metrics['loss']), 'evaluate loss')
         if assigner == 'topk_center':
-            _step_breakdown(trainer, batch, card, f'clean {dtype}')
+            _step_breakdown(trainer, batch, card,
+                            f'clean {dtype} (the train program)')
         del trainer
+
+
+@contextlib.contextmanager
+def _deterministic(on: bool = True):
+    """torch.use_deterministic_algorithms and cuDNN's deterministic
+    algorithms set to `on` inside the block."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(on)
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0])
+        torch.backends.cudnn.deterministic = was[1]
 
 
 def train_overfit(tmp: str, steps: int = OVERFIT_STEPS,
@@ -3329,20 +3388,13 @@ def train_overfit(tmp: str, steps: int = OVERFIT_STEPS,
     sched = ts.make_onecycle_schedule(2e-3, steps + 1, 1)
     textb = text[None].expand(B, -1, -1).cuda()
     t = time.perf_counter()
-    was = (torch.are_deterministic_algorithms_enabled(),
-           torch.backends.cudnn.deterministic)
-    torch.use_deterministic_algorithms(deterministic)
-    torch.backends.cudnn.deterministic = deterministic
-    try:
+    with _deterministic(deterministic):
         ts.set_learning_rate(state, sched(0))
         first = step(state, batch, textb)['loss'].item()
         for i in range(1, steps + 1):
             ts.set_learning_rate(state, sched(i))
             parts = step(state, batch, textb)
         last = parts['loss'].item()
-    finally:
-        torch.use_deterministic_algorithms(was[0])
-        torch.backends.cudnn.deterministic = was[1]
     secs = time.perf_counter() - t
     digest = sum(float(p.detach().double().sum())
                  for p in state.model.parameters())
@@ -3468,10 +3520,401 @@ def phases_training(sim, nms, tmp: str, card: str) -> dict:
     phase_eval_cli(*phase_overfit(tmp), tmp)
     torch.cuda.synchronize()
     launches = _counts(sim, nms)
+    del encoder
+    gc.collect()                          # the trainers' graphs
+    torch.cuda.empty_cache()
     print(f'[train] launches on the training path (evaluate, overfit '
           f'detect_batch, cli.eval where it ran): {launches}')
     require(launches['nms'] > 0 and launches['similarity'] > 0,
             'the training path did not launch kernels 1 and 2')
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# [train graphs]: the trainer's train and eval steps and the text tower's
+# encode as programs (inference/program.py) against their eager bodies,
+# under deterministic algorithms, so that each pair must agree bit for bit.
+# ---------------------------------------------------------------------------
+
+# (tag, assigner, dtype, grad_accum_steps, ema_decay) at bs=16, 640 px
+TRAIN_GRAPH_CASES = (('compat fp32', 'compat', 'float32', 1, 0.0),
+                     ('clean fp32 accum 2 EMA', 'topk_center', 'float32', 2,
+                      0.9999),
+                     ('clean bf16', 'topk_center', 'bfloat16', 1, 0.0))
+TRAIN_GRAPH_STEPS = 3     # steps through the program and the eager body
+TRAIN_GRAPH_TIMED = 3     # steps a turn in the A/B
+TRAIN_GRAPH_TRACED = 1    # steps a span in the trace (as [train breakdown])
+ONLINE_PROMPTS = 8        # the online prompt batch
+# the case that also resumes from a CPU trainer's checkpoint
+RESUME_CASE = 'clean fp32 accum 2 EMA'
+RESUME_STEPS = 2          # the new program's capture, then a replay
+# the pool-growth sequence (clean bf16, one trainer): per-sample classes of
+# the train batches (class buckets 8, 32, 128), then a partial last batch
+# of POOL_LAST rows and an eval batch at 8 classes
+POOL_CLASSES = (8, 32, 80)
+POOL_LAST = 8
+
+
+def _train_state_diff(got, want) -> list:
+    """The tensors of two TrainStates that are not bit-equal: parameters
+    and BatchNorm buffers, EMA, the optimizer's state."""
+    g = got.model.state_dict()
+    bad = [k for k, v in want.model.state_dict().items()
+           if not torch.equal(g[k], v)]
+    if want.ema is not None:
+        bad += [f'ema {k}' for k, v in want.ema.items()
+                if not torch.equal(got.ema[k], v)]
+    for (name, p), q in zip(got.model.named_parameters(),
+                            want.model.parameters()):
+        sp, sq = got.optimizer.state[p], want.optimizer.state[q]
+        bad += [f'optimizer {name} {k}' for k in sq
+                if not torch.equal(sp[k], sq[k])]
+    return bad
+
+
+def _steps_ms(step, n: int) -> float:
+    """Host ms a call of step() over n calls ending in a synchronize."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e3
+
+
+def _train_graph_case(case, encoder, batch, val, nms, tmp, card) -> None:
+    """One case of [train graphs]: TRAIN_GRAPH_STEPS steps through the
+    trainer's program and through the eager body of a second trainer from
+    the same seeded state, bit-equal; the eval program against its eager
+    body on each val batch, kernel 2 once a batch under replay; the A/B
+    readings."""
+    from yoloclip_tpu_torch.train import train_state as ts
+    from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
+    from yoloclip_tpu_torch.utils.profiling import (annotate, device_summary,
+                                                    trace)
+    t0 = time.perf_counter()
+    tag, assigner, dtype, accum, ema = case
+    cfg = _train_cfg(assigner=assigner, dtype=dtype, grad_accum_steps=accum,
+                     ema_decay=ema, ema_warmup_steps=2, eval_with_nms=True,
+                     batch_size=TRAIN_BS,
+                     output_dir=os.path.join(tmp, 'train_graphs'))
+    prog, eager = (YOLOCLIPTrainer(_seeded_model(cfg), encoder, cfg,
+                                   device='cuda') for _ in range(2))
+    arrays = prog._put_batch(batch)
+    text = prog._encode_batch_text(batch['text_prompts'])
+    sched = ts.make_onecycle_schedule(cfg.learning_rate, TRAIN_GRAPH_STEPS, 1)
+    for i in range(TRAIN_GRAPH_STEPS):
+        for t in (prog, eager):
+            ts.set_learning_rate(t.state, sched(i))
+        got = prog._train_step(prog.state, arrays, text)
+        want = eager._train_step_eager(eager.state, arrays, text)
+        require(all(torch.equal(got[k], want[k]) for k in want),
+                f'[train graphs] {tag} step {i}: loss parts {got} vs the '
+                f'eager body {want}')
+    bad = _train_state_diff(prog.state, eager.state)
+    require(not bad, f'[train graphs] {tag}: after {TRAIN_GRAPH_STEPS} steps '
+            f'{len(bad)} tensors differ from the eager body\'s, e.g. '
+            f'{bad[:3]}')
+    n_state = (len(prog.model.state_dict()) + len(prog.state.ema or {})
+               + sum(len(v) for v in prog.state.optimizer.state.values()))
+    progs = [p for p in prog.programs.programs() if p.name == 'train_step']
+    # the eval program: equal to its body on each batch, one NMS a batch
+    for v in val:
+        prog._eval_step(prog.state, prog._put_batch(v),
+                        prog._encode_batch_text(v['text_prompts']))
+    before = nms.launches
+    for v in val:
+        va = prog._put_batch(v)
+        vt = prog._encode_batch_text(v['text_prompts'])
+        got, want = (prog._eval_step(prog.state, va, vt),
+                     prog._eval_step_eager(prog.state, va, vt))
+        replays = nms.launches - before - 1      # the eager body's one
+        before = nms.launches
+        require(replays == 1, f'[train graphs] {tag}: an eval replay '
+                f'launched kernel 2 {replays} times')
+        require(all(torch.equal(got[i][k], want[i][k]) for i in (0, 1)
+                    for k in want[i]),
+                f'[train graphs] {tag}: the eval program differs from its '
+                f'eager body')
+    # readings: step ms and peak memory in turns, idle share, breakdown
+    steps = {'eager': lambda: eager._train_step_eager(eager.state, arrays,
+                                                      text),
+             'program': lambda: prog._train_step(prog.state, arrays, text)}
+    turns, peak = [], {}
+    for k in ('eager', 'program', 'program', 'eager'):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        turns.append(_steps_ms(steps[k], TRAIN_GRAPH_TIMED))
+        peak[k] = max(peak.get(k, 0.0),
+                      torch.cuda.max_memory_allocated() / 2 ** 30)
+    log_dir = os.path.join(tmp, f'train_graphs_{tag.replace(" ", "_")}')
+    with trace(log_dir) as prof:
+        for k, step in steps.items():
+            with annotate(f'{k} x{TRAIN_GRAPH_TRACED}'):
+                for _ in range(TRAIN_GRAPH_TRACED):
+                    step()
+                torch.cuda.synchronize()
+    summ = {k: device_summary(prof, span=f'{k} x{TRAIN_GRAPH_TRACED}')
+            for k in steps}
+    print(f'[train graphs] {tag} bs={TRAIN_BS} 640 px, deterministic: '
+          f'{TRAIN_GRAPH_STEPS} steps through the program (the first its '
+          f'eager warm-up) and {TRAIN_GRAPH_STEPS} through the eager body '
+          f'from one seeded state, a new rate each step: loss parts and '
+          f'all {n_state} state tensors (parameters, BatchNorm buffers, '
+          f'EMA, optimizer moments) bit-equal; eval_with_nms program = its '
+          f'eager body on {len(val)} batches, kernel 2 once a replay; step '
+          f'ms (train step alone, batch and text on the card) in turns '
+          f'eager {turns[0]:.2f}, program {turns[1]:.2f}, program '
+          f'{turns[2]:.2f}, eager {turns[3]:.2f} (img/s '
+          + ', '.join(f'{TRAIN_BS / t * 1e3:.1f}' for t in turns)
+          + f'); device ms a step / idle share over {TRAIN_GRAPH_TRACED} '
+          f'traced step(s) eager '
+          f'{summ["eager"]["busy_ms"] / TRAIN_GRAPH_TRACED:.2f} / '
+          f'{_share(summ["eager"]["idle_share"])}, program '
+          f'{summ["program"]["busy_ms"] / TRAIN_GRAPH_TRACED:.2f} / '
+          f'{_share(summ["program"]["idle_share"])}; peak GiB eager '
+          f'{peak["eager"]:.2f}, program {peak["program"]:.2f}; warm-up '
+          + ', '.join(f'{p.warmup_s:.3f}' for p in progs) + ' s, capture '
+          + ', '.join(f'{p.capture_s:.3f}' for p in progs)
+          + f' s; case seconds {time.perf_counter() - t0:.1f}  [{card}]')
+    for k, sm in summ.items():            # [train breakdown] of each span
+        total = sum(v[0] for v in sm['kernels'].values())
+        print(f'[train breakdown] {tag} {k}, {TRAIN_GRAPH_TRACED} step(s): '
+              f'host span {sm["span_ms"]:.2f} ms, device busy '
+              f'{sm["busy_ms"]:.2f} ms, idle share '
+              f'{_share(sm["idle_share"])}, '
+              f'{sum(v[1] for v in sm["kernels"].values())} device '
+              f'activities  [{card}]')
+        for name, (ms, n) in sorted(sm['kernels'].items(),
+                                    key=lambda kv: -kv[1][0])[:10]:
+            print(f'[train breakdown]   {ms / TRAIN_GRAPH_TRACED:8.3f} ms  '
+                  f'{n // TRAIN_GRAPH_TRACED:5d}x  {100 * ms / total:5.1f} %  '
+                  f'{name[:110]}')
+    if tag == RESUME_CASE:
+        _train_graph_resume(tag, cfg, prog, eager, encoder, arrays, text,
+                            tmp, card)
+
+
+def _train_graph_resume(tag, cfg, prog, eager, encoder, arrays, text, tmp,
+                        card) -> None:
+    """Resume both trainers from a CPU trainer's checkpoint (the optimizer
+    in the CPU's form: a float rate, capturable off, CPU step counters, as
+    CPU runs and the trainers before the programs saved it), then
+    RESUME_STEPS steps through a new program (its capture, then a replay)
+    and through the eager body: bit-equal. The program trainer keeps its
+    rate tensor, capturable on, its step counters fp32 on the card."""
+    from yoloclip_tpu_torch.train import train_state as ts
+    from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
+    from yoloclip_tpu_torch.utils.checkpoint import load_checkpoint
+    card_path = os.path.join(tmp, 'train_graphs_card.pt')
+    cpu_path = os.path.join(tmp, 'train_graphs_cpu.pt')
+    eager.save(card_path)
+    cpu = YOLOCLIPTrainer(_seeded_model(cfg, seed=1), encoder, cfg,
+                          device='cpu')
+    cpu.load(card_path)
+    cpu.save(cpu_path)
+    del cpu
+    saved = load_checkpoint(cpu_path)['optimizer']['param_groups'][0]
+    require(saved['capturable'] is False
+            and not isinstance(saved['lr'], torch.Tensor),
+            f'[train graphs] {tag}: the CPU trainer saved its optimizer in '
+            f'the form capturable={saved["capturable"]}, lr '
+            f'{type(saved["lr"]).__name__}')
+    rate = prog.state.optimizer.param_groups[0]['lr']
+    for t in (prog, eager):
+        t.load(cpu_path)
+    opt = prog.state.optimizer
+    steps = [st['step'] for st in opt.state.values()]
+    require(opt.param_groups[0]['lr'] is rate
+            and opt.param_groups[0]['capturable'] is True
+            and all(x.is_cuda and x.dtype == torch.float32 for x in steps),
+            f'[train graphs] {tag}: resumed from the CPU trainer\'s '
+            f'checkpoint, the optimizer is not in the card\'s form')
+    sched = ts.make_onecycle_schedule(cfg.learning_rate, TRAIN_GRAPH_STEPS, 1)
+    for i in range(RESUME_STEPS):
+        for t in (prog, eager):
+            ts.set_learning_rate(t.state, sched(i))
+        got = prog._train_step(prog.state, arrays, text)
+        want = eager._train_step_eager(eager.state, arrays, text)
+        require(all(torch.equal(got[k], want[k]) for k in want),
+                f'[train graphs] {tag} resumed step {i}: loss parts {got} '
+                f'vs the eager body {want}')
+    bad = _train_state_diff(prog.state, eager.state)
+    require(not bad, f'[train graphs] {tag}: resumed, {len(bad)} tensors '
+            f'differ from the eager body\'s, e.g. {bad[:3]}')
+    print(f'[train graphs] {tag}: both trainers resumed from a CPU '
+          f'trainer\'s checkpoint (capturable off, a float rate, CPU step '
+          f'counters); the program trainer kept its rate tensor, capturable '
+          f'on, {len(steps)} step counters fp32 on the card; '
+          f'{RESUME_STEPS} steps through a new program (capture, replay) '
+          f'bit-equal to the eager body  [{card}]')
+
+
+def _memory_by_pool(dev: torch.device) -> str:
+    """The caching allocator's segments on `dev` grouped by graph pool and
+    stream: pool id (the live shared pool of `inference/program.py`
+    marked 'shared', the default pool 'default'; other ids are retired
+    pools or private ones), segments, reserved and allocated GiB."""
+    from yoloclip_tpu_torch.inference import program
+    live = program._shared.get(dev)
+    live = tuple(live[0]) if live is not None else None
+    groups = {}
+    for seg in torch.cuda.memory_snapshot():
+        if seg['device'] != dev.index:
+            continue
+        pool = tuple(seg.get('segment_pool_id', (0, 0)))
+        g = groups.setdefault((pool, seg['stream']), [0, 0, 0])
+        g[0] += 1
+        g[1] += seg['total_size']
+        g[2] += seg['allocated_size']
+    parts = []
+    for (pool, stream), (n, total, used) in sorted(
+            groups.items(), key=lambda kv: -kv[1][1]):
+        name = ('default' if pool == (0, 0)
+                else 'shared' if pool == live else 'other')
+        parts.append(f'{name} {pool} stream {stream:#x}: {n} segments, '
+                     f'{total / 2 ** 30:.2f} GiB reserved, '
+                     f'{used / 2 ** 30:.2f} allocated')
+    return '; '.join(parts)
+
+
+def _pool_growth(encoder, tmp: str, card: str) -> None:
+    """The shared pool after each new program of a clean bf16 trainer
+    over a training run's sequence of shapes: train batches at the class
+    buckets of POOL_CLASSES, a partial last batch, an eval batch at 8
+    classes (each with its prompts' encode programs)."""
+    from yoloclip_tpu_torch.data.loader import device_prefetch
+    from yoloclip_tpu_torch.inference import program
+    from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
+    dev = torch.device('cuda', torch.cuda.current_device())
+    cfg = _train_cfg(assigner='topk_center', dtype='bfloat16',
+                     eval_with_nms=True, batch_size=TRAIN_BS,
+                     output_dir=os.path.join(tmp, 'pool_growth'))
+    t = YOLOCLIPTrainer(_seeded_model(cfg), encoder, cfg, device='cuda')
+    shapes = ([('train', TRAIN_BS, c) for c in POOL_CLASSES]
+              + [('train', POOL_LAST, POOL_CLASSES[0]),
+                 ('eval', TRAIN_BS, POOL_CLASSES[0])])
+    readings = [f'start {program.pool_bytes(dev) / 2 ** 30:.2f}']
+    for i, (kind, n, classes) in enumerate(shapes):
+        batch = next(device_prefetch(
+            iter([_train_batch(n, 40 + i, classes=classes)]), 'cuda'))
+        before = t.programs.count() + encoder.programs.count()
+        arrays = t._put_batch(batch)
+        text = t._encode_batch_text(batch['text_prompts'])
+        step = t._train_step if kind == 'train' else t._eval_step
+        step(t.state, arrays, text)
+        torch.cuda.synchronize()
+        new = t.programs.count() + encoder.programs.count() - before
+        readings.append(f'{kind} B={n} C={text.shape[1]} (+{new}) '
+                        f'{program.pool_bytes(dev) / 2 ** 30:.2f}')
+    print(f'[train graphs] pool growth, clean bf16 640 px, one trainer '
+          f'(shared pool GiB after each shape; +new programs, train or '
+          f'eval and encode): ' + ', '.join(readings) + f'  [{card}]')
+
+
+def _text_graphs(encoder, card) -> None:
+    """The text tower's encode program against its eager body: the
+    1203-class vocabulary (5 templates, 8192 token rows) and an online
+    batch of ONLINE_PROMPTS prompts bit-equal, and the vocabulary build
+    ms in turns eager, program, program, eager (the prompt cache cleared
+    before each build)."""
+    from yoloclip_tpu_torch.text.vocab import VocabularyBuilder
+    builder = VocabularyBuilder(encoder)
+    programs = encoder.programs
+
+    def build(eager: bool, fn):
+        encoder.programs = _EagerPrograms() if eager else programs
+        encoder._cache.clear()
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t) * 1e3
+        finally:
+            encoder.programs = programs
+
+    readings = {}
+    for tag, fn in (('vocabulary', lambda: builder.build_online_vocabulary(
+                        LVIS_NAMES)),
+                    ('online', lambda: encoder(PROMPTS[:ONLINE_PROMPTS]))):
+        build(False, fn)                  # captured
+        runs = [build(e, fn) for e in (True, False, False, True)]
+        require(all(torch.equal(r[0], runs[0][0]) for r in runs),
+                f'[train graphs] text {tag}: the encode program differs '
+                f'from its eager body')
+        readings[tag] = [r[1] for r in runs]
+    progs = programs.programs()
+    print(f'[train graphs] text tower fp32: the {LVIS_C}-class vocabulary '
+          f'(x5 templates) and {ONLINE_PROMPTS} online prompts through the '
+          f'encode programs ('
+          + ', '.join(f'{tuple(p.static[0].shape)} capture '
+                      f'{p.capture_s:.3f} s' for p in progs)
+          + ') bit-equal to the eager tower; ms in turns eager, program, '
+          f'program, eager: vocabulary build '
+          + ', '.join(f'{t:.1f}' for t in readings['vocabulary'])
+          + f'; {ONLINE_PROMPTS} online prompts '
+          + ', '.join(f'{t:.2f}' for t in readings['online'])
+          + f'  [{card}]')
+
+
+def phase_train_graphs(sim, nms, tmp: str, card: str) -> dict:
+    """[train graphs]: the trainer's train and eval programs against their
+    eager bodies for each TRAIN_GRAPH_CASES case, the text tower's encode
+    program against its body, the graph pool, and a failing capture of a
+    grad program; all under deterministic algorithms. Returns the launches
+    of the phase, counted from 0."""
+    from yoloclip_tpu_torch.data.loader import device_prefetch
+    from yoloclip_tpu_torch.inference import program
+    from yoloclip_tpu_torch.text.encoder import CLIPTextEncoder
+    t0 = time.perf_counter()
+    encoder = CLIPTextEncoder(device='cuda', seed=0)
+    batch = next(device_prefetch(iter([_train_batch(TRAIN_BS, 2)]), 'cuda'))
+    val = list(device_prefetch(iter([_train_batch(TRAIN_BS, 3 + i)
+                                     for i in range(EVAL_IMAGES
+                                                    // TRAIN_BS)]),
+                               'cuda'))
+    dev = torch.device('cuda', torch.cuda.current_device())
+    print(f'[train graphs] memory at the phase\'s start: '
+          f'{_memory_by_pool(dev)}  [{card}]')
+    _zero_counts(sim, nms)
+    with _deterministic():
+        for case in TRAIN_GRAPH_CASES:
+            _train_graph_case(case, encoder, batch, val, nms, tmp, card)
+            gc.collect()                  # the case's trainers and graphs
+            torch.cuda.empty_cache()
+        t_text = time.perf_counter()
+        _text_graphs(encoder, card)
+    torch.cuda.synchronize()
+    launches = _counts(sim, nms)
+    t_pool = time.perf_counter()
+    _pool_growth(encoder, tmp, card)
+    gc.collect()                          # the trainer's graphs
+    torch.cuda.empty_cache()
+    # before the failed capture below, which retires the device's pool
+    pool_gib = program.pool_bytes(dev) / 2 ** 30
+    print(f'[train graphs] memory after the cases, the text programs and '
+          f'the pool growth (their trainers freed, the encoder\'s programs '
+          f'alive): {_memory_by_pool(dev)}  [{card}]')
+    raised = _forced_sync_raises(grad=True)
+    require(raised, '[train graphs] a grad program\'s body that syncs did '
+            'not raise at capture naming its program, or a capture after '
+            'it failed')
+    reserved = torch.cuda.memory_reserved(dev) / 2 ** 30
+    del encoder
+    gc.collect()                          # the retired pool goes back
+    torch.cuda.empty_cache()
+    print(f'[train graphs] memory after the failed capture and the '
+          f'encoder freed: {_memory_by_pool(dev)}  [{card}]')
+    print(f'[train graphs] text seconds {t_pool - t_text:.1f}, pool growth '
+          f'seconds {time.perf_counter() - t_pool:.1f}; '
+          f'a grad program calling .item() raised at capture '
+          f'and the next capture worked; graph pool on {dev} '
+          f'{pool_gib:.2f} GiB (of {reserved:.2f} GiB reserved; '
+          f'{torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB after the '
+          f'phase); launches {launches}; phase seconds '
+          f'{time.perf_counter() - t0:.1f}  [{card}]')
+    require(launches['nms'] > 0, '[train graphs] no kernel 2 launch')
     return launches
 
 
@@ -4663,6 +5106,7 @@ def main() -> int:
                  phase_profile(sim, nms, bf, frames, tmp, card)]
         del det, bf
         paths.append(phases_training(sim, nms, tmp, card))
+        paths.append(phase_train_graphs(sim, nms, tmp, card))
         paths.append(phase_ddp(sim, nms, tmp, card))
         paths += phase_dp_serve(sim, nms, i8, vocab_path, tmp, card)
         # the 'model' axis: class parallelism and spatial partitioning

@@ -1,9 +1,11 @@
-"""Per-shape detection programs: the port's counterpart of `jax.jit`'s
-cache of compiled executables.
+"""Per-shape programs: the port's counterpart of `jax.jit`'s cache of
+compiled executables.
 
 The JAX package builds each inference path as ONE jitted program per
 static shape (`yoloclip_tpu/inference/detector.py`'s detect, canvas and
-batch programs, the server's bucket programs, the streaming step) and
+batch programs, the server's bucket programs, the streaming step), as it
+builds the text tower's encode (`yoloclip_tpu/text/encoder.py`) and the
+trainer's train and eval steps (`yoloclip_tpu/train/trainer.py`), and
 replays the compiled executable on every later call. Here a program is a
 `torch.cuda.CUDAGraph` captured once per key and replayed with one host
 call. On the CPU, which only the tests ask for, the same program runs its
@@ -43,6 +45,12 @@ body on the same static buffers without capture.
     another captures would have its launches taken back too: captures run
     before traffic (`DetectionServer.warmup`, `cli/warmup.py`) or on the
     one thread that launches.
+  * A program built with `grad=True` (the trainer's train step) runs its
+    body with autograd on, outside inference mode, so the tensors it
+    updates stay ordinary tensors: the captured backward allocates the
+    gradients in the pool, and a capturable optimizer
+    (`train/train_state.py::make_optimizer`) updates the state in place
+    on every replay. The rules above hold for it unchanged.
   * Graphs do not outlive the process: there is no counterpart of the
     JAX package's persistent compile cache.
 """
@@ -83,23 +91,32 @@ def _device_lock(device: torch.device) -> threading.Lock:
     return got
 
 
+def nms_key(nms_args: Dict) -> tuple:
+    """The NMS settings as a part of a key: (name, value) pairs by name,
+    the thresholds in float32 (JAX traces them in float32; the NMS kernel
+    takes the IoU by value, so a new pair captures a new program)."""
+    return tuple((k, float(np.float32(v)) if isinstance(v, float) else v)
+                 for k, v in sorted(nms_args.items()))
+
+
 def detection_key(model, nms_args: Dict, fused: bool) -> tuple:
     """What a detection program bakes in beyond its inputs' shapes and
     dtypes and its device: the model it runs, by identity (a quantized,
     split or replicated model is another object and selects programs of
     its own; the key keeps it alive, so its id is never reused), the
     scoring route, the int8-stored edges' threshold, and the NMS settings
-    with the thresholds in float32."""
+    (`nms_key`)."""
     from yoloclip_tpu_torch.models import layers
-    return (model, fused, layers.STORE_INT8_MIN_ELEMS) + tuple(
-        (k, float(np.float32(v)) if isinstance(v, float) else v)
-        for k, v in sorted(nms_args.items()))
+    return (model, fused, layers.STORE_INT8_MIN_ELEMS) + nms_key(nms_args)
 
 
 def _map(fn, out):
-    """fn over the tensors of a program's output: a tensor or a dict."""
+    """fn over the tensors of a program's output: a tensor, or a dict or
+    tuple of them (nested)."""
     if isinstance(out, dict):
-        return {k: fn(v) for k, v in out.items()}
+        return {k: _map(fn, v) for k, v in out.items()}
+    if isinstance(out, tuple):
+        return tuple(_map(fn, v) for v in out)
     return fn(out)
 
 
@@ -125,12 +142,15 @@ def pool_bytes(device: torch.device) -> int:
 class ShapeProgram:
     """One program: static input buffers on `device`, and on CUDA the
     graph captured from `body` over them. Build with `ShapeProgram.build`,
-    which also returns the first call's result."""
+    which also returns the first call's result. grad: run the body with
+    autograd (a train step) instead of under inference mode."""
 
     def __init__(self, name: str, key: tuple, body: Callable,
-                 inputs: Sequence[torch.Tensor], device: torch.device):
+                 inputs: Sequence[torch.Tensor], device: torch.device,
+                 grad: bool = False):
         device = _device(device)
         self.name, self.key, self.device = name, key, device
+        self.grad = grad
         self._body = body
         self._lock = _device_lock(device)   # copy-in -> replay -> clone-out
         self.static = [torch.empty(x.shape, dtype=x.dtype, device=device)
@@ -142,14 +162,18 @@ class ShapeProgram:
 
     @classmethod
     def build(cls, name: str, key: tuple, body: Callable,
-              inputs: Sequence[torch.Tensor], device: torch.device):
+              inputs: Sequence[torch.Tensor], device: torch.device,
+              grad: bool = False):
         """(program, the result of its first call on `inputs`)."""
-        prog = cls(name, key, body, inputs, device)
-        with prog._lock, torch.inference_mode():
+        prog = cls(name, key, body, inputs, device, grad)
+        with prog._lock, prog._mode():
             prog._copy_in(inputs)
             if prog.device.type != 'cuda':
                 return prog, _map(torch.clone, body(*prog.static))
             return prog, prog._capture()
+
+    def _mode(self):
+        return torch.enable_grad() if self.grad else torch.inference_mode()
 
     def _copy_in(self, inputs: Sequence[torch.Tensor]) -> None:
         for s, x in zip(self.static, inputs):
@@ -170,9 +194,8 @@ class ShapeProgram:
             with torch.cuda.stream(stream):
                 first = _map(torch.clone, self._body(*self.static))
             current.wait_stream(stream)
-            for t in (first.values() if isinstance(first, dict)
-                      else (first,)):
-                t.record_stream(current)      # the caller reads it there
+            # the caller reads it there
+            _map(lambda t: t.record_stream(current), first)
             t1 = time.perf_counter()
             before = read_counts()
             try:
@@ -195,7 +218,7 @@ class ShapeProgram:
 
     def __call__(self, inputs: Sequence[torch.Tensor]):
         """Copy `inputs` in, run, and return a clone of the outputs."""
-        with self._lock, torch.inference_mode():
+        with self._lock, self._mode():
             self._copy_in(inputs)
             if self.graph is None:            # the CPU: no capture
                 return _map(torch.clone, self._body(*self.static))
@@ -227,10 +250,12 @@ class ProgramCache:
         self._lock = threading.Lock()
 
     def run(self, name: str, key: tuple, body: Callable,
-            inputs: Sequence[torch.Tensor], device: torch.device):
-        """body(*static inputs) -> a tensor or a dict of tensors, run as
-        the program of (name, key, the inputs' shapes and dtypes) on
-        `device`; returns a fresh copy of its outputs."""
+            inputs: Sequence[torch.Tensor], device: torch.device,
+            grad: bool = False):
+        """body(*static inputs) -> a tensor, or a dict or tuple of them,
+        run as the program of (name, key, the inputs' shapes and dtypes) on
+        `device`; returns a fresh copy of its outputs. grad: the body runs
+        with autograd (`ShapeProgram`)."""
         device = _device(device)
         full = (name, device, key) + tuple((tuple(x.shape), x.dtype)
                                            for x in inputs)
@@ -240,7 +265,7 @@ class ProgramCache:
                 prog = self._programs.get(full)
                 if prog is None:
                     prog, first = ShapeProgram.build(name, full, body,
-                                                     inputs, device)
+                                                     inputs, device, grad)
                     self._programs[full] = prog
                     return first
         return prog(inputs)

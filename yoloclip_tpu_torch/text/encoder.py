@@ -1,7 +1,14 @@
 """Frozen CLIP text encoder with a per-prompt embedding cache. Counterpart
 of `yoloclip_tpu/text/encoder.py`.
 
-  * The tower runs over a (N, 77) token batch on the encoder's device; a
+  * The tower runs over a (N, 77) token batch on the encoder's device as
+    the program of that shape (`self.programs`, a CUDA graph on the card,
+    `inference/program.py`; keyed on the tower by identity and its dtype),
+    as the JAX encoder jits `_encode` once a token-batch shape;
+    `_encode_eager` is its body. The body runs the tower over
+    ENCODE_CHUNK rows at a time: a graph keeps its intermediates in the
+    graph pool for as long as it lives, and the tower's MLP over a
+    1203-class vocabulary (8192 rows) holds 5 GB a tensor in fp32. A
     batch of new prompts is padded with its last row to the next power of
     two (`_bucket`), as the JAX encoder does to bound recompiles.
   * Each unique prompt is encoded once per encoder and kept on the device.
@@ -15,16 +22,32 @@ of `yoloclip_tpu/text/encoder.py`.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from yoloclip_tpu_torch.inference.program import ProgramCache
 from yoloclip_tpu_torch.text.model import CLIPTextTransformer, init_text_weights
 from yoloclip_tpu_torch.text.tokenizer import CLIPTokenizer, default_tokenizer
 from yoloclip_tpu_torch.utils.convert import (
     flax_text_params_from_state_dict, text_state_dict_from_flax)
+
+
+# token rows the tower runs at once (its program's memory is one chunk's)
+ENCODE_CHUNK = 1024
+
+
+def _encode(model: CLIPTextTransformer, device: torch.device,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """The encode program's body: tokens (N, 77) int64 -> (N, E)
+    L2-normalised fp32 rows, ENCODE_CHUNK rows at a time."""
+    tokens = tokens.to(device)
+    feats = torch.cat([model(t) for t in tokens.split(ENCODE_CHUNK)])
+    norm = torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
+    return feats / norm.clamp_min(1e-12)
 
 
 def _bucket(n: int) -> int:
@@ -85,15 +108,22 @@ class CLIPTextEncoder:
         self.model = model.to(device=self.device, dtype=cdtype).eval(
             ).requires_grad_(False)
         self._cache: Dict[str, torch.Tensor] = {}
+        self.programs = ProgramCache()   # one a token-batch shape
 
-    @torch.inference_mode()
     def encode_tokens(self, tokens: np.ndarray) -> torch.Tensor:
         """(N, 77) int -> (N, E) L2-normalised fp32 embeddings on the
-        encoder's device."""
-        feats = self.model(torch.as_tensor(tokens, dtype=torch.long,
-                                           device=self.device))
-        norm = torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
-        return feats / norm.clamp_min(1e-12)
+        encoder's device, by the program of the batch's shape. (Its body
+        holds the tower, not the encoder: a program that referred back to
+        its owner would keep both alive until a cyclic collection.)"""
+        return self.programs.run(
+            'encode', (self.model, self.model.text_projection.dtype),
+            functools.partial(_encode, self.model, self.device),
+            (torch.as_tensor(tokens, dtype=torch.long),), self.device)
+
+    @torch.inference_mode()
+    def _encode_eager(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The encode program's body run eagerly: tokens (N, 77) int."""
+        return _encode(self.model, self.device, tokens)
 
     def _encode_prompts(self, prompts: Sequence[str]) -> torch.Tensor:
         missing = [p for p in prompts if p not in self._cache]

@@ -60,15 +60,15 @@ def assign_batch(anchors: torch.Tensor, gt_boxes: torch.Tensor,
               & (ay >= g[..., 1]) & (ay <= g[..., 3]))
     eligible = inside & gt_valid[:, None, :]
 
-    big = torch.tensor(BIG, dtype=d.dtype, device=d.device)
-    d_masked = torch.where(eligible, d, big)
+    # BIG as a Python scalar: no upload, so the step can be captured
+    d_masked = torch.where(eligible, d, BIG)
     # each box's k-th smallest distance: anchors within it are its top k
     k = min(topk, A)
     kth = torch.topk(d_masked, k, dim=1, largest=False).values[:, -1]  # B,M
     is_topk = (d_masked <= kth[:, None, :]) & eligible
 
     # multi-box anchors go to the nearest box, the first on a tie
-    d_pos = torch.where(is_topk, d_masked, big)
+    d_pos = torch.where(is_topk, d_masked, BIG)
     dmin = d_pos.min(dim=-1, keepdim=True).values
     idx = torch.arange(M, device=d.device).expand_as(d_pos)
     gt_index = torch.where(d_pos == dmin, idx,

@@ -1,22 +1,37 @@
 """Train state, optimizer, schedule and the train / eval steps. Counterpart
 of `yoloclip_tpu/train/train_state.py`.
 
-  * The optimizer is torch's AdamW (or SGD with momentum 0.9), the math of
-    optax's: eps outside the square root, decoupled weight decay on every
-    parameter, BatchNorm's affine included.
+  * The optimizer is torch's AdamW (or SGD with momentum 0.9 as foreach
+    ops, `CapturableSGD`), the math of optax's: eps outside the square
+    root, decoupled weight decay on every parameter, BatchNorm's affine
+    included. On CUDA it is capturable, so a step runs as a CUDA graph
+    (the trainer's programs), with the learning rate a 0-d fp32 device
+    tensor, as optax's `inject_hyperparams` holds it in float32 (torch
+    refuses `capturable=True` on the CPU, where the rate stays a float).
+    A loaded optimizer state takes the same form, whatever device or
+    trainer saved it (`load_optimizer_state`).
   * The learning rate is the original repo's OneCycle curve
     (`make_onecycle_schedule`), written into the optimizer's param groups
     by the trainer in epoch or step units; counts past the end clamp to
     the final rate (torch's `OneCycleLR` raises there).
   * EMA of the parameters only, decay ramped as
-    decay * (1 - exp(-(step + 1) / warmup)); evaluation runs the EMA
-    parameters with the model's current BatchNorm buffers.
+    decay * (1 - exp(-(step + 1) / warmup)), computed on the host from the
+    host step count and passed to the step's device work as a 0-d fp32
+    tensor (an input of the train program, never part of its key);
+    evaluation runs the EMA parameters with the model's current BatchNorm
+    buffers.
   * Gradient accumulation splits the batch into equal micro-batches: the
     BatchNorm statistics update once per micro-batch, in order, and the
     gradients and loss parts average over them.
   * bf16 computes the forward under `torch.autocast` (convs, linears and
-    matmuls in bf16, weights cast at use); the parameters, gradients,
-    optimizer state, EMA and every loss stay fp32.
+    matmuls in bf16, weights cast at use, never cached: a cast cached at
+    a capture would be a stale copy on replay); the parameters,
+    gradients, optimizer state, EMA and every loss stay fp32.
+  * `make_train_step(cfg, programs=...)` / `make_eval_step(cfg,
+    programs=...)` run the step's device work as a program of a
+    `ProgramCache` (`inference/program.py`), keyed on the state by
+    identity and the step's static settings, as the JAX trainer jits
+    them; without `programs` the same body runs eagerly.
   * Data parallelism (`parallel/train_step.py`): the forward runs through
     a DistributedDataParallel wrapper of the model (no gradient all-reduce
     on all but the last micro-batch), the losses normalise over the global
@@ -30,6 +45,7 @@ of `yoloclip_tpu/train/train_state.py`.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -38,6 +54,7 @@ from torch import nn
 from torch.func import functional_call
 
 from yoloclip_tpu_torch.config import TrainingConfig
+from yoloclip_tpu_torch.inference.program import nms_key
 from yoloclip_tpu_torch.ops.nms import batched_nms
 from yoloclip_tpu_torch.parallel.collectives import group_mean
 from yoloclip_tpu_torch.train.assign import anchor_points
@@ -96,25 +113,112 @@ def make_onecycle_schedule(base_lr: float, total_steps: int,
     return sched
 
 
+class CapturableSGD(torch.optim.SGD):
+    """torch's SGD with momentum, its step as foreach ops that take the
+    rate as it is, a float or a 0-d device tensor: torch's own SGD reads
+    a tensor rate back to the host, which a capture refuses. optax's
+    update: trace = g + momentum * trace (trace starting at g),
+    p -= lr * trace. No dampening, Nesterov or weight decay, as
+    `make_optimizer` builds it."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group['params'] if p.grad is not None]
+            grads = [p.grad for p in params]
+            bufs = [self.state[p].get('momentum_buffer') for p in params]
+            if any(b is None for b in bufs):   # the first step, eager
+                bufs = [g.detach().clone() for g in grads]
+                for p, b in zip(params, bufs):
+                    self.state[p]['momentum_buffer'] = b
+            else:
+                torch._foreach_mul_(bufs, group['momentum'])
+                torch._foreach_add_(bufs, grads)
+            torch._foreach_sub_(params, torch._foreach_mul(bufs,
+                                                           group['lr']))
+
+
+def _capturable(device: torch.device) -> bool:
+    """Whether an optimizer over parameters on `device` is capturable:
+    torch refuses `capturable=True` on the CPU."""
+    return device.type == 'cuda'
+
+
+def _device_form(optimizer: torch.optim.Optimizer, rates=()) -> None:
+    """Put `optimizer` in the form of its parameters' device, as a fresh
+    `make_optimizer` builds it and a loaded state dict may not (its group
+    fields and step counters are whatever device or trainer saved them).
+    Capturable: each group's rate a 0-d fp32 device tensor (`rates`' own,
+    where given, refilled), the capturable flag on and AdamW's step
+    counters fp32 on the device. Else: the rate a float, the flag off and
+    the step counters CPU tensors."""
+    for i, group in enumerate(optimizer.param_groups):
+        device = group['params'][0].device
+        capturable = _capturable(device)
+        lr = float(group['lr'])
+        if capturable:
+            rate = rates[i] if i < len(rates) else None
+            if not isinstance(rate, torch.Tensor):
+                rate = torch.empty((), dtype=torch.float32, device=device)
+            group['lr'] = rate.fill_(lr)
+        else:
+            group['lr'] = lr
+        if 'capturable' in group:     # AdamW's; CapturableSGD has none
+            group['capturable'] = capturable
+        for p in group['params']:
+            step = optimizer.state.get(p, {}).get('step')
+            if isinstance(step, torch.Tensor):
+                optimizer.state[p]['step'] = (
+                    step.to(device, torch.float32) if capturable
+                    else step.to('cpu'))
+
+
 def make_optimizer(cfg: TrainingConfig, params) -> torch.optim.Optimizer:
     """AdamW (betas 0.9/0.999, eps 1e-8, decoupled decay on every
-    parameter) or SGD with momentum 0.9, at cfg.learning_rate."""
+    parameter) or SGD with momentum 0.9, at cfg.learning_rate, in the
+    form of the parameters' device (`_device_form`): on CUDA the step is
+    capturable and reads its rate from a 0-d fp32 device tensor, as
+    optax's `inject_hyperparams` holds it; on the CPU the rate is a
+    float."""
+    params = list(params)
     if cfg.optimizer_type.lower() == 'adamw':
-        return torch.optim.AdamW(params, lr=cfg.learning_rate,
-                                 betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=cfg.weight_decay)
-    if cfg.optimizer_type.lower() == 'sgd':
-        return torch.optim.SGD(params, lr=cfg.learning_rate, momentum=0.9)
-    raise ValueError(f'Unknown optimizer {cfg.optimizer_type}')
+        opt = torch.optim.AdamW(params, lr=cfg.learning_rate,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=cfg.weight_decay)
+    elif cfg.optimizer_type.lower() == 'sgd':
+        opt = CapturableSGD(params, lr=cfg.learning_rate, momentum=0.9)
+    else:
+        raise ValueError(f'Unknown optimizer {cfg.optimizer_type}')
+    _device_form(opt)
+    return opt
 
 
 def set_learning_rate(state: TrainState, lr: float) -> None:
+    """Write the rate in the optimizer's form: in place into a capturable
+    optimizer's device tensor (a fill on the current stream, no sync; the
+    programs read it on replay), else into the param groups."""
     for group in state.optimizer.param_groups:
-        group['lr'] = float(lr)
+        if isinstance(group['lr'], torch.Tensor):
+            group['lr'].fill_(float(lr))
+        else:
+            group['lr'] = float(lr)
 
 
 def get_learning_rate(state: TrainState) -> float:
     return float(state.optimizer.param_groups[0]['lr'])
+
+
+def load_optimizer_state(state: TrainState, saved: Dict) -> None:
+    """`optimizer.load_state_dict(saved)`, then the form of the
+    optimizer's device (`_device_form`), keeping a capturable optimizer's
+    own rate tensors: load_state_dict takes every group field but the
+    parameters from `saved`, the rate and the capturable flag included,
+    and places AdamW's step counters by the saved flag, so a checkpoint
+    of another device or of an older trainer (a float rate, capturable
+    off) would otherwise leave the optimizer in that form."""
+    rates = [g['lr'] for g in state.optimizer.param_groups]
+    state.optimizer.load_state_dict(saved)
+    _device_form(state.optimizer, rates)
 
 
 def create_train_state(model: nn.Module, cfg: TrainingConfig,
@@ -130,7 +234,14 @@ def create_train_state(model: nn.Module, cfg: TrainingConfig,
 
 def _autocast(cfg: TrainingConfig, device: torch.device):
     return torch.autocast(device.type, dtype=torch.bfloat16,
-                          enabled=cfg.model.dtype == 'bfloat16')
+                          enabled=cfg.model.dtype == 'bfloat16',
+                          cache_enabled=False)
+
+
+def _ema_decay(cfg: TrainingConfig, step: int) -> float:
+    """The EMA decay of optimizer step `step` (0-based)."""
+    warmup = max(float(cfg.ema_warmup_steps), 1.0)
+    return cfg.ema_decay * (1 - math.exp(-(step + 1) / warmup))
 
 
 def _mean_parts(parts: Dict[str, torch.Tensor], group
@@ -144,7 +255,8 @@ def _mean_parts(parts: Dict[str, torch.Tensor], group
 
 
 def make_train_step(cfg: TrainingConfig, ddp=None, group=None,
-                    shard_text: Optional[Callable] = None):
+                    shard_text: Optional[Callable] = None,
+                    programs=None):
     """train_step(state, batch, text) -> loss parts (0-d fp32 tensors on
     the device). Updates the state in place: BatchNorm buffers, parameters
     (one optimizer step at the lr in the param groups), EMA and step.
@@ -153,15 +265,29 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None,
     (B, M), valid_mask (B, M), tensors on the model's device. text:
     (B, C, E) per sample (zero-padded vocabularies) or (C, E) shared.
 
+    programs: a `ProgramCache`; the step's device work (the micro-batch
+    loop, backward, the optimizer step, the EMA) then runs as its
+    'train_step' program, keyed on the state by identity, the assigner,
+    the accumulation, the compute dtype and whether the EMA is tracked,
+    with the EMA decay an input and the rate read from
+    the optimizer's device tensor, so neither enters the key. The host
+    parts stay outside it: the batch check, the decay, `state.step`. On
+    CUDA the captured backward allocates the gradients in the graph
+    pool, so after a replay `p.grad` need not hold that step's gradients
+    (a later capture of another train program re-binds them); read
+    gradients from the eager step (no `programs`), as the JAX package's
+    jitted step exposes none.
+
     ddp / group (`parallel/train_step.py::make_sharded_train_step`): the
     DistributedDataParallel wrapper of state.model and the data axis's
     process group; the batch is then this rank's rows, laid out so that
     its micro-batch i is its share of the global micro-batch i.
     shard_text: text -> its ClassShard, when the text is this rank's
-    block of the classes (a mesh with a model axis)."""
+    block of the classes (a mesh with a model axis); the sharded step
+    runs eagerly (no `programs`)."""
     weights = dict(cfg.loss_weights)
     accum = max(int(cfg.grad_accum_steps), 1)
-    warmup = max(float(cfg.ema_warmup_steps), 1.0)
+    settings = (cfg.assigner, accum, cfg.model.dtype, cfg.ema_decay > 0)
     anchors: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def compute_loss(outputs, batch, shard):
@@ -183,28 +309,27 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None,
             iou_type=cfg.iou_type, label_smoothing=cfg.label_smoothing,
             group=group, class_shard=shard)
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   text: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def body(state: TrainState, images, boxes, class_ids, valid_mask, text,
+             decay=None) -> Dict[str, torch.Tensor]:
+        """The step's device work; decay: the EMA decay, a 0-d fp32
+        tensor on the device (None: no EMA)."""
         model = state.model.train()
         forward = model if ddp is None else ddp
         state.optimizer.zero_grad(set_to_none=True)
-        B = batch['images'].shape[0]
-        if B % accum:
-            raise ValueError(f'batch size {B} not divisible by '
-                             f'grad_accum_steps {accum}')
-        b = B // accum
+        batch = {'images': images, 'boxes': boxes, 'class_ids': class_ids,
+                 'valid_mask': valid_mask}
+        b = images.shape[0] // accum
         shard = shard_text(text) if shard_text is not None else None
         kw = {} if shard is None else {'class_shard': shard}
         parts_sum: Dict[str, torch.Tensor] = {}
         for i in range(accum):
             sl = slice(i * b, (i + 1) * b)
-            mb = {k: batch[k][sl] for k in
-                  ('images', 'boxes', 'class_ids', 'valid_mask')}
+            mb = {k: v[sl] for k, v in batch.items()}
             tx = text[sl] if text.dim() == 3 else text
             # DDP all-reduces the gradients on the last micro-batch only
             with (ddp.no_sync() if ddp is not None and i < accum - 1
                   else contextlib.nullcontext()):
-                with _autocast(cfg, mb['images'].device):
+                with _autocast(cfg, images.device):
                     outputs = forward(mb['images'], tx, **kw)
                 total, parts = compute_loss(outputs, mb, shard)
                 (total / accum if accum > 1 else total).backward()
@@ -212,22 +337,45 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None,
                 v = v.detach()
                 parts_sum[k] = v if k not in parts_sum else parts_sum[k] + v
         state.optimizer.step()
-        if state.ema is not None:
-            d = cfg.ema_decay * (1 - math.exp(-(state.step + 1) / warmup))
+        if decay is not None:
             ema = list(state.ema.values())
             params = [p.detach() for p in model.parameters()]
-            torch._foreach_mul_(ema, d)
-            torch._foreach_add_(ema, params, alpha=1 - d)
-        state.step += 1
+            torch._foreach_mul_(ema, decay)
+            torch._foreach_add_(ema, torch._foreach_mul(params, 1 - decay))
         if accum > 1:
             parts_sum = {k: v / accum for k, v in parts_sum.items()}
         return _mean_parts(parts_sum, group)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   text: torch.Tensor) -> Dict[str, torch.Tensor]:
+        B = batch['images'].shape[0]
+        if B % accum:
+            raise ValueError(f'batch size {B} not divisible by '
+                             f'grad_accum_steps {accum}')
+        inputs = [batch[k] for k in ('images', 'boxes', 'class_ids',
+                                     'valid_mask')] + [text]
+        device = batch['images'].device
+        if state.ema is not None:
+            decay = torch.tensor(_ema_decay(cfg, state.step),
+                                 dtype=torch.float32)
+            # pinned: its copy to the card does not wait for the device
+            inputs.append(decay.pin_memory() if device.type == 'cuda'
+                          else decay)
+        if programs is None:
+            parts = body(state, *(x.to(device, non_blocking=True)
+                                  for x in inputs))
+        else:
+            parts = programs.run('train_step', (state,) + settings,
+                                 functools.partial(body, state), inputs,
+                                 device, grad=True)
+        state.step += 1
+        return parts
 
     return train_step
 
 
 def make_eval_step(cfg: TrainingConfig, group=None,
-                   shard_text: Optional[Callable] = None):
+                   shard_text: Optional[Callable] = None, programs=None):
     """eval_step(state, batch, text) -> (loss parts without DFL, preds).
 
     The model runs in eval mode with `state.eval_params()` (EMA when
@@ -239,19 +387,29 @@ def make_eval_step(cfg: TrainingConfig, group=None,
 
     group: the data axis's process group; the loss parts are then the
     global batch's, the predictions this rank's rows'. shard_text: as in
-    `make_train_step` (the class ids come out global)."""
+    `make_train_step` (the class ids come out global). programs: a
+    `ProgramCache`; the step then runs as its 'eval_step' program, keyed
+    on the state by identity, the compute dtype, max_objects and the NMS
+    settings (`inference/program.py::nms_key`, as the detection programs
+    key them); the sharded step runs eagerly (no `programs`)."""
     weights = dict(cfg.loss_weights)
     M = cfg.max_objects
+    settings = (cfg.model.dtype, M, cfg.eval_with_nms) + (
+        nms_key({'conf_threshold': float(cfg.eval_conf_threshold),
+                 'iou_threshold': float(cfg.eval_iou_threshold)})
+        if cfg.eval_with_nms else ())
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                  text: torch.Tensor):
+    def body(state: TrainState, images, boxes, class_ids, valid_mask,
+             text):
         model = state.model.eval()
+        batch = {'images': images, 'boxes': boxes, 'class_ids': class_ids,
+                 'valid_mask': valid_mask}
         shard = shard_text(text) if shard_text is not None else None
         kw = {} if shard is None else {'class_shard': shard}
-        with _autocast(cfg, batch['images'].device):
+        with _autocast(cfg, images.device):
             outputs = functional_call(model, state.eval_params(),
-                                      (batch['images'], text), kw)
+                                      (images, text), kw)
         _, parts = combined_loss_compat(
             outputs, batch, weights, temperature=cfg.temperature,
             iou_type=cfg.iou_type, label_smoothing=cfg.label_smoothing,
@@ -269,5 +427,15 @@ def make_eval_step(cfg: TrainingConfig, group=None,
             preds = {k: outputs[k][:, :M]
                      for k in ('boxes', 'scores', 'class_ids')}
         return parts, preds
+
+    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                  text: torch.Tensor):
+        inputs = [batch[k] for k in ('images', 'boxes', 'class_ids',
+                                     'valid_mask')] + [text]
+        if programs is None:
+            return body(state, *inputs)
+        return programs.run('eval_step', (state,) + settings,
+                            functools.partial(body, state), inputs,
+                            batch['images'].device)
 
     return eval_step

@@ -13,7 +13,15 @@ Counterpart of `yoloclip_tpu/train/trainer.py`.
     environment gate; `history.json` written atomically every epoch;
   * prompts encoded per sample through the text encoder's per-prompt cache
     and zero-padded to a power-of-two class bucket of at least 8, with no
-    class mask (the original zero-pads without masking).
+    class mask (the original zero-pads without masking);
+  * the train and eval steps run as programs (`self.programs`, CUDA
+    graphs on the card, `inference/program.py`), one a key where the JAX
+    trainer's jitted `_train_step` / `_eval_step` trace: the batch's and
+    the text bucket's shapes and dtypes, the step's static settings and
+    the state by identity; the learning rate and the EMA decay are inputs.
+    `load()` drops them (it replaces the optimizer's and the EMA's
+    tensors). `_train_step_eager` / `_eval_step_eager` run the same bodies
+    eagerly, for readings beside the programs.
 
 `mesh=` (`parallel/mesh.py`, one process per mesh cell): the sharded
 step of `parallel/train_step.py`. Each rank takes its rows of the global
@@ -26,6 +34,7 @@ targets on the host, so each rank computes the same global mAP and takes
 the same best-checkpoint decision; process 0 alone writes checkpoints and
 `history.json` (every rank holds the same state), the others wait at a
 barrier.
+The sharded steps run eagerly (no program over a process group yet).
 `self.model` stays the bare module, so checkpoints carry no `module.`
 prefix and `load` works on every rank. TrainingConfig.data_parallel is
 read by nothing, as in the JAX package: the mesh sets the parallelism.
@@ -43,10 +52,12 @@ import numpy as np
 import torch
 
 from yoloclip_tpu_torch.config import TrainingConfig
+from yoloclip_tpu_torch.inference.program import ProgramCache
 from yoloclip_tpu_torch.parallel.collectives import group_max
 from yoloclip_tpu_torch.train.train_state import (TRAIN_KEYS, TrainState,
                                                   create_train_state,
                                                   get_learning_rate,
+                                                  load_optimizer_state,
                                                   make_eval_step,
                                                   make_onecycle_schedule,
                                                   make_train_step,
@@ -99,17 +110,22 @@ class YOLOCLIPTrainer:
         self.state = state or create_train_state(model, cfg, self.device)
         self.schedule_units = schedule_units
         self._schedule = None   # built once steps_per_epoch is known
+        # the train and eval programs (on one device; a mesh runs eagerly)
+        self.programs = ProgramCache()
         if mesh is not None:
             from yoloclip_tpu_torch.parallel.train_step import (
                 make_sharded_train_step, replicate_state)
             self.state = replicate_state(self.state, mesh)
             self._train_step = make_sharded_train_step(cfg, mesh)(self.state)
+            self._train_step_eager = self._train_step
+            self._eval_step = self._eval_step_eager = make_eval_step(
+                cfg, group=self._group, shard_text=mesh.text_shard)
         else:
-            self._train_step = make_train_step(cfg)
+            self._train_step = make_train_step(cfg, programs=self.programs)
+            self._train_step_eager = make_train_step(cfg)
+            self._eval_step = make_eval_step(cfg, programs=self.programs)
+            self._eval_step_eager = make_eval_step(cfg)
         self.model = self.state.model
-        self._eval_step = make_eval_step(
-            cfg, group=self._group,
-            shard_text=None if mesh is None else mesh.text_shard)
         self.best_map = 0.0
 
     @property
@@ -308,8 +324,10 @@ class YOLOCLIPTrainer:
 
     def load(self, path: str) -> None:
         """Resume: weights, BatchNorm buffers, optimizer, step, EMA and
-        best_map (every rank reads the file)."""
+        best_map (every rank reads the file). Drops the programs: they
+        captured the optimizer's state and EMA tensors this replaces."""
         ckpt = load_checkpoint(path)
+        self.programs.clear()
         self.model.load_state_dict(ckpt['model'])
         if self.state.ema is not None:
             ema = ckpt.get('ema')
@@ -320,7 +338,7 @@ class YOLOCLIPTrainer:
             self.state.ema = {k: src[k].detach().to(p.device).clone()
                               for k, p in self.model.named_parameters()}
         if ckpt.get('optimizer') is not None:
-            self.state.optimizer.load_state_dict(ckpt['optimizer'])
+            load_optimizer_state(self.state, ckpt['optimizer'])
         self.state.step = int(ckpt.get('step', 0))
         self.best_map = (ckpt.get('metadata') or {}).get('best_map', 0.0)
         logger.info('Checkpoint loaded from %s', path)
