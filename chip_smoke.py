@@ -193,7 +193,23 @@ Phases, each printing its results; any failure exits non-zero:
                   with NMS on 32 images under the two ranks (the same
                   metrics on both, kernel 2 in each) and
                   make_sharded_inference with the folded scoring on each
-                  rank's rows (kernels 1 and 2 in each);
+                  rank's rows (kernels 1 and 2 in each); all through the
+                  eager DDP route: the program route over gloo on the
+                  card must raise, and the trainer take the eager route;
+ 17b. ddp graphs -- the sharded train and eval steps as programs (CUDA
+                  graphs holding NCCL's collectives), one NCCL rank on
+                  cuda:0, under deterministic algorithms: compat fp32 with
+                  EMA and clean bf16 at bs=16, 640 px, 3 steps through the
+                  program and the eager DDP route, every state tensor
+                  bit-equal; the eval program with NMS equal to the eager
+                  eval step, kernel 2 once a replay; step ms in turns,
+                  idle share, peak GiB, capture s, pool GiB; the bf16
+                  program with its BatchNorms synced over the 1-rank
+                  group (the several-card path's cost on one card). With
+                  two cards or more: 2 NCCL ranks, the compat fp32 step
+                  against the 1-process step with [ddp]'s bounds; on 2
+                  and on all cards the clean bf16 step ms a rank at 16
+                  rows a rank and rank 0's trace of one step;
  18. dp serve  -- a DetectionServer and a StreamingDetector over two
                   replicas on cuda:0, fp32 conf -1.0, against the
                   single-device canvas program / step on each replica's
@@ -222,12 +238,12 @@ Phases, each printing its results; any failure exits non-zero:
                   2`) in 8 processes on cuda:0 (gloo) as a 4x2 grid, each
                   loss against the 1-process self-test.
 Every detect_batch, detect(), server bucket and streaming step, the
-trainer's train and eval steps (one device) and the text tower's encode
-run as their programs, captured at the first call: the launch counters
+trainer's train and eval steps (one device, and sharded over NCCL) and
+the text tower's encode run as their programs, captured at the first call: the launch counters
 count the first call's eager run and every replay, never the capture.
 Each path that launches kernels (main path, prompts, int8, graphs, int8 edges,
 stems, export, canvas, server, streaming, reparam, profile, training, train
-graphs, the ddp ranks, dp serve, vocab tp, spatial) runs with the launch
+graphs, the ddp ranks, ddp graphs, dp serve, vocab tp, spatial) runs with the launch
 counters set to 0 just before it and read just after;
 the kernels line sums them. Two ranks or replicas on one card show
 correctness, not scaling.
@@ -3969,12 +3985,15 @@ def _params_equal_over_ranks(model, group) -> bool:
 
 
 def _ddp_rank(rank: int, world: int, rendezvous: str, out_dir: str,
-              backend: str) -> None:
+              backend: str, kind: str = 'ddp') -> None:
     """One rank of the [ddp] phase on cuda:0: each DDP_STEPS step on its
-    rows of the global batch (world 1: the fp32 step only), then with two
-    ranks `evaluate` with NMS (kernel 2) on DDP_EVAL_IMAGES images and
-    `make_sharded_inference` with the folded scoring (kernel 1) on its
-    rows. Writes out_dir/rank{rank}.pt."""
+    rows of the global batch through the eager DDP route (world 1: the
+    fp32 step only), then with two ranks `evaluate` with NMS (kernel 2) on
+    DDP_EVAL_IMAGES images and `make_sharded_inference` with the folded
+    scoring (kernel 1) on its rows; over gloo, the program route must
+    refuse the card and the trainer take the eager route. kind 'graphs':
+    a rank of [ddp graphs] instead (`_ddp_graph_rank`), NCCL on cuda:{rank}.
+    Writes out_dir/rank{rank}.pt."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3986,16 +4005,29 @@ def _ddp_rank(rank: int, world: int, rendezvous: str, out_dir: str,
     from yoloclip_tpu_torch.train import train_state as ts
     from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
     multihost.initialize(f'file://{rendezvous}', world, rank,
-                         device='cuda:0', backend=backend,
+                         device=f'cuda:{rank}' if kind == 'graphs'
+                         else 'cuda:0', backend=backend,
                          timeout_s=DDP_TIMEOUT_S)
     mesh = create_mesh()
+    if kind == 'graphs':
+        out = _ddp_graph_rank(rank, world, mesh, nms, out_dir)
+        torch.save(dict(out, mesh=repr(mesh)),
+                   os.path.join(out_dir, f'rank{rank}.pt'))
+        multihost.shutdown()
+        return
     out = {'backend': backend, 'mesh': repr(mesh)}
     arrays, text, prompts = _ddp_batch()
     for tag, assigner, dtype in DDP_STEPS[:1 if world == 1 else None]:
         cfg = _train_cfg(assigner=assigner, dtype=dtype, batch_size=DDP_BS)
         state = ts.create_train_state(_seeded_model(cfg), cfg, 'cuda:0')
         ts.set_learning_rate(state, cfg.learning_rate)
-        step = make_sharded_train_step(cfg, mesh)(state)
+        if backend == 'gloo':   # gloo's collectives cannot be captured
+            try:
+                make_sharded_train_step(cfg, mesh)(state)
+                out['gloo_program'] = 'built'
+            except RuntimeError as e:
+                out['gloo_program'] = str(e)
+        step = make_sharded_train_step(cfg, mesh, eager=True)(state)
         local = place_batch(dict(arrays, text=text), mesh)
         t = local.pop('text')
         parts = {k: float(v) for k, v in step(state, local, t).items()}
@@ -4023,6 +4055,9 @@ def _ddp_rank(rank: int, world: int, rendezvous: str, out_dir: str,
         trainer = YOLOCLIPTrainer(_seeded_model(cfg),
                                   CLIPTextEncoder(device='cuda:0', seed=0),
                                   cfg, mesh=mesh)
+        out['trainer_eager'] = (
+            trainer._train_step is trainer._train_step_eager
+            and trainer._eval_step is trainer._eval_step_eager)
         val = [_train_batch(DDP_BS, 3 + i)
                for i in range(EVAL_IMAGES // DDP_BS)]
         nms.launches = sim.launches = sim.launches_bf16 = 0
@@ -4055,12 +4090,15 @@ def _ddp_rank(rank: int, world: int, rendezvous: str, out_dir: str,
     multihost.shutdown()
 
 
-def _run_ranks(world: int, backend: str, out_dir: str) -> list:
-    """Spawn `world` [ddp] ranks, wait for them (failing the run past
-    DDP_TIMEOUT_S or on any rank's error) and load their results."""
+def _run_ranks(world: int, backend: str, out_dir: str,
+               kind: str = 'ddp') -> list:
+    """Spawn `world` [ddp] ranks (kind 'graphs': [ddp graphs] ranks), wait
+    for them (failing the run past DDP_TIMEOUT_S or on any rank's error)
+    and load their results."""
     import torch.multiprocessing as mp
-    rdv = os.path.join(out_dir, f'rendezvous_{backend}_{world}')
-    ctx = mp.start_processes(_ddp_rank, args=(world, rdv, out_dir, backend),
+    rdv = os.path.join(out_dir, f'rendezvous_{backend}_{world}_{kind}')
+    ctx = mp.start_processes(_ddp_rank, args=(world, rdv, out_dir, backend,
+                                              kind),
                              nprocs=world, join=False, start_method='spawn')
     deadline = time.perf_counter() + DDP_TIMEOUT_S + 120
     try:
@@ -4117,7 +4155,9 @@ def _buf_err(got, want):
                if k.endswith(('running_mean', 'running_var')))
 
 
-def _compare_step(tag, assigner, dtype, got, want, card, label='[ddp]'):
+def _compare_step(tag, assigner, dtype, got, want, card, label='[ddp]',
+                  ranks='2 ranks (gloo, both on cuda:0: correctness, not '
+                        'scaling)'):
     """A rank's step against the 1-process step: loss parts, gradients,
     BatchNorm buffers (bf16: both against the fp32 step, DDP_TOL); its
     parameters against AdamW applied on the card to its own (all-reduced)
@@ -4147,7 +4187,7 @@ def _compare_step(tag, assigner, dtype, got, want, card, label='[ddp]'):
     opt.step()
     param_err = max((got['state'][k] - p.detach().cpu()).abs().max().item()
                     for k, p in ref.named_parameters())
-    print(f'{label} {tag} bs={DDP_BS} 640 px, 2 ranks (gloo, both on cuda:0) '
+    print(f'{label} {tag} bs={DDP_BS} 640 px, {ranks} '
           f'vs 1 process on the card{extra}: loss parts max rel '
           f'{loss_err:.3e} (tol {loss_tol:g}); gradients rel L2 over all '
           f'{grad_all:.3e} (tol {grad_tol:.3e}), worst tensor {grad_err:.3e} '
@@ -4155,8 +4195,7 @@ def _compare_step(tag, assigner, dtype, got, want, card, label='[ddp]'):
           f'(tol {buf_tol:.3e}); parameters vs AdamW on the ranks\' gradients '
           f'max abs {param_err:.3e} (tol {TRAIN_PARAM_ATOL:g}); ranks\' '
           f'parameters identical={got["identical"]}; step {got["ms"]:.2f} '
-          f'ms a rank (two ranks sharing one card: correctness, not scaling)'
-          f' vs {ms:.2f} ms in one process  [{card}]')
+          f'ms a rank vs {ms:.2f} ms in one process  [{card}]')
     require(got['identical'], f'{label} {tag}: the ranks diverged')
     require(loss_err <= loss_tol, f'{label} {tag}: loss parts')
     require((grad_err if dtype == 'float32' else grad_all) <= grad_tol,
@@ -4175,7 +4214,14 @@ def phase_ddp(sim, nms, tmp: str, card: str) -> dict:
     r0, r1 = _run_ranks(2, 'gloo', out_dir)
     secs = time.perf_counter() - t0
     print(f'[ddp] two gloo ranks on cuda:0 ({r0["mesh"]}) ran in {secs:.1f} '
-          f's with their start-up')
+          f's with their start-up; the program route over gloo on the card '
+          f'refused: {r0["gloo_program"]!r}; the trainer took the eager '
+          f'route: {r0["trainer_eager"]}')
+    for r in (r0, r1):
+        require('cannot capture' in r['gloo_program'],
+                '[ddp] a program over gloo on the card did not raise')
+        require(r['trainer_eager'], '[ddp] the trainer over gloo on the '
+                'card did not take the eager route')
     for tag, assigner, dtype in DDP_STEPS:
         require(r0[tag]['parts'] == r1[tag]['parts'],
                 f'[ddp] {tag}: the ranks report other losses')
@@ -4228,6 +4274,341 @@ def phase_ddp(sim, nms, tmp: str, card: str) -> dict:
             launches[k] += v
         launches['nms'] += r['eval_nms_launches']
     return launches
+
+
+# ---------------------------------------------------------------------------
+# [ddp graphs]: the sharded train and eval steps as programs, CUDA graphs
+# holding NCCL's collectives, against the eager DDP route; under
+# deterministic algorithms, so that each pair must agree bit for bit.
+# ---------------------------------------------------------------------------
+
+# (tag, assigner, dtype, ema_decay) at the [ddp] global batch
+DDP_GRAPH_CASES = (('compat fp32 EMA', 'compat', 'float32', 0.9999),
+                   ('clean bf16', 'topk_center', 'bfloat16', 0.0))
+DDP_GRAPH_STEPS = 3       # steps through the program and the eager route
+
+
+def _ddp_graph_trainers(cfg, mesh):
+    """(program trainer, eager trainer) over `mesh` from one seeded
+    state; the first must run its steps as programs."""
+    from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
+    prog, eager = (YOLOCLIPTrainer(_seeded_model(cfg), None, cfg, mesh=mesh)
+                   for _ in range(2))
+    require(prog._train_step is not prog._train_step_eager
+            and prog._eval_step is not prog._eval_step_eager,
+            '[ddp graphs] the trainer over NCCL did not build programs')
+    return prog, eager
+
+
+def _ddp_graph_steps(tag, prog, eager, arrays, text, steps) -> None:
+    """`steps` steps through prog's program and eager's DDP route, a new
+    rate each: loss parts and every state tensor bit-equal."""
+    from yoloclip_tpu_torch.train import train_state as ts
+    sched = ts.make_onecycle_schedule(prog.cfg.learning_rate, steps, 1)
+    for i in range(steps):
+        for t in (prog, eager):
+            ts.set_learning_rate(t.state, sched(i))
+        got = prog._train_step(prog.state, arrays, text)
+        want = eager._train_step_eager(eager.state, arrays, text)
+        require(all(torch.equal(got[k], want[k]) for k in want),
+                f'[ddp graphs] {tag} step {i}: loss parts {got} vs the '
+                f'eager DDP route {want}')
+    bad = _train_state_diff(prog.state, eager.state)
+    require(not bad, f'[ddp graphs] {tag}: after {steps} steps {len(bad)} '
+            f'tensors differ from the eager DDP route\'s, e.g. {bad[:3]}')
+
+
+def _ddp_graph_case(case, mesh, nms, arrays, text, val, out_dir) -> dict:
+    """One case of the one-rank [ddp graphs]: DDP_GRAPH_STEPS steps, the
+    eval program (NMS) against the eager eval step on each val batch,
+    kernel 2 once a replay; the readings (step ms in turns, device ms and
+    idle share of a traced step, peak GiB, capture s, pool GiB)."""
+    from yoloclip_tpu_torch.inference import program
+    from yoloclip_tpu_torch.utils.profiling import (annotate, device_summary,
+                                                    trace)
+    tag, assigner, dtype, ema = case
+    t0 = time.perf_counter()
+    cfg = _train_cfg(assigner=assigner, dtype=dtype, ema_decay=ema,
+                     ema_warmup_steps=2, eval_with_nms=True,
+                     batch_size=DDP_BS, output_dir=out_dir)
+    prog, eager = _ddp_graph_trainers(cfg, mesh)
+    a = prog._put_batch(arrays)
+    t = text.to(prog.device)
+    _ddp_graph_steps(tag, prog, eager, a, t, DDP_GRAPH_STEPS)
+    vals = [prog._put_batch(v) for v in val]
+    for v in vals:                        # the eval programs' first calls
+        prog._eval_step(prog.state, v, t)
+    before, replays = nms.launches, []
+    for v in vals:
+        got = prog._eval_step(prog.state, v, t)
+        want = prog._eval_step_eager(prog.state, v, t)
+        replays.append(nms.launches - before - 1)   # the eager step's one
+        before = nms.launches
+        require(all(torch.equal(got[i][k], want[i][k]) for i in (0, 1)
+                    for k in want[i]),
+                f'[ddp graphs] {tag}: the eval program differs from the '
+                f'eager eval step')
+    require(replays == [1] * len(vals), f'[ddp graphs] {tag}: eval replays '
+            f'launched kernel 2 {replays} times')
+    steps = {'eager': lambda: eager._train_step_eager(eager.state, a, t),
+             'program': lambda: prog._train_step(prog.state, a, t)}
+    turns, peak = [], {}
+    for k in ('eager', 'program', 'program', 'eager'):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        turns.append(_steps_ms(steps[k], TRAIN_GRAPH_TIMED))
+        peak[k] = max(peak.get(k, 0.0),
+                      torch.cuda.max_memory_allocated() / 2 ** 30)
+    with trace(os.path.join(out_dir, 'trace')) as prof:
+        for k, step in steps.items():
+            with annotate(k):
+                step()
+                torch.cuda.synchronize()
+    summ = {k: device_summary(prof, span=k) for k in steps}
+    progs = [p for p in prog.programs.programs()
+             if p.name in ('train_step', 'eval_step')]
+    return {'turns': turns, 'peak': peak, 'replays': replays,
+            'top': _top_kernels(summ['program']),
+            'busy': {k: v['busy_ms'] for k, v in summ.items()},
+            'idle': {k: v['idle_share'] for k, v in summ.items()},
+            'capture': {p.name: p.capture_s for p in progs},
+            'warmup': {p.name: p.warmup_s for p in progs},
+            'pool': program.pool_bytes(prog.device) / 2 ** 30,
+            'seconds': time.perf_counter() - t0}
+
+
+def _ddp_graph_two(rank: int, mesh, arrays, text, out_dir: str) -> dict:
+    """The two-rank [ddp graphs] check (see `_ddp_graph_rank`)."""
+    from yoloclip_tpu_torch.parallel.train_step import place_batch
+    from yoloclip_tpu_torch.train import train_state as ts
+    tag, assigner, dtype = DDP_STEPS[0]
+    cfg = _train_cfg(assigner=assigner, dtype=dtype, batch_size=DDP_BS,
+                     output_dir=out_dir)
+    prog, eager = _ddp_graph_trainers(cfg, mesh)
+    for t in (prog, eager):
+        ts.set_learning_rate(t.state, cfg.learning_rate)
+    local = place_batch(dict(arrays, text=text), mesh)
+    t = local.pop('text')
+    a = prog._put_batch(local)
+    parts = prog._train_step(prog.state, a, t)
+    want = eager._train_step_eager(eager.state, a, t)
+    res = {'parts': {k: float(v) for k, v in parts.items()},
+           'equal': (all(torch.equal(parts[k], want[k]) for k in want)
+                     and not _train_state_diff(prog.state,
+                                               eager.state)),
+           'identical': _params_equal_over_ranks(prog.model,
+                                                 mesh.group)}
+    if rank == 0:   # the eager route's gradients: a replay leaves none
+        res['grads'] = {k: p.grad.detach().to('cpu', copy=True)
+                        for k, p in eager.model.named_parameters()}
+        res['state'] = {k: v.detach().to('cpu', copy=True) for k, v in
+                        prog.model.state_dict().items()}
+    res['ms'] = _steps_ms(lambda: prog._train_step(prog.state, a, t),
+                          TRAIN_GRAPH_TIMED)
+    return res
+
+
+def _synced_bn_reading(mesh, arrays, text, out_dir: str) -> dict:
+    """The clean bf16 train program on one rank with every BatchNorm
+    synced over the (1-rank) data group, the path that two or more data
+    ranks take (`set_batchnorm_group`): its cost on one card beside the
+    plain module's, without any traffic between cards. Step ms in two
+    turns, device ms, idle share and the top device activities of one
+    traced step."""
+    from yoloclip_tpu_torch.parallel.train_step import set_batchnorm_group
+    from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
+    from yoloclip_tpu_torch.utils.profiling import device_summary, trace
+    _, assigner, dtype, ema = DDP_GRAPH_CASES[1]
+    cfg = _train_cfg(assigner=assigner, dtype=dtype, ema_decay=ema,
+                     batch_size=DDP_BS, output_dir=out_dir)
+    tr = YOLOCLIPTrainer(_seeded_model(cfg), None, cfg, mesh=mesh)
+    n = set_batchnorm_group(tr.model, mesh.group)
+    a = tr._put_batch(arrays)
+    t = text.to(tr.device)
+
+    def step():
+        tr._train_step(tr.state, a, t)
+
+    step()                                # the capture
+    turns = [_steps_ms(step, TRAIN_GRAPH_TIMED) for _ in range(2)]
+    with trace(os.path.join(out_dir, 'trace_synced')) as prof:
+        step()
+        torch.cuda.synchronize()
+    summ = device_summary(prof)
+    return {'n': n, 'turns': turns, 'busy': summ['busy_ms'],
+            'idle': summ['idle_share'], 'top': _top_kernels(summ)}
+
+
+def _top_kernels(summary: dict, n: int = 6) -> list:
+    """The n device activities of a `device_summary` with the most time:
+    (name, ms, count)."""
+    return [(name[:70], ms, k) for name, (ms, k) in sorted(
+        summary['kernels'].items(), key=lambda kv: -kv[1][0])[:n]]
+
+
+def _ddp_graph_rank(rank: int, world: int, mesh, nms, out_dir: str) -> dict:
+    """One NCCL rank of [ddp graphs] on cuda:{rank}, under deterministic
+    algorithms. One rank: each DDP_GRAPH_CASES case (`_ddp_graph_case`).
+    Two: the compat fp32 step on the rank's rows of the [ddp] global
+    batch through the program and through the eager route (bit-equal:
+    each average is one sum of two values; the eager route's gradients,
+    the program's state). Two or more: the clean bf16 program's step ms
+    at DDP_BS rows a rank in turns with the eager route, and rank 0's
+    device time of one traced step of each."""
+    from yoloclip_tpu_torch.parallel.train_step import place_batch
+    from yoloclip_tpu_torch.utils.profiling import (annotate, device_summary,
+                                                    trace)
+    out_dir = os.path.join(out_dir, f'rank{rank}_{world}')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arrays, text, _ = _ddp_batch()
+    out = {'nms': 0}
+    with _deterministic():
+        if world == 1:
+            val = [{k: v for k, v in _train_batch(DDP_BS, 3 + i).items()
+                    if k != 'text_prompts'}
+                   for i in range(EVAL_IMAGES // DDP_BS)]
+            nms.launches = 0
+            for case in DDP_GRAPH_CASES:
+                out[case[0]] = _ddp_graph_case(case, mesh, nms, arrays,
+                                               text, val, out_dir)
+                gc.collect()
+                torch.cuda.empty_cache()
+            out['nms'] = nms.launches
+            out['synced_bn'] = _synced_bn_reading(mesh, arrays, text,
+                                                  out_dir)
+            return out
+        if world == 2:
+            out[DDP_STEPS[0][0]] = _ddp_graph_two(rank, mesh, arrays, text,
+                                                  out_dir)
+        # weak scaling: DDP_BS rows a rank, as the one card's program
+        _, assigner, dtype = DDP_STEPS[1]
+        n = DDP_BS * world
+        cfg = _train_cfg(assigner=assigner, dtype=dtype, batch_size=n,
+                         output_dir=out_dir)
+        prog, eager = _ddp_graph_trainers(cfg, mesh)
+        big = {k: v for k, v in _train_batch(n, 5).items()
+               if k != 'text_prompts'}
+        big['text'] = torch.randn((n, 128, EMBED),
+                                  generator=torch.Generator().manual_seed(5))
+        local = place_batch(big, mesh)
+        t = local.pop('text')
+        a = prog._put_batch(local)
+        steps = {'eager': lambda: eager._train_step_eager(eager.state, a, t),
+                 'program': lambda: prog._train_step(prog.state, a, t)}
+        for step in steps.values():       # the capture, DDP's construction
+            step()
+        out['scaling'] = {'rows': int(a['images'].shape[0]), 'turns': [
+            _steps_ms(steps[k], TRAIN_GRAPH_TIMED)
+            for k in ('eager', 'program', 'program', 'eager')]}
+        with trace(os.path.join(out_dir, 'trace')) as prof:
+            for k, step in steps.items():
+                with annotate(k):
+                    step()
+                    torch.cuda.synchronize()
+        summ = {k: device_summary(prof, span=k) for k in steps}
+        out['scaling'].update(
+            busy={k: v['busy_ms'] for k, v in summ.items()},
+            idle={k: v['idle_share'] for k, v in summ.items()},
+            top=_top_kernels(summ['program']))
+    return out
+
+
+def _tops(top: list) -> str:
+    return ', '.join(f'{name} {ms:.2f} ms x{k}' for name, ms, k in top)
+
+
+def phase_ddp_graphs(sim, nms, tmp: str, card: str) -> dict:
+    """[ddp graphs]: one NCCL rank on cuda:0 runs the sharded train and
+    eval steps as programs against the eager DDP route
+    (`_ddp_graph_rank`); with two cards or more, one NCCL rank a card
+    against the 1-process step at [ddp]'s tolerances and the per-rank step
+    ms. Returns the phase's kernel launches (kernel 2 in the eval
+    programs), counted from 0."""
+    out_dir = os.path.join(tmp, 'ddp_graphs')
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    (r,) = _run_ranks(1, 'nccl', out_dir, kind='graphs')
+    secs = time.perf_counter() - t0
+    for tag, *_ in DDP_GRAPH_CASES:
+        c = r[tag]
+        e, p = c['turns'][0], c['turns'][1]
+        print(f'[ddp graphs] {tag} bs={DDP_BS} 640 px, 1 NCCL rank on cuda:0 '
+              f'({r["mesh"]}), deterministic: {DDP_GRAPH_STEPS} steps '
+              f'through the train program (the first its eager warm-up) and '
+              f'{DDP_GRAPH_STEPS} through the eager DDP route from one '
+              f'seeded state, a new rate each step: loss parts and every '
+              f'state tensor bit-equal; eval_with_nms program = the eager '
+              f'eval step on {len(c["replays"])} batches, kernel 2 '
+              f'{c["replays"]} a replay; step ms in turns eager, program, '
+              f'program, eager ' + ', '.join(f'{x:.2f}' for x in c['turns'])
+              + f' (program/eager {p / e:.3f}); device ms / idle share of '
+              f'one traced step eager {c["busy"]["eager"]:.2f} / '
+              f'{_share(c["idle"]["eager"])}, program '
+              f'{c["busy"]["program"]:.2f} / {_share(c["idle"]["program"])};'
+              f' peak GiB eager {c["peak"]["eager"]:.2f}, program '
+              f'{c["peak"]["program"]:.2f}; warm-up s ' + ', '.join(
+                  f'{k} {v:.3f}' for k, v in c['warmup'].items())
+              + '; capture s ' + ', '.join(
+                  f'{k} {v:.3f}' for k, v in c['capture'].items())
+              + f'; graph pool {c["pool"]:.2f} GiB; case seconds '
+              f'{c["seconds"]:.1f}  [{card}]')
+    q, plain = r['synced_bn'], r[DDP_GRAPH_CASES[1][0]]
+    print(f'[ddp graphs] clean bf16 program with its {q["n"]} BatchNorms '
+          f'synced over the 1-rank group (the path of two or more data '
+          f'ranks, no traffic between cards): step ms '
+          + ', '.join(f'{x:.2f}' for x in q['turns'])
+          + f' vs the plain module\'s {plain["turns"][1]:.2f}, '
+          f'{plain["turns"][2]:.2f}; device ms / idle share of one traced '
+          f'step {q["busy"]:.2f} / {_share(q["idle"])} vs '
+          f'{plain["busy"]["program"]:.2f} / '
+          f'{_share(plain["idle"]["program"])}; top device activities '
+          + _tops(q['top']) + '; the plain module\'s '
+          + _tops(plain['top']) + f'  [{card}]')
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f'[ddp graphs] ran 1 NCCL rank on the one card ({secs:.1f} s '
+              f'with its start-up); the several-card check needs two cards '
+              f'or more  [{card}]')
+        return {'nms': r['nms']}
+    tag, assigner, dtype = DDP_STEPS[0]
+    one = r[DDP_GRAPH_CASES[1][0]]['turns']
+    for world in sorted({2, cards}):
+        t1 = time.perf_counter()
+        ranks = _run_ranks(world, 'nccl', out_dir, kind='graphs')
+        secs_n = time.perf_counter() - t1
+        if world == 2:
+            for q in ranks:
+                require(q[tag]['equal'], f'[ddp graphs] {tag}: a rank\'s '
+                        f'program differs from its eager DDP route')
+                require(q[tag]['parts'] == ranks[0][tag]['parts'],
+                        f'[ddp graphs] {tag}: the ranks report other '
+                        f'losses')
+            got = dict(ranks[0][tag],
+                       identical=all(q[tag]['identical'] for q in ranks))
+            _compare_step(tag, assigner, dtype, got,
+                          _single_card_step(tag, assigner, dtype), card,
+                          label='[ddp graphs]',
+                          ranks='2 NCCL ranks (one card each, programs '
+                                'bit-equal to the eager DDP route)')
+        print(f'[ddp graphs] ran {world} NCCL ranks, one card each '
+              f'({secs_n:.1f} s with their start-up): clean bf16 at '
+              f'{ranks[0]["scaling"]["rows"]} rows a rank, deterministic, '
+              f'step ms a rank in turns eager, program, program, eager: '
+              + '; '.join(f'rank {i} ' + ', '.join(
+                  f'{x:.2f}' for x in q['scaling']['turns'])
+                  for i, q in enumerate(ranks))
+              + f'; the one card\'s program at {DDP_BS} rows {one[1]:.2f}, '
+              f'{one[2]:.2f}  [{card}]')
+        q = ranks[0]['scaling']
+        print(f'[ddp graphs] {world} ranks, rank 0, one traced step: device '
+              f'ms / idle share eager {q["busy"]["eager"]:.2f} / '
+              f'{_share(q["idle"]["eager"])}, program '
+              f'{q["busy"]["program"]:.2f} / {_share(q["idle"]["program"])};'
+              f' the program\'s top device activities ' + _tops(q['top'])
+              + f'; one card\'s ' + _tops(r[DDP_GRAPH_CASES[1][0]]['top'])
+              + f'  [{card}]')
+    return {'nms': r['nms']}
 
 
 def _split_packed(sdet, frames, halves):
@@ -4954,7 +5335,7 @@ def _tp_rank(rank: int, world: int, rendezvous: str, out_dir: str) -> None:
     cfg = _train_cfg(assigner='compat', dtype='float32', batch_size=DDP_BS)
     state = ts.create_train_state(_seeded_model(cfg), cfg, 'cuda:0')
     ts.set_learning_rate(state, cfg.learning_rate)
-    step = make_sharded_train_step(cfg, mesh)(state)
+    step = make_sharded_train_step(cfg, mesh, eager=True)(state)   # gloo
     local = place_batch(arrays, mesh)
     t = place_text(text, mesh)
     parts = {k: float(v) for k, v in step(state, local, t).items()}
@@ -5108,6 +5489,7 @@ def main() -> int:
         paths.append(phases_training(sim, nms, tmp, card))
         paths.append(phase_train_graphs(sim, nms, tmp, card))
         paths.append(phase_ddp(sim, nms, tmp, card))
+        paths.append(phase_ddp_graphs(sim, nms, tmp, card))
         paths += phase_dp_serve(sim, nms, i8, vocab_path, tmp, card)
         # the 'model' axis: class parallelism and spatial partitioning
         torch.cuda.empty_cache()

@@ -23,7 +23,21 @@ references run here meanwhile.
     both objectives, accumulation 1 and 2, ranks whose samples have
     different vocabulary sizes (through the trainer: the class bucket),
     and a rank with no valid box (the global normalisers); the ranks'
-    parameters after the step are identical bit for bit.
+    parameters after the step are identical bit for bit. These steps run
+    as programs (`make_sharded_train_step`'s default route; on the CPU a
+    program runs its body over gloo without capture), so the JAX case
+    holds the program route to JAX's sharded step.
+  * The program route against the eager DistributedDataParallel route
+    from the same weights and state, two steps with EMA, bit for bit
+    (loss parts, parameters, BatchNorm buffers, AdamW moments, EMA: the
+    average over two ranks is one scaling by 1/2 and one sum of two
+    values either way): accumulation 2, the clean objective, a rank with
+    no valid box, and the trainer over ragged vocabularies. The eval
+    program with NMS against the eager eval step (losses and predictions
+    equal). Batches of other shapes on the two ranks raise
+    `ProgramKeyMismatch` on both, naming both keys; gloo on a CUDA device
+    is refused (`capture_blocker`). In one process, a one-cell mesh's
+    step is the 1-device 'train_step' program.
   * BatchNorm2d with a group (equal and unequal shards) against flax's
     BatchNorm over the concatenated batch: outputs 1e-5, buffers 1e-6,
     gradients 1e-5.
@@ -87,6 +101,9 @@ CASES = {   # float64 weights, except JAX_CASE
     'ragged_vocab': dict(assigner='compat'),
 }
 BN_SPLITS = {'equal': 2, 'unequal': 3}   # rank 0's rows of 4
+# program vs eager DDP route, two steps with EMA
+GRAPH_CASES = ('compat_accum2', 'clean', 'empty_rank_clean', 'ragged_vocab')
+GRAPH_EMA = 0.99
 
 
 def _size(case):
@@ -172,7 +189,10 @@ from yoloclip_tpu_torch.models.layers import BatchNorm2d
 from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP
 from yoloclip_tpu_torch.parallel import multihost
 from yoloclip_tpu_torch.parallel.mesh import create_mesh
-from yoloclip_tpu_torch.parallel.train_step import (make_sharded_train_step,
+from yoloclip_tpu_torch.inference.program import ProgramKeyMismatch
+from yoloclip_tpu_torch.parallel.collectives import capture_blocker
+from yoloclip_tpu_torch.parallel.train_step import (make_sharded_eval_step,
+                                                    make_sharded_train_step,
                                                     place_batch)
 from yoloclip_tpu_torch.train import train_state as ts
 from yoloclip_tpu_torch.train.losses import region_text_contrastive_loss
@@ -202,31 +222,101 @@ def digest_equal(model):
     torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX)
     return bool(torch.equal(lo, hi))
 
-for case, (kw, size, dtype, batch, text) in inp['cases'].items():
-    cfg = TrainingConfig(model=ModelConfig(image_size=(size, size)), **kw)
+def route(case, eager, ema, steps, first=None):
+    """`steps` steps through the program route or (eager) the DDP route,
+    with an EMA where ema; first(model) after the first step. Returns the
+    config, the state, each step's loss parts and every state tensor."""
+    kw, size, dtype, batch, text = inp['cases'][case]
+    cfg = TrainingConfig(model=ModelConfig(image_size=(size, size)),
+                         **dict(kw, ema_decay=inp['graph_ema'] if ema
+                                else 0.0))
     model = YOLOCLIP(cfg.model)
     model.load_state_dict(inp['weights'])
     model = model.to(dtype)
-    state = ts.TrainState(model, ts.make_optimizer(cfg, model.parameters()))
+    state = ts.TrainState(model, ts.make_optimizer(cfg, model.parameters()),
+                          {k: p.detach().clone()
+                           for k, p in model.named_parameters()}
+                          if ema else None)
     ts.set_learning_rate(state, lr)
     if 'text_prompts' in batch:   # through the trainer (the class bucket)
         trainer = YOLOCLIPTrainer(model, StubTextEncoder(), cfg, state=state,
                                   mesh=mesh, device='cpu')
         trainer._schedule = lambda count: lr
-        parts = trainer.train_epoch([batch], 1)
+        if eager:
+            trainer._train_step = trainer._train_step_eager
+        run = lambda: trainer.train_epoch([batch], 1)
     else:
-        step = make_sharded_train_step(cfg, mesh)(state)
+        step = make_sharded_train_step(cfg, mesh, eager=eager)(state)
         local = place_batch(dict(batch, text=text), mesh,
                             cfg.grad_accum_steps)
         t = local.pop('text').to(dtype)
         local['images'] = local['images'].to(dtype)
-        parts = {k: float(v) for k, v in step(state, local, t).items()}
-    res = {'parts': parts, 'identical': digest_equal(model)}
-    if rank == 0:
-        res['grads'] = {k: p.grad.clone() for k, p in
-                        model.named_parameters()}
-        res['state'] = {k: v.clone() for k, v in model.state_dict().items()}
-    out[case] = res
+        run = lambda: {k: float(v) for k, v in step(state, local, t).items()}
+    parts = []
+    for i in range(steps):
+        parts.append(run())
+        if i == 0 and first is not None:
+            first(model)
+    tensors = dict(model.state_dict())
+    tensors.update({'ema ' + k: v for k, v in (state.ema or {}).items()})
+    for name, p in model.named_parameters():
+        for k, v in state.optimizer.state[p].items():
+            tensors[f'optimizer {name} {k}'] = v
+    return cfg, state, parts, tensors
+
+def record(case):
+    def first(model):
+        res = {'identical': digest_equal(model)}
+        if rank == 0:
+            res['grads'] = {k: p.grad.clone() for k, p in
+                            model.named_parameters()}
+            res['state'] = {k: v.clone()
+                            for k, v in model.state_dict().items()}
+        out[case] = res
+    return first
+
+for case in inp['cases']:
+    # the program route; a GRAPH case takes a second step, with an EMA,
+    # and then the eager route from the same weights
+    graph = case in inp['graph_cases']
+    cfg, state, parts, tensors = route(case, False, graph, 1 + graph,
+                                       record(case))
+    out[case]['parts'] = parts[0]
+    if not graph:
+        continue
+    _, _, eparts, etensors = route(case, True, True, 2)
+    res = {'parts': parts, 'eager_parts': eparts, 'n': len(tensors),
+           'differ': [k for k, v in etensors.items()
+                      if not torch.equal(tensors[k], v)]}
+    if case == 'clean':   # the eval program with NMS vs the eager step
+        _, _, dtype, batch, text = inp['cases'][case]
+        cfg = TrainingConfig(model=cfg.model, eval_with_nms=True,
+                             eval_conf_threshold=-1.0,
+                             max_objects=cfg.max_objects)
+        local = place_batch(dict(batch, text=text), mesh)
+        t = local.pop('text').to(dtype)
+        local['images'] = local['images'].to(dtype)
+        res['eval'] = [make_sharded_eval_step(cfg, mesh, eager=eager)(
+            state, local, t) for eager in (False, True)]
+    out['graph_' + case] = res
+
+# the ranks pass batches of other shapes: both raise, naming the keys
+kw, size, dtype, batch, text = inp['cases']['clean']
+cfg = TrainingConfig(model=ModelConfig(image_size=(size, size)), **kw)
+model = YOLOCLIP(cfg.model).to(dtype)
+state = ts.TrainState(model, ts.make_optimizer(cfg, model.parameters()))
+local = place_batch(dict(batch, text=text), mesh)
+t = local.pop('text').to(dtype)
+local['images'] = local['images'].to(dtype)
+if rank == 1:
+    local, t = {k: v[:1] for k, v in local.items()}, t[:1]
+try:
+    make_sharded_train_step(cfg, mesh)(state)(state, local, t)
+    out['mismatch'] = None
+except ProgramKeyMismatch as e:
+    out['mismatch'] = str(e)
+out['blocker'] = (capture_blocker('cuda:0', mesh.group),
+                  capture_blocker('cpu', mesh.group))
 
 bn_in = inp['bn']
 for name, n0 in inp['bn_splits'].items():
@@ -282,6 +372,7 @@ def ranks(weights, tmp_path_factory):
                             output_dir=str(tmp / case)), _size(case),
                        _dtype(case), batch, text)
     torch.save({'weights': weights[0], 'cases': cases, 'lr': LR,
+                'graph_cases': GRAPH_CASES, 'graph_ema': GRAPH_EMA,
                 'bn': _bn_inputs(),
                 'bn_splits': BN_SPLITS, 'min': _min_inputs()},
                tmp / 'inputs.pt')
@@ -468,6 +559,63 @@ def test_contrastive_min_positive_count_is_global(ranks):
     np.testing.assert_allclose(
         torch.cat([r0['grad'], r1['grad']]).numpy() / 2, np.asarray(grad),
         rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize('case', GRAPH_CASES)
+def test_two_rank_program_matches_eager_ddp_route(ranks, case):
+    """Two steps with EMA through the program route and the eager DDP
+    route from the same weights and state: bit for bit on both ranks."""
+    for r in ranks():
+        got = r['graph_' + case]
+        assert got['parts'] == got['eager_parts']
+        assert got['n'] > 500 and got['differ'] == [], got['differ'][:5]
+        assert got['parts'][0] != got['parts'][1]   # the state moved
+
+
+def test_two_rank_eval_program_matches_eager_eval_step(ranks):
+    for r in ranks():
+        (parts, preds), (eparts, epreds) = r['graph_clean']['eval']
+        assert {k: float(v) for k, v in parts.items()} == {
+            k: float(v) for k, v in eparts.items()}
+        for k, v in epreds.items():
+            assert torch.equal(preds[k], v), k
+        assert int((preds['class_ids'] >= 0).sum()) > 0   # NMS kept some
+
+
+def test_ranks_with_other_keys_raise_on_both(ranks):
+    """Rank 0 passes its 2 rows, rank 1 one row: no rank runs the program,
+    both raise naming both keys (within the 60 s collective timeout: a
+    hang would fail the ranks)."""
+    msgs = [r['mismatch'] for r in ranks()]
+    for m in msgs:
+        assert m is not None and 'different program keys' in m
+        assert '(2, 64, 64, 3)' in m and '(1, 64, 64, 3)' in m
+        assert 'rank 0:' in m and 'rank 1:' in m
+
+
+def test_gloo_on_cuda_cannot_be_captured(ranks):
+    on_cuda, on_cpu = ranks()[0]['blocker']
+    assert 'gloo' in on_cuda and 'cannot capture' in on_cuda
+    assert on_cpu is None
+
+
+def test_one_cell_mesh_step_is_the_single_device_program(weights,
+                                                        tmp_path):
+    from yoloclip_tpu_torch.inference.program import ProgramCache
+    from yoloclip_tpu_torch.parallel.train_step import (
+        make_sharded_train_step)
+    cfg = _cfg(SMALL, output_dir=str(tmp_path))
+    model = YOLOCLIP(cfg.model)
+    model.load_state_dict(weights[0])
+    state = ts.create_train_state(model, cfg, 'cpu')
+    cache = ProgramCache()
+    mesh = pmesh.create_mesh(n_data=1, devices=['cpu'])
+    step = make_sharded_train_step(cfg, mesh, programs=cache)(state)
+    batch, text = _batch('one_cell')
+    b = {k: torch.from_numpy(v[:2]) for k, v in batch.items()}
+    parts = step(state, b, torch.from_numpy(text[:2]))
+    assert cache.count('train_step') == 1 and cache.agreement is None
+    assert torch.isfinite(parts['loss'])
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,11 @@
         compat objective with accumulation 1 and 2, the clean objective
         (BCE), its softmax form with accumulation 2, and the trainer over
         prompts whose class bucket (8) leaves rank 1's block all padding,
-        with `evaluate` (the same metrics);
+        with `evaluate` (the same metrics). The steps run as programs
+        (`make_sharded_train_step`'s default route, on the CPU the body
+        over gloo without capture); 'clean_eager' runs the clean case
+        through the eager DDP route, and the two routes agree within the
+        same 1e-9;
       - one 64-px forward split 2-way in height over the model group
         (`parallel/spatial.py` through torch.distributed) against the
         unsplit forward, float64: within 1e-9.
@@ -86,13 +90,15 @@ CASES = {   # float64
                                  contrastive_type='softmax',
                                  grad_accum_steps=2),
     'trainer_padded_block': dict(assigner='compat'),
+    'clean_eager': dict(assigner='topk_center'),   # 'clean', eager route
 }
 PROMPTS = [f'p{i}' for i in range(3)]   # bucket 8: rank 1's block 4..7
 
 
 def _batch(case):
-    """A case's global batch, numpy, from a seed."""
-    rs = np.random.RandomState(len(case))
+    """A case's global batch, numpy, from a seed (an '_eager' case takes
+    its program case's)."""
+    rs = np.random.RandomState(len(case.removesuffix('_eager')))
     xy = rs.rand(B, M, 2) * SIZE * 0.7
     wh = rs.rand(B, M, 2) * SIZE * 0.3 + 4
     batch = {'images': rs.rand(B, SIZE, SIZE, 3).astype(np.float32),
@@ -172,7 +178,8 @@ for case, (kw, dtype, batch, text) in inp['cases'].items():
         res['eval'] = trainer.evaluate([batch])
     else:
         accum = cfg.grad_accum_steps
-        step = make_sharded_train_step(cfg, mesh)(state)
+        step = make_sharded_train_step(
+            cfg, mesh, eager=case.endswith('_eager'))(state)
         local = place_batch(batch, mesh, accum)
         t = place_text(text, mesh, accum=accum).to(dtype)
         res['block'] = tuple(t.shape)
@@ -358,6 +365,26 @@ def test_2x2_step_matches_single_process_float64(weights, ranks, case,
         for r in range(4):
             for k, w in ev.items():
                 _close(got[r][case]['eval'][k], w, k)
+
+
+def test_2x2_program_matches_eager_ddp_route(ranks):
+    """The class-sharded clean step through the program and through the
+    eager DDP route (its gradient average a sum over four ranks, in
+    either route's order): loss parts, gradients and state within 1e-9."""
+    got = ranks()
+    for r in range(4):
+        prog, eager = got[r]['clean'], got[r]['clean_eager']
+        for k, w in eager['parts'].items():
+            _close(prog['parts'][k], w, k)
+    prog, eager = got[0]['clean'], got[0]['clean_eager']
+    for k, w in eager['grads'].items():
+        assert float((prog['grads'][k] - w).norm()) <= RTOL * max(
+            float(w.norm()), 1e-30), k
+    for k, w in eager['state'].items():
+        if w.is_floating_point():
+            np.testing.assert_allclose(prog['state'][k].numpy(), w.numpy(),
+                                       rtol=RTOL, atol=PARAM_ATOL,
+                                       err_msg=k)
 
 
 def test_spatial_split_over_process_group(weights, ranks):

@@ -51,18 +51,33 @@ body on the same static buffers without capture.
     gradients in the pool, and a capturable optimizer
     (`train/train_state.py::make_optimizer`) updates the state in place
     on every replay. The rules above hold for it unchanged.
+  * A program over a process group (the sharded train and eval steps,
+    `train/train_state.py`) holds the group's collectives: on the card
+    NCCL's, captured into the graph (gloo's run on the host and cannot
+    be: `parallel/collectives.py::capture_blocker`). Its warm-up and
+    capture issue them on the capture stream like any other work. Every
+    rank must then take the same key on the same call: a rank that
+    captures while another replays, or two ranks that replay different
+    programs, would pair mismatched collectives (a hang or a wrong sum).
+    A cache built with a host group (`ProgramCache(agreement=
+    KeyAgreement(group))`) checks a digest of each call's key over that
+    group, and keys that differ raise on every rank, naming them. The
+    caller can carry the digest in a host exchange of its own
+    (`KeyAgreement.exchange`), so the check costs no extra round trip.
   * Graphs do not outlive the process: there is no counterpart of the
     JAX package's persistent compile cache.
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from yoloclip_tpu_torch.ops.kernels import add_counts, read_counts
 
@@ -240,25 +255,103 @@ def _end_failed_capture(device: torch.device,
     torch.cuda.set_stream(current)
 
 
+def portable(key):
+    """`key` as every process writes it: numbers, strings, dtypes and
+    tuples as they are, a device as its type (each rank has its own
+    index), anything held by identity (a model, a state, a group) as its
+    type's name."""
+    if isinstance(key, (tuple, list)):
+        return tuple(portable(k) for k in key)
+    if isinstance(key, torch.device):
+        return key.type
+    if isinstance(key, torch.dtype):
+        return str(key)
+    if key is None or isinstance(key, (bool, int, float, str)):
+        return key
+    return type(key).__name__
+
+
+class ProgramKeyMismatch(RuntimeError):
+    """The ranks of a sharded program took different keys on one call."""
+
+
+class KeyAgreement:
+    """Holds the ranks of a host process group (gloo) to one program key a
+    call. Each rank's digest d of its key (`portable`) travels as (d, -d)
+    in one MAX all-reduce: the ranks agree when the two maxima are d and
+    -d of one digest. Where they do not, every rank sees it, gathers the
+    keys and raises `ProgramKeyMismatch` naming them, before any program
+    runs: no rank waits in a collective its peers never reach."""
+
+    def __init__(self, group):
+        self.group = group
+        self._ahead: Optional[tuple] = None   # (digest, max, min)
+
+    @staticmethod
+    def digest(key) -> int:
+        """A 56-bit digest of the portable key (fits int64 negated)."""
+        h = hashlib.blake2b(repr(portable(key)).encode(), digest_size=7)
+        return int.from_bytes(h.digest(), 'little')
+
+    def exchange(self, key, values: Sequence[int] = ()) -> List[int]:
+        """One MAX all-reduce over the group of the int64 `values` (the
+        caller's own host exchange: the trainer's class bucket) and the
+        digest of `key`; returns the values' maxima. The next `check` of
+        the same key reads its digests from this exchange."""
+        d = self.digest(key)
+        x = torch.tensor(list(values) + [d, -d], dtype=torch.int64)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
+        out = x.tolist()
+        self._ahead = (d, out[-2], -out[-1])
+        return out[:-2]
+
+    def check(self, key) -> None:
+        """Raise on every rank unless every rank passes an equal `key`:
+        from the exchange made ahead for it, else from one of its own."""
+        ahead, self._ahead = self._ahead, None
+        d = self.digest(key)
+        if ahead is None:
+            self.exchange(key)
+            ahead, self._ahead = self._ahead, None
+        elif ahead[0] != d:
+            raise RuntimeError(f'the key exchanged ahead is not the key of '
+                               f'this call: {portable(key)}')
+        if ahead[1] != ahead[2]:
+            keys: List[object] = [None] * dist.get_world_size(self.group)
+            dist.all_gather_object(keys, portable(key), group=self.group)
+            me = dist.get_rank(self.group)
+            raise ProgramKeyMismatch(
+                f'ranks took different program keys on one call (rank '
+                f'{me}: {keys[me]}); ' + '; '.join(
+                    f'rank {r}: {k}' for r, k in enumerate(keys)
+                    if k != keys[me]))
+
+
 class ProgramCache:
     """Programs by (name, key, input shapes and dtypes), built on first
     use. Thread-safe: a miss builds under the cache's lock, so two threads
-    never capture the same key twice."""
+    never capture the same key twice. agreement: a `KeyAgreement` for
+    programs over a process group, checked on every call."""
 
-    def __init__(self):
+    def __init__(self, agreement: Optional[KeyAgreement] = None):
         self._programs: Dict[tuple, ShapeProgram] = {}
         self._lock = threading.Lock()
+        self.agreement = agreement
 
     def run(self, name: str, key: tuple, body: Callable,
             inputs: Sequence[torch.Tensor], device: torch.device,
-            grad: bool = False):
+            grad: bool = False, agreed: Optional[tuple] = None):
         """body(*static inputs) -> a tensor, or a dict or tuple of them,
         run as the program of (name, key, the inputs' shapes and dtypes) on
         `device`; returns a fresh copy of its outputs. grad: the body runs
-        with autograd (`ShapeProgram`)."""
+        with autograd (`ShapeProgram`). agreed: with an agreement, what
+        every rank must pass equal (default: the whole key, `portable`),
+        checked before anything runs."""
         device = _device(device)
         full = (name, device, key) + tuple((tuple(x.shape), x.dtype)
                                            for x in inputs)
+        if self.agreement is not None:
+            self.agreement.check(full if agreed is None else agreed)
         prog = self._programs.get(full)
         if prog is None:
             with self._lock:

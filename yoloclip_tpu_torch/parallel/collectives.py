@@ -11,7 +11,10 @@ The data axis (a `DistributedDataParallel` rank sees only its rows):
   * `group_sum` / `group_min` / `group_max`: detached, for the counts the
     losses divide by (`train/losses.py`) and the vocabulary bucket;
   * `world_scale`: DDP AVERAGES gradients over the ranks, so a rank's
-    loss divided by a global count is multiplied by the world size.
+    loss divided by a global count is multiplied by the world size;
+  * `all_reduce_gradients`: that average without DDP's reducer, for a
+    step captured as a CUDA graph (`capture_blocker` says when a group's
+    collectives cannot be captured).
 
 The model axis (the vocabulary's classes split in contiguous blocks,
 `ClassShard`; the JAX package's `P('data', 'model', None)` text):
@@ -290,6 +293,61 @@ def world_scale(x: torch.Tensor, group: Optional[object]) -> torch.Tensor:
     """A rank's share of a globally normalised loss, scaled so that DDP's
     mean over the ranks is the global loss (x with no group)."""
     return x if group is None else x * world_size(group)
+
+
+# DistributedDataParallel's default bucket cap
+BUCKET_BYTES = 25 * 2 ** 20
+
+
+def all_reduce_gradients(params, group) -> None:
+    """The gradients of `params` averaged over the process group `group`
+    in place, as DistributedDataParallel's default hook averages them:
+    each multiplied by 1 / world size, then summed by an all-reduce (on two
+    ranks the sum does not depend on the order, so the result is DDP's bit
+    for bit). Coalesced: one flat all-reduce a dtype and BUCKET_BYTES, in
+    parameter order. A parameter with no gradient takes zeros, as its
+    slot in DDP's bucket does. Device work only, no host sync and no
+    reducer state, so a captured program can hold it; call it once, after
+    the last micro-batch's backward."""
+    if group is None:
+        return
+    scale = 1.0 / world_size(group)
+    open_: dict = {}     # dtype -> (its open bucket, the bucket's bytes)
+    buckets = []
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads, size = open_.get(p.grad.dtype, (None, 0))
+        if grads is None or size + p.grad.nbytes > BUCKET_BYTES:
+            grads, size = [], 0
+            buckets.append(grads)
+        grads.append(p.grad)
+        open_[p.grad.dtype] = (grads, size + p.grad.nbytes)
+    for grads in buckets:
+        flat = torch.cat([g.reshape(-1) for g in grads]).mul_(scale)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(
+            flat.split([g.numel() for g in grads]), grads)])
+
+
+def capture_blocker(device, *groups) -> Optional[str]:
+    """Why a CUDA graph on `device` cannot hold collectives over `groups`
+    (None where it can, or off CUDA: there a program runs its body without
+    capture). Only NCCL enqueues its collectives on the device; gloo runs
+    them on the host (the case of two ranks sharing one card, which NCCL
+    refuses), and the in-process backend meets at a host barrier."""
+    if torch.device(device).type != 'cuda':
+        return None
+    for g in groups:
+        if g is None:
+            continue
+        backend = ('in-process' if isinstance(g, LocalRank)
+                   else dist.get_backend(g))
+        if backend != 'nccl':
+            return (f'{backend} collectives run on the host, so a CUDA '
+                    f'graph cannot capture them; a program over a process '
+                    f'group on the card needs NCCL (one card a rank)')
+    return None
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ one host or several. Counterpart of `yoloclip_tpu/parallel/multihost.py`.
 Self-test (one train step in N processes against 1 process on the same
 global batch; --model M lays the N processes out as an (N/M, M) mesh, the
 classes split M-way, as the JAX package's self-test runs a 4x2 grid; the
-trainer loop and a rank-0 checkpoint round trip with --ckpt-dir):
+trainer loop and a rank-0 checkpoint round trip with --ckpt-dir; the
+sharded step runs as a program, eagerly over gloo on CUDA devices):
 
     for i in 0 1 2 3 4 5 6 7; do
       python -m yoloclip_tpu_torch.parallel.multihost --selftest \\
@@ -221,7 +222,8 @@ def _selftest_loss(num_processes: int = 1,
     from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP, init_weights
     from yoloclip_tpu_torch.parallel.mesh import create_mesh
     from yoloclip_tpu_torch.parallel.train_step import (
-        make_sharded_train_step, place_batch, place_text)
+        make_sharded_train_step, place_batch, place_text,
+        sharded_step_blocker)
     from yoloclip_tpu_torch.train.train_state import (create_train_state,
                                                       make_train_step)
 
@@ -249,7 +251,11 @@ def _selftest_loss(num_processes: int = 1,
             local = place_batch(batch, mesh)
             local['text'] = place_text(text, mesh)
             state = create_train_state(model, cfg, mesh.local_device)
-            step = make_sharded_train_step(cfg, mesh)(state)
+            # a program (on the card over NCCL); eager over gloo on the
+            # card, where nothing can be captured
+            step = make_sharded_train_step(
+                cfg, mesh, eager=sharded_step_blocker(mesh) is not None)(
+                    state)
         else:
             local = {k: torch.from_numpy(v).to(device)
                      for k, v in batch.items()}

@@ -5,7 +5,7 @@ The JAX package jits one step with the batch over 'data', the text's
 classes over 'model' (`P('data', 'model', None)`) and the state
 replicated; GSPMD inserts the collectives, and the step is exactly the
 single-device step over the global batch. Here one process runs a mesh
-cell (`parallel/multihost.py`), and the step is DistributedDataParallel
+cell (`parallel/multihost.py`), and the step is the single-device step
 with what makes it the same step:
 
   * BatchNorm reduces its statistics over the global batch (the model's
@@ -13,8 +13,8 @@ with what makes it the same step:
   * the losses' batch-global normalisers are reduced over the data group;
   * with accumulation, micro-batch i across the ranks is global rows
     [i*b, (i+1)*b), as the JAX package slices a sharded batch
-    (`mesh.batch_sharding`), and the gradient all-reduce runs on the last
-    micro-batch only (`no_sync`);
+    (`mesh.batch_sharding`), and the gradients are averaged once, after
+    the last micro-batch's backward;
   * no buffer broadcast in the forward: BatchNorm buffers are never
     overwritten from rank 0, so a desynchronised statistic shows instead
     of being hidden;
@@ -28,6 +28,15 @@ with what makes it the same step:
     whole world (data x model) is then exactly the data rows' mean, the
     unsharded step's gradient over the global batch.
 
+The train and eval steps run as programs, as JAX jits them
+(`make_sharded_train_step`, `make_sharded_eval_step`): the bare model, the
+gradients averaged by `collectives.all_reduce_gradients` (DDP's average,
+without its reducer), on the card a CUDA graph a key holding NCCL's
+collectives, on the CPU the same body over gloo without capture. The
+eager route (eager=True) wraps the model in DistributedDataParallel
+(`no_sync` on all but the last micro-batch); it is the route over gloo on
+the card, where two ranks share one device and nothing can be captured.
+
 In one process (`make_sharded_inference`) each data row's model-axis
 devices run one persistent worker thread each, the exchanges through the
 in-process backend.
@@ -37,7 +46,7 @@ from __future__ import annotations
 
 import copy
 import inspect
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -45,11 +54,13 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from yoloclip_tpu_torch.config import TrainingConfig
+from yoloclip_tpu_torch.inference.program import KeyAgreement, ProgramCache
 from yoloclip_tpu_torch.models.layers import BatchNorm2d
 from yoloclip_tpu_torch.parallel import collectives as col
 from yoloclip_tpu_torch.parallel.mesh import (Mesh, replicas_by_device,
                                               shard_batch)
-from yoloclip_tpu_torch.train.train_state import TrainState, make_train_step
+from yoloclip_tpu_torch.train.train_state import (TrainState, make_eval_step,
+                                                  make_train_step)
 
 
 # No buffer broadcast in the forward. Newer torch names the option
@@ -71,12 +82,58 @@ def set_batchnorm_group(model: nn.Module, group) -> int:
     return n
 
 
-def make_sharded_train_step(cfg: TrainingConfig, mesh: Mesh):
+def sharded_programs(mesh: Mesh) -> ProgramCache:
+    """A ProgramCache for the sharded steps of `mesh`: its ranks agree on
+    every call's key over the mesh's host group."""
+    return ProgramCache(agreement=KeyAgreement(mesh.host_group))
+
+
+def sharded_step_blocker(mesh: Mesh) -> Optional[str]:
+    """Why the sharded steps of `mesh` cannot run as programs on this
+    rank's device (`collectives.capture_blocker`; None where they can)."""
+    if not mesh.multiprocess:
+        return None
+    return col.capture_blocker(mesh.local_device, mesh.group,
+                               mesh.model_group, dist.group.WORLD)
+
+
+def _step_programs(mesh: Mesh, programs: Optional[ProgramCache],
+                   eager: bool) -> Optional[ProgramCache]:
+    """The cache a sharded step's programs go in: `programs`, else a new
+    one (`sharded_programs` over a process group); None for the eager
+    route. Raises where the programs cannot be captured."""
+    if eager:
+        return None
+    reason = sharded_step_blocker(mesh)
+    if reason is not None:
+        raise RuntimeError(f'the sharded steps cannot run as programs on '
+                           f'{mesh.local_device}: {reason} (eager=True runs '
+                           f'them eagerly)')
+    if programs is not None:
+        return programs
+    return sharded_programs(mesh) if mesh.multiprocess else ProgramCache()
+
+
+def make_sharded_train_step(cfg: TrainingConfig, mesh: Mesh,
+                            programs: Optional[ProgramCache] = None,
+                            eager: bool = False):
     """compile_for(state) -> train_step(state, batch, text) over `mesh`,
     the JAX function's shape. The batch is this rank's rows
     (`place_batch`), the text its rows and class block (`place_text`); the
-    returned loss parts are the global batch's. On a one-cell mesh without
-    a process group the step is the plain one."""
+    returned loss parts are the global batch's.
+
+    The step runs as the 'train_step' program of `programs` (default: a
+    new `sharded_programs(mesh)`), as JAX jits the sharded step: the bare
+    model, the gradient average by `collectives.all_reduce_gradients`,
+    the optimizer and the EMA, on the card one CUDA graph holding NCCL's
+    collectives. Every rank must call it with the same settings and batch
+    shapes (the cache's agreement raises on every rank where they differ).
+    Over gloo on a CUDA device (ranks sharing a card) it raises: gloo's
+    collectives cannot be captured. eager: the eager route instead, a
+    DistributedDataParallel wrapper of the model built at its first call
+    (the reading beside the program, and the route over gloo on the card;
+    see `_lazy_ddp_step`). On a one-cell mesh without a process group the
+    step is the 1-device step, a program of `programs` (or eager)."""
     def compile_for(state: TrainState):
         if not mesh.multiprocess:
             if mesh.shape != {'data': 1, 'model': 1}:
@@ -86,21 +143,60 @@ def make_sharded_train_step(cfg: TrainingConfig, mesh: Mesh):
                     'initialise torch.distributed '
                     '(parallel/multihost.py::initialize, or cli.train '
                     '--devices N) before create_mesh')
-            return make_train_step(cfg)
+            return make_train_step(cfg, programs=_step_programs(
+                mesh, programs, eager))
         # one data rank has nothing to synchronise: its BatchNorm stays the
         # plain module
         set_batchnorm_group(state.model, mesh.group
                             if mesh.shape['data'] > 1 else None)
-        dev = mesh.local_device
-        ddp = DistributedDataParallel(
-            state.model,
-            device_ids=[dev.index or 0] if dev.type == 'cuda' else None,
-            process_group=dist.group.WORLD, find_unused_parameters=False,
-            **_NO_BUFFER_SYNC)
-        return make_train_step(cfg, ddp=ddp, group=mesh.group,
-                               shard_text=mesh.text_shard)
+        if eager:
+            return _lazy_ddp_step(cfg, mesh, state.model)
+        return make_train_step(cfg, group=mesh.group,
+                               shard_text=mesh.text_shard,
+                               programs=_step_programs(mesh, programs, False),
+                               grad_group=dist.group.WORLD)
 
     return compile_for
+
+
+def _lazy_ddp_step(cfg: TrainingConfig, mesh: Mesh, model: nn.Module):
+    """The eager route's step, its DistributedDataParallel wrapper built
+    at the first call (every rank's, together: the construction
+    broadcasts the model). Not before: the wrapper keeps the parameters'
+    gradient accumulators alive, bound to the stream it was built on, and
+    a program's captured backward on the capture stream then has to wait
+    on that stream, which a capture refuses. So a model whose eager route
+    has run captures no new program."""
+    built = []
+
+    def train_step(state: TrainState, batch, text):
+        if not built:
+            dev = mesh.local_device
+            ddp = DistributedDataParallel(
+                model,
+                device_ids=[dev.index or 0] if dev.type == 'cuda' else None,
+                process_group=dist.group.WORLD, find_unused_parameters=False,
+                **_NO_BUFFER_SYNC)
+            built.append(make_train_step(cfg, ddp=ddp, group=mesh.group,
+                                         shard_text=mesh.text_shard))
+        return built[0](state, batch, text)
+
+    train_step.agreed = make_train_step(cfg).agreed   # the program's key
+    return train_step
+
+
+def make_sharded_eval_step(cfg: TrainingConfig, mesh: Mesh,
+                           programs: Optional[ProgramCache] = None,
+                           eager: bool = False):
+    """eval_step(state, batch, text) over `mesh` (this rank's rows and
+    class block; the loss parts the global batch's, the predictions this
+    rank's), the 'eval_step' program of `programs` on the terms of
+    `make_sharded_train_step`; eager: the same body without a program."""
+    cache = _step_programs(mesh, programs, eager)
+    if not mesh.multiprocess:
+        return make_eval_step(cfg, programs=cache)
+    return make_eval_step(cfg, group=mesh.group, shard_text=mesh.text_shard,
+                          programs=cache)
 
 
 def make_sharded_inference(model: nn.Module, mesh: Mesh):

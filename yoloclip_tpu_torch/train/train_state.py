@@ -32,14 +32,20 @@ of `yoloclip_tpu/train/train_state.py`.
     `ProgramCache` (`inference/program.py`), keyed on the state by
     identity and the step's static settings, as the JAX trainer jits
     them; without `programs` the same body runs eagerly.
-  * Data parallelism (`parallel/train_step.py`): the forward runs through
-    a DistributedDataParallel wrapper of the model (no gradient all-reduce
-    on all but the last micro-batch), the losses normalise over the global
-    batch, and the returned loss parts are the global batch's (averaged
-    over the ranks), as the JAX package's sharded step returns them.
+  * Data parallelism (`parallel/train_step.py`): the losses normalise over
+    the global batch, BatchNorm over the global statistics, and the
+    returned loss parts are the global batch's (averaged over the ranks),
+    as the JAX package's sharded step returns them. The gradients are
+    averaged over the ranks after the last micro-batch's backward, by
+    `collectives.all_reduce_gradients` in the bare body (the programs: on
+    the card CUDA graphs holding NCCL's collectives, as JAX jits the
+    sharded step) or by a DistributedDataParallel wrapper of the model
+    (`ddp=`, the eager route, with no all-reduce on all but the last
+    micro-batch), the same average bit for bit on two ranks.
   * Class parallelism (the 'model' axis): the text is the rank's block of
-    the classes (`shard_text` gives its `ClassShard`), which the model and
-    the losses merge over the model group.
+    the classes (`shard_text` gives its `ClassShard`, outside the body:
+    it exchanges the blocks' sizes on the host), which the model and the
+    losses merge over the model group.
 """
 
 from __future__ import annotations
@@ -56,12 +62,14 @@ from torch.func import functional_call
 from yoloclip_tpu_torch.config import TrainingConfig
 from yoloclip_tpu_torch.inference.program import nms_key
 from yoloclip_tpu_torch.ops.nms import batched_nms
-from yoloclip_tpu_torch.parallel.collectives import group_mean
+from yoloclip_tpu_torch.parallel.collectives import (all_reduce_gradients,
+                                                     group_mean)
 from yoloclip_tpu_torch.train.assign import anchor_points
 from yoloclip_tpu_torch.train.losses import (combined_loss_clean,
                                              combined_loss_compat)
 
 TRAIN_KEYS = ('loss', 'contrastive_loss', 'iou_loss', 'dfl_loss')
+BATCH_KEYS = ('images', 'boxes', 'class_ids', 'valid_mask')
 
 
 class TrainState:
@@ -254,9 +262,20 @@ def _mean_parts(parts: Dict[str, torch.Tensor], group
     return dict(zip(keys, vals.unbind(0)))
 
 
+def _agreed(name: str, settings: tuple, arrays) -> tuple:
+    """What every rank of a sharded step's program must pass equal
+    (`inference/program.py::KeyAgreement`): the step, its settings and
+    the batch's shapes and dtypes. The text is left out: under a model
+    axis its class blocks differ by rank by design, and its shape changes
+    no collective (they reduce the classes to one slot, or run on the
+    BatchNorm statistics, the normalisers and the gradients)."""
+    return (name,) + settings + tuple((tuple(x.shape), str(x.dtype))
+                                      for x in arrays)
+
+
 def make_train_step(cfg: TrainingConfig, ddp=None, group=None,
                     shard_text: Optional[Callable] = None,
-                    programs=None):
+                    programs=None, grad_group=None):
     """train_step(state, batch, text) -> loss parts (0-d fp32 tensors on
     the device). Updates the state in place: BatchNorm buffers, parameters
     (one optimizer step at the lr in the param groups), EMA and step.
@@ -266,28 +285,37 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None,
     (B, C, E) per sample (zero-padded vocabularies) or (C, E) shared.
 
     programs: a `ProgramCache`; the step's device work (the micro-batch
-    loop, backward, the optimizer step, the EMA) then runs as its
-    'train_step' program, keyed on the state by identity, the assigner,
-    the accumulation, the compute dtype and whether the EMA is tracked,
-    with the EMA decay an input and the rate read from
-    the optimizer's device tensor, so neither enters the key. The host
-    parts stay outside it: the batch check, the decay, `state.step`. On
-    CUDA the captured backward allocates the gradients in the graph
-    pool, so after a replay `p.grad` need not hold that step's gradients
-    (a later capture of another train program re-binds them); read
-    gradients from the eager step (no `programs`), as the JAX package's
-    jitted step exposes none.
+    loop, backward, the gradient all-reduce, the optimizer step, the EMA)
+    then runs as its 'train_step' program, keyed on the state by
+    identity, the class shard, the assigner, the accumulation, the
+    compute dtype and whether the EMA is tracked, with the EMA decay an
+    input and the rate read from the optimizer's device tensor, so neither
+    enters the key. The host parts stay outside it: the decay, the class
+    shard, `state.step`. On CUDA the captured backward allocates the
+    gradients in the graph pool, so after a replay `p.grad` need not hold
+    that step's gradients (a later capture of another train program
+    re-binds them); read gradients from the eager step (no `programs`),
+    as the JAX package's jitted step exposes none.
 
-    ddp / group (`parallel/train_step.py::make_sharded_train_step`): the
-    DistributedDataParallel wrapper of state.model and the data axis's
-    process group; the batch is then this rank's rows, laid out so that
-    its micro-batch i is its share of the global micro-batch i.
+    group (`parallel/train_step.py::make_sharded_train_step`): the data
+    axis's process group; the batch is then this rank's rows, laid out so
+    that its micro-batch i is its share of the global micro-batch i. The
+    body averages the gradients over grad_group (default: group) once,
+    after the last backward (`collectives.all_reduce_gradients`), unless
+    ddp, a DistributedDataParallel wrapper of state.model, runs the
+    forward and averages them itself (the eager route, never a program:
+    DDP's reducer cannot be captured). A program over a group needs
+    collectives a CUDA graph can hold (NCCL on the card; any backend on
+    the CPU, where a program runs its body without capture;
+    `make_sharded_train_step` refuses gloo on CUDA). With a cache that has
+    an agreement, every rank must call with the same settings and batch
+    shapes (`train_step.agreed(batch)`; mismatches raise on every rank).
     shard_text: text -> its ClassShard, when the text is this rank's
-    block of the classes (a mesh with a model axis); the sharded step
-    runs eagerly (no `programs`)."""
+    block of the classes (a mesh with a model axis)."""
     weights = dict(cfg.loss_weights)
     accum = max(int(cfg.grad_accum_steps), 1)
     settings = (cfg.assigner, accum, cfg.model.dtype, cfg.ema_decay > 0)
+    reduce_group = group if grad_group is None else grad_group
     anchors: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def compute_loss(outputs, batch, shard):
@@ -309,17 +337,20 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None,
             iou_type=cfg.iou_type, label_smoothing=cfg.label_smoothing,
             group=group, class_shard=shard)
 
-    def body(state: TrainState, images, boxes, class_ids, valid_mask, text,
-             decay=None) -> Dict[str, torch.Tensor]:
-        """The step's device work; decay: the EMA decay, a 0-d fp32
-        tensor on the device (None: no EMA)."""
+    def body(state: TrainState, shard, images, boxes, class_ids,
+             valid_mask, text, decay=None) -> Dict[str, torch.Tensor]:
+        """The step's device work; shard: the text's ClassShard (None:
+        every class); decay: the EMA decay, a 0-d fp32 tensor on the
+        device (None: no EMA)."""
+        b, rest = divmod(images.shape[0], accum)
+        if rest:
+            raise ValueError(f'batch size {images.shape[0]} not divisible '
+                             f'by grad_accum_steps {accum}')
         model = state.model.train()
         forward = model if ddp is None else ddp
         state.optimizer.zero_grad(set_to_none=True)
         batch = {'images': images, 'boxes': boxes, 'class_ids': class_ids,
                  'valid_mask': valid_mask}
-        b = images.shape[0] // accum
-        shard = shard_text(text) if shard_text is not None else None
         kw = {} if shard is None else {'class_shard': shard}
         parts_sum: Dict[str, torch.Tensor] = {}
         for i in range(accum):
@@ -336,6 +367,8 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None,
             for k, v in parts.items():
                 v = v.detach()
                 parts_sum[k] = v if k not in parts_sum else parts_sum[k] + v
+        if ddp is None:
+            all_reduce_gradients(model.parameters(), reduce_group)
         state.optimizer.step()
         if decay is not None:
             ema = list(state.ema.values())
@@ -346,15 +379,15 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None,
             parts_sum = {k: v / accum for k, v in parts_sum.items()}
         return _mean_parts(parts_sum, group)
 
+    def agreed(batch: Dict[str, torch.Tensor]) -> tuple:
+        return _agreed('train_step', settings,
+                       [batch[k] for k in BATCH_KEYS])
+
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    text: torch.Tensor) -> Dict[str, torch.Tensor]:
-        B = batch['images'].shape[0]
-        if B % accum:
-            raise ValueError(f'batch size {B} not divisible by '
-                             f'grad_accum_steps {accum}')
-        inputs = [batch[k] for k in ('images', 'boxes', 'class_ids',
-                                     'valid_mask')] + [text]
+        inputs = [batch[k] for k in BATCH_KEYS] + [text]
         device = batch['images'].device
+        shard = shard_text(text) if shard_text is not None else None
         if state.ema is not None:
             decay = torch.tensor(_ema_decay(cfg, state.step),
                                  dtype=torch.float32)
@@ -362,15 +395,17 @@ def make_train_step(cfg: TrainingConfig, ddp=None, group=None,
             inputs.append(decay.pin_memory() if device.type == 'cuda'
                           else decay)
         if programs is None:
-            parts = body(state, *(x.to(device, non_blocking=True)
-                                  for x in inputs))
+            parts = body(state, shard, *(x.to(device, non_blocking=True)
+                                         for x in inputs))
         else:
-            parts = programs.run('train_step', (state,) + settings,
-                                 functools.partial(body, state), inputs,
-                                 device, grad=True)
+            parts = programs.run('train_step', (state, shard) + settings,
+                                 functools.partial(body, state, shard),
+                                 inputs, device, grad=True,
+                                 agreed=agreed(batch))
         state.step += 1
         return parts
 
+    train_step.agreed = agreed
     return train_step
 
 
@@ -389,9 +424,10 @@ def make_eval_step(cfg: TrainingConfig, group=None,
     global batch's, the predictions this rank's rows'. shard_text: as in
     `make_train_step` (the class ids come out global). programs: a
     `ProgramCache`; the step then runs as its 'eval_step' program, keyed
-    on the state by identity, the compute dtype, max_objects and the NMS
-    settings (`inference/program.py::nms_key`, as the detection programs
-    key them); the sharded step runs eagerly (no `programs`)."""
+    on the state by identity, the class shard, the compute dtype,
+    max_objects and the NMS settings (`inference/program.py::nms_key`, as
+    the detection programs key them), over a group on the terms of
+    `make_train_step`'s programs (`eval_step.agreed(batch)`)."""
     weights = dict(cfg.loss_weights)
     M = cfg.max_objects
     settings = (cfg.model.dtype, M, cfg.eval_with_nms) + (
@@ -400,12 +436,11 @@ def make_eval_step(cfg: TrainingConfig, group=None,
         if cfg.eval_with_nms else ())
 
     @torch.no_grad()
-    def body(state: TrainState, images, boxes, class_ids, valid_mask,
-             text):
+    def body(state: TrainState, shard, images, boxes, class_ids,
+             valid_mask, text):
         model = state.model.eval()
         batch = {'images': images, 'boxes': boxes, 'class_ids': class_ids,
                  'valid_mask': valid_mask}
-        shard = shard_text(text) if shard_text is not None else None
         kw = {} if shard is None else {'class_shard': shard}
         with _autocast(cfg, images.device):
             outputs = functional_call(model, state.eval_params(),
@@ -428,14 +463,18 @@ def make_eval_step(cfg: TrainingConfig, group=None,
                      for k in ('boxes', 'scores', 'class_ids')}
         return parts, preds
 
+    def agreed(batch: Dict[str, torch.Tensor]) -> tuple:
+        return _agreed('eval_step', settings, [batch[k] for k in BATCH_KEYS])
+
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
                   text: torch.Tensor):
-        inputs = [batch[k] for k in ('images', 'boxes', 'class_ids',
-                                     'valid_mask')] + [text]
+        inputs = [batch[k] for k in BATCH_KEYS] + [text]
+        shard = shard_text(text) if shard_text is not None else None
         if programs is None:
-            return body(state, *inputs)
-        return programs.run('eval_step', (state,) + settings,
-                            functools.partial(body, state), inputs,
-                            batch['images'].device)
+            return body(state, shard, *inputs)
+        return programs.run('eval_step', (state, shard) + settings,
+                            functools.partial(body, state, shard), inputs,
+                            batch['images'].device, agreed=agreed(batch))
 
+    eval_step.agreed = agreed
     return eval_step

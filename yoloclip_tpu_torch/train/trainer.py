@@ -21,7 +21,8 @@ Counterpart of `yoloclip_tpu/train/trainer.py`.
     the state by identity; the learning rate and the EMA decay are inputs.
     `load()` drops them (it replaces the optimizer's and the EMA's
     tensors). `_train_step_eager` / `_eval_step_eager` run the same bodies
-    eagerly, for readings beside the programs.
+    eagerly, for readings beside the programs (under a mesh, the train
+    step through DistributedDataParallel).
 
 `mesh=` (`parallel/mesh.py`, one process per mesh cell): the sharded
 step of `parallel/train_step.py`. Each rank takes its rows of the global
@@ -33,8 +34,14 @@ ids over the model axis and gathers every data rank's predictions and
 targets on the host, so each rank computes the same global mAP and takes
 the same best-checkpoint decision; process 0 alone writes checkpoints and
 `history.json` (every rank holds the same state), the others wait at a
-barrier.
-The sharded steps run eagerly (no program over a process group yet).
+barrier. The sharded steps are programs too (`make_sharded_train_step`,
+`make_sharded_eval_step`; on the card CUDA graphs holding NCCL's
+collectives), their ranks agreeing on each call's key: the digest of the
+step's key rides on the class bucket's exchange, so the check adds no
+round trip, and keys that differ (e.g. a partial last batch of other
+sizes under `mesh.local_batches`) raise on every rank. Over gloo on the
+card (ranks sharing one device) nothing can be captured: the trainer then
+runs the eager route, DistributedDataParallel, and logs why once.
 `self.model` stays the bare module, so checkpoints carry no `module.`
 prefix and `load` works on every rank. TrainingConfig.data_parallel is
 read by nothing, as in the JAX package: the mesh sets the parallelism.
@@ -54,7 +61,8 @@ import torch
 from yoloclip_tpu_torch.config import TrainingConfig
 from yoloclip_tpu_torch.inference.program import ProgramCache
 from yoloclip_tpu_torch.parallel.collectives import group_max
-from yoloclip_tpu_torch.train.train_state import (TRAIN_KEYS, TrainState,
+from yoloclip_tpu_torch.train.train_state import (BATCH_KEYS, TRAIN_KEYS,
+                                                  TrainState,
                                                   create_train_state,
                                                   get_learning_rate,
                                                   load_optimizer_state,
@@ -69,7 +77,6 @@ from yoloclip_tpu_torch.utils.metrics import calculate_map
 logger = logging.getLogger(__name__)
 
 EVAL_KEYS = ('loss', 'contrastive_loss', 'iou_loss')
-BATCH_KEYS = ('images', 'boxes', 'class_ids', 'valid_mask')
 
 
 def _bucket_classes(n: int, minimum: int = 8) -> int:
@@ -110,16 +117,28 @@ class YOLOCLIPTrainer:
         self.state = state or create_train_state(model, cfg, self.device)
         self.schedule_units = schedule_units
         self._schedule = None   # built once steps_per_epoch is known
-        # the train and eval programs (on one device; a mesh runs eagerly)
+        # the train and eval programs
         self.programs = ProgramCache()
         if mesh is not None:
-            from yoloclip_tpu_torch.parallel.train_step import (
-                make_sharded_train_step, replicate_state)
-            self.state = replicate_state(self.state, mesh)
-            self._train_step = make_sharded_train_step(cfg, mesh)(self.state)
-            self._train_step_eager = self._train_step
-            self._eval_step = self._eval_step_eager = make_eval_step(
-                cfg, group=self._group, shard_text=mesh.text_shard)
+            from yoloclip_tpu_torch.parallel import train_step as ps
+            self.state = ps.replicate_state(self.state, mesh)
+            self._train_step_eager = ps.make_sharded_train_step(
+                cfg, mesh, eager=True)(self.state)
+            self._eval_step_eager = ps.make_sharded_eval_step(cfg, mesh,
+                                                              eager=True)
+            reason = ps.sharded_step_blocker(mesh)
+            if reason is None:
+                if mesh.multiprocess:
+                    self.programs = ps.sharded_programs(mesh)
+                self._train_step = ps.make_sharded_train_step(
+                    cfg, mesh, programs=self.programs)(self.state)
+                self._eval_step = ps.make_sharded_eval_step(
+                    cfg, mesh, programs=self.programs)
+            else:
+                logger.warning('the sharded train and eval steps run '
+                               'eagerly on %s: %s', self.device, reason)
+                self._train_step = self._train_step_eager
+                self._eval_step = self._eval_step_eager
         else:
             self._train_step = make_train_step(cfg, programs=self.programs)
             self._train_step_eager = make_train_step(cfg)
@@ -142,18 +161,23 @@ class YOLOCLIPTrainer:
             torch.distributed.barrier(group=self.mesh.host_group)
 
     # ------------------------------------------------------------------
-    def _encode_batch_text(self, text_prompts: List[List[str]]
-                           ) -> torch.Tensor:
+    def _encode_batch_text(self, text_prompts: List[List[str]],
+                           agreed: Optional[tuple] = None) -> torch.Tensor:
         """Per-sample prompt lists -> (B, Cb, E) on the device, zero-padded
         to the class bucket; under a model axis this rank's block of the
-        Cb classes."""
+        Cb classes. agreed: the key of the step this text is for
+        (`train_step.agreed(batch)`); under a mesh its digest rides on the
+        bucket's exchange, for the programs' agreement to read."""
         dtype = next(self.model.parameters()).dtype   # fp32 master weights
         rows = [self.text_encoder(list(p)).to(self.device, dtype)
                 for p in text_prompts]
         cmax = _bucket_classes(max(r.shape[0] for r in rows))
         if self._group is not None:   # the global batch's bucket
-            cmax = int(group_max(torch.tensor([cmax]),
-                                 self.mesh.host_group)[0])
+            if agreed is not None:
+                (cmax,) = self.programs.agreement.exchange(agreed, [cmax])
+            else:
+                cmax = int(group_max(torch.tensor([cmax]),
+                                     self.mesh.host_group)[0])
         out = torch.zeros((len(rows), cmax, rows[0].shape[1]),
                           dtype=dtype, device=self.device)
         for i, r in enumerate(rows):
@@ -161,6 +185,13 @@ class YOLOCLIPTrainer:
         if self.mesh is not None:
             out = out.narrow(1, *self.mesh.class_block(cmax))
         return out
+
+    def _agreed(self, step, arrays: Dict) -> Optional[tuple]:
+        """The key the programs' agreement checks for step(batch) (None
+        without one: one device, or the eager route)."""
+        if self.programs.agreement is None:
+            return None
+        return step.agreed(arrays)
 
     def _local(self, batch: Dict, accum: int = 1) -> Dict:
         """This process's rows of a batch: the batch itself on one device
@@ -198,9 +229,10 @@ class YOLOCLIPTrainer:
                                   self._schedule(self.state.step))
             batch = self._local(batch, max(int(self.cfg.grad_accum_steps),
                                            1))
-            text = self._encode_batch_text(batch['text_prompts'])
-            parts = self._train_step(self.state, self._put_batch(batch),
-                                     text)
+            arrays = self._put_batch(batch)
+            text = self._encode_batch_text(
+                batch['text_prompts'], self._agreed(self._train_step, arrays))
+            parts = self._train_step(self.state, arrays, text)
             n += 1
             totals = ({k: parts[k] for k in TRAIN_KEYS} if totals is None
                       else {k: totals[k] + parts[k] for k in TRAIN_KEYS})
@@ -211,8 +243,9 @@ class YOLOCLIPTrainer:
         n, totals = 0, None
         for batch in dataloader:
             batch = self._local(batch)
-            text = self._encode_batch_text(batch['text_prompts'])
             arrays = self._put_batch(batch)
+            text = self._encode_batch_text(
+                batch['text_prompts'], self._agreed(self._eval_step, arrays))
             parts, preds = self._eval_step(self.state, arrays, text)
             n += 1
             totals = ({k: parts[k] for k in EVAL_KEYS} if totals is None
