@@ -183,6 +183,11 @@ Phases, each printing its results; any failure exits non-zero:
                   programs (the 1203-class vocabulary, 8 online prompts)
                   bit-equal to the eager tower, build ms in turns; the
                   graph pool; a grad program that syncs raises at capture.
+16h. ckpt async -- the clean bf16 trainer with an EMA on its train program
+                  at bs=16, 640 px: save(wait=True), then save(wait=False)
+                  of the same state and at once one more step; the async
+                  file equals the wait=True file tensor for tensor; each
+                  save's stall of the step loop (ms) and the file's MiB;
  17. ddp       -- parallel/ on the one card: two ranks on cuda:0 through
                   gloo (NCCL refuses two ranks on one device) take a compat
                   fp32 and a clean bf16 step at global bs=16 (8 a rank),
@@ -231,6 +236,22 @@ Phases, each printing its results; any failure exits non-zero:
                   (JAX's bounds: scores 1e-4, boxes 1 px; int8
                   accumulators equal to plain on the halo-extended
                   inputs); the 1-, 2- and 4-way latencies;
+ 20b. split ranks -- the class-sharded forward and the spatial split with
+                  one process a cell: two gloo ranks on cuda:0 as a 1x2
+                  grid run make_sharded_inference (LVIS-1203 detect_batch
+                  at bs=32) and spatialize_detector (640-px detect() split
+                  2 ways) on their eager route, against the single-card
+                  programs with [vocab tp]'s and [spatial]'s bounds; their
+                  program route must raise (gloo cannot be captured).
+                  With two cards or more, one NCCL rank a card on 1x2 and
+                  1 x all grids: both as programs (CUDA graphs holding
+                  NCCL's exchanges) against the eager route (ids exact,
+                  scores and boxes within GRAPH_ATOL, bit-equality
+                  printed) and the single-card programs, kernels 1 and 2
+                  once a level / once a call, img/s and detect() ms
+                  program and eager beside the single card's, capture s,
+                  pool GiB; on four, detect_batch over a 2x2 grid (batch
+                  over data x height over model);
  21. tp train  -- two gloo ranks on cuda:0 as a 1x2 (data x model) grid:
                   one compat fp32 class-sharded step at 640 px, bs=16,
                   against the 1-process step with [ddp]'s bounds;
@@ -243,7 +264,7 @@ the text tower's encode run as their programs, captured at the first call: the l
 count the first call's eager run and every replay, never the capture.
 Each path that launches kernels (main path, prompts, int8, graphs, int8 edges,
 stems, export, canvas, server, streaming, reparam, profile, training, train
-graphs, the ddp ranks, ddp graphs, dp serve, vocab tp, spatial) runs with the launch
+graphs, the ddp ranks, ddp graphs, dp serve, vocab tp, spatial, split ranks) runs with the launch
 counters set to 0 just before it and read just after;
 the kernels line sums them. Two ranks or replicas on one card show
 correctness, not scaling.
@@ -255,6 +276,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import os
@@ -759,6 +781,13 @@ def phase_text(card: str):
     d = (vocabs['bfloat16'] - vocabs['float32']).abs().max().item()
     print(f'[text] bf16 vs fp32 vocabulary: max|diff|={d:.3e}')
     return vocabs['float32']
+
+
+def _smoke_frames(device) -> torch.Tensor:
+    """The run's BATCH seeded 480x640 uint8 frames on `device`."""
+    rng = np.random.RandomState(0)
+    return torch.from_numpy(rng.randint(0, 256, (BATCH, 480, 640, 3),
+                                        dtype=np.uint8)).to(device)
 
 
 def _write_vocab(path: str) -> None:
@@ -3989,11 +4018,13 @@ def _ddp_rank(rank: int, world: int, rendezvous: str, out_dir: str,
     """One rank of the [ddp] phase on cuda:0: each DDP_STEPS step on its
     rows of the global batch through the eager DDP route (world 1: the
     fp32 step only), then with two ranks `evaluate` with NMS (kernel 2) on
-    DDP_EVAL_IMAGES images and `make_sharded_inference` with the folded
-    scoring (kernel 1) on its rows; over gloo, the program route must
-    refuse the card and the trainer take the eager route. kind 'graphs':
-    a rank of [ddp graphs] instead (`_ddp_graph_rank`), NCCL on cuda:{rank}.
-    Writes out_dir/rank{rank}.pt."""
+    DDP_EVAL_IMAGES images and `make_sharded_inference` (its eager route)
+    with the folded scoring (kernel 1) on its rows; over gloo, the program
+    route must refuse the card and the trainer take the eager route. kind
+    'graphs':
+    a rank of [ddp graphs] instead (`_ddp_graph_rank`), NCCL on cuda:{rank};
+    kind 'split': a rank of [split ranks] (`_split_rank`). Writes
+    out_dir/rank{rank}.pt."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4005,9 +4036,17 @@ def _ddp_rank(rank: int, world: int, rendezvous: str, out_dir: str,
     from yoloclip_tpu_torch.train import train_state as ts
     from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
     multihost.initialize(f'file://{rendezvous}', world, rank,
-                         device=f'cuda:{rank}' if kind == 'graphs'
+                         device=f'cuda:{rank}' if backend == 'nccl'
                          else 'cuda:0', backend=backend,
                          timeout_s=DDP_TIMEOUT_S)
+    if kind == 'split':
+        # a rank that hangs prints every thread's stack and exits
+        faulthandler.dump_traceback_later(SPLIT_TIMEOUT_S, exit=True)
+        out = _split_rank(rank, world, out_dir, backend)
+        torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
+        multihost.shutdown()
+        faulthandler.cancel_dump_traceback_later()
+        return
     mesh = create_mesh()
     if kind == 'graphs':
         out = _ddp_graph_rank(rank, world, mesh, nms, out_dir)
@@ -4071,7 +4110,8 @@ def _ddp_rank(rank: int, world: int, rendezvous: str, out_dir: str,
             ).manual_seed(4))
         vocab = (vocab / vocab.norm(dim=-1, keepdim=True)).cuda()
         model = trainer.model.eval()
-        run = make_sharded_inference(model, mesh)
+        # gloo on the card: the forward's eager route
+        run = make_sharded_inference(model, mesh, eager=True)
         images = torch.from_numpy(val[0]['images'])
         launched = {}
         _zero_counts(sim, nms)
@@ -4092,15 +4132,17 @@ def _ddp_rank(rank: int, world: int, rendezvous: str, out_dir: str,
 
 def _run_ranks(world: int, backend: str, out_dir: str,
                kind: str = 'ddp') -> list:
-    """Spawn `world` [ddp] ranks (kind 'graphs': [ddp graphs] ranks), wait
-    for them (failing the run past DDP_TIMEOUT_S or on any rank's error)
+    """Spawn `world` [ddp] ranks (kind 'graphs': [ddp graphs] ranks,
+    'split': [split ranks] ranks), wait for them (failing the run past
+    DDP_TIMEOUT_S, SPLIT_TIMEOUT_S for 'split', or on any rank's error)
     and load their results."""
     import torch.multiprocessing as mp
     rdv = os.path.join(out_dir, f'rendezvous_{backend}_{world}_{kind}')
     ctx = mp.start_processes(_ddp_rank, args=(world, rdv, out_dir, backend,
                                               kind),
                              nprocs=world, join=False, start_method='spawn')
-    deadline = time.perf_counter() + DDP_TIMEOUT_S + 120
+    deadline = time.perf_counter() + (SPLIT_TIMEOUT_S + 30 if kind == 'split'
+                                      else DDP_TIMEOUT_S + 120)
     try:
         while not ctx.join(timeout=5):
             require(time.perf_counter() < deadline,
@@ -5430,6 +5472,491 @@ def phase_multihost(tmp: str, card: str) -> None:
     require(worst <= MULTIHOST_RTOL, '[multihost] a rank\'s loss differs')
 
 
+# ---------------------------------------------------------------------------
+# [split ranks]: the class-sharded forward and the spatial split with one
+# process a cell: two gloo ranks on cuda:0 (the eager route; the program
+# route must raise), and with two cards or more one NCCL rank a card (the
+# programs: CUDA graphs holding NCCL's exchanges, against the eager route
+# and the single-card programs).
+# ---------------------------------------------------------------------------
+
+SPLIT_CALLS = 10         # detect_batch calls a reading (median), bs=32
+SPLIT_TIMEOUT_S = 240    # a [split ranks] rank's whole run
+
+
+def _since(before: dict, after: dict) -> dict:
+    """The launches between two readings of the counters."""
+    return {k: after[k] - before[k] for k in after}
+
+
+def _rank_split_tp(det, mesh, frames, dev, nccl) -> dict:
+    """This rank's class-sharded LVIS detect_batch: the program route (or
+    its refusal over gloo) and the eager route, each a first call (the
+    capture), a counted call, pre-NMS scores and img/s."""
+    from yoloclip_tpu_torch.inference import program
+    from yoloclip_tpu_torch.ops.kernels import nms, similarity as sim
+    from yoloclip_tpu_torch.ops.preprocess import letterbox_batch_for
+    from yoloclip_tpu_torch.parallel.train_step import (
+        make_sharded_inference, sharded_programs)
+    text = det.offline_vocabulary
+    with torch.inference_mode():
+        canv, _ = letterbox_batch_for(det.config.model)(frames,
+                                                        det.image_size)
+    cache = sharded_programs(mesh)
+    out, runs = {'refused': None}, {}
+    try:
+        runs['program'] = make_sharded_inference(det.model, mesh,
+                                                 programs=cache)
+    except RuntimeError as e:
+        out['refused'] = str(e)
+    runs['eager'] = make_sharded_inference(det.model, mesh, eager=True)
+    for name, run in runs.items():
+        det._batch_model = lambda x, t, run=run, **kw: run(x, t, **kw)[0]
+        det.detect_batch(frames)            # the program's capture
+        torch.cuda.synchronize()
+        before = _counts(sim, nms)
+        got = det.detect_batch(frames)
+        torch.cuda.synchronize()
+        launches = _since(before, _counts(sim, nms))
+        with torch.inference_mode():
+            fwd = run(canv, text, fused_scores=True)[0]
+        out[name] = {'dets': {k: v.cpu() for k, v in got.items()},
+                     'scores': fwd['scores'].cpu(),
+                     'ids': fwd['class_ids'].cpu(), 'launches': launches,
+                     'img_s': _img_per_s(det, frames, SPLIT_CALLS)}
+    det._batch_model = None
+    progs = cache.programs()
+    out['capture_s'] = [p.capture_s for p in progs]
+    out['pool'] = program.pool_bytes(dev) / 2 ** 30 if nccl else 0.0
+    return out
+
+
+def _rank_split_detect(det, mesh, frame, nccl, trace_dir) -> dict:
+    """This rank's 640-px detect() split over the model axis: the program
+    route (or its refusal over gloo) and the eager route, each a counted
+    call after the first, pre-NMS scores (eager), the median ms, and one
+    traced call of each route (device busy and span ms, idle share, NCCL's
+    kernels' ms)."""
+    from yoloclip_tpu_torch.ops.kernels import nms, similarity as sim
+    from yoloclip_tpu_torch.parallel.spatial import spatialize_detector
+    from yoloclip_tpu_torch.utils.profiling import (annotate, device_summary,
+                                                    trace)
+    out = {'refused': None}
+    try:
+        spatialize_detector(det, mesh)
+        routes = (('program', True), ('eager', False))
+    except RuntimeError as e:
+        out['refused'] = str(e)
+        spatialize_detector(det, mesh, eager=True)
+        routes = (('eager', False),)
+    for name, programs in routes:
+        det._split_programs = programs
+        det.detect(frame)                   # the program's capture
+        torch.cuda.synchronize()
+        before = _counts(sim, nms)
+        got = det.detect(frame)
+        torch.cuda.synchronize()
+        launches = _since(before, _counts(sim, nms))
+        ms, _ = _timed_detect(det, frame)
+        out[name] = {'dets': got, 'launches': launches, 'ms': ms}
+    # one card a rank only: two processes would trace one card together
+    with trace(trace_dir) if nccl else contextlib.nullcontext() as prof:
+        for name, programs in routes if nccl else ():
+            det._split_programs = programs
+            with annotate(name):
+                det.detect(frame)
+                torch.cuda.synchronize()
+    for name, _ in routes if nccl else ():
+        summ = device_summary(prof, span=name)
+        out[name]['trace'] = (summ['busy_ms'], summ['span_ms'],
+                              summ['idle_share'], sum(
+                                  ms for k, (ms, _) in summ['kernels'].items()
+                                  if 'nccl' in k.lower()))
+    out['scores'] = _canvas_scores(det, frame, True).cpu()
+    out['capture_s'] = [p.capture_s for p in det.programs.programs()
+                        if p.name == 'canvas']
+    return out
+
+
+def _rank_split_batch(det, mesh, frames) -> dict:
+    """This rank's detect_batch at bs=32 over a 2x2 grid, batch over data
+    x height over model: program and eager route (every rank returns the
+    whole batch's detections), pre-NMS scores (eager), img/s."""
+    from yoloclip_tpu_torch.ops.kernels import nms, similarity as sim
+    from yoloclip_tpu_torch.ops.preprocess import letterbox_batch_for
+    from yoloclip_tpu_torch.parallel.spatial import spatialize_detector
+    spatialize_detector(det, mesh, batch_axis='data', height_axis='model')
+    out = {}
+    for name, programs in (('program', True), ('eager', False)):
+        det._split_programs = programs
+        det.detect_batch(frames)
+        torch.cuda.synchronize()
+        before = _counts(sim, nms)
+        got = det.detect_batch(frames)
+        torch.cuda.synchronize()
+        out[name] = {'dets': {k: v.cpu() for k, v in got.items()},
+                     'launches': _since(before, _counts(sim, nms)),
+                     'img_s': _img_per_s(det, frames, SPLIT_CALLS)}
+    with torch.inference_mode():
+        canv, _ = letterbox_batch_for(det.config.model)(frames,
+                                                        det.image_size)
+        out['scores'] = det._batch_model(canv, det.offline_vocabulary,
+                                         fused_scores=True)['scores'].cpu()
+    return out
+
+
+def _split_rank(rank: int, world: int, out_dir: str, backend: str) -> dict:
+    """One rank of [split ranks] (`phase_split_ranks`) over a 1 x world
+    grid (gloo on cuda:0, or NCCL on cuda:{rank}): the class-sharded
+    LVIS-1203 detect_batch, the 640-px detect() split `world` ways, and on
+    four ranks the 2x2 detect_batch (batch over data x height over
+    model). Returns its readings and the launches of the whole rank."""
+    from yoloclip_tpu_torch.ops.kernels import nms, similarity as sim
+    from yoloclip_tpu_torch.parallel.mesh import create_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nccl = backend == 'nccl'
+    dev = torch.device('cuda', rank if nccl else 0)
+    mesh = create_mesh(n_data=1, n_model=world)
+    frames = _smoke_frames(dev)
+    _zero_counts(sim, nms)
+    out = {'mesh': repr(mesh)}
+    t0 = time.perf_counter()
+
+    def done(part, det):
+        # the detector's programs hold their bodies, which hold the
+        # detector: free the graphs (and their NCCL work) before going on
+        det.programs.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        print(f'[split ranks] {backend} rank {rank}/{world}: {part} done '
+              f'at {time.perf_counter() - t0:.1f} s', flush=True)
+
+    det = _detector(os.path.join(out_dir, 'lvis.json'), device=dev,
+                    conf_threshold=-1.0)
+    out['tp'] = _rank_split_tp(det, mesh, frames, dev, nccl)
+    done('class-sharded detect_batch', det)
+    det = _detector(os.path.join(out_dir, 'coco.json'), device=dev,
+                    host_preprocess='auto', conf_threshold=-1.0)
+    out['detect'] = _rank_split_detect(
+        det, mesh, frames[0].cpu().numpy(), nccl,
+        os.path.join(out_dir, f'trace_{backend}{world}_{rank}'))
+    done('split detect()', det)
+    if nccl and world == 4:
+        det = _detector(os.path.join(out_dir, 'coco.json'), device=dev,
+                        conf_threshold=-1.0)
+        out['batch'] = _rank_split_batch(det, create_mesh(2, 2), frames)
+        done('2x2 detect_batch', det)
+    del det
+    gc.collect()
+    out['launches'] = _counts(sim, nms)
+    return out
+
+
+def _split_refs(sim, nms, vocab_path, lvis_path, frames, card) -> dict:
+    """The single-card references of [split ranks] on cuda:0: the LVIS
+    unsharded forward (scores, near-tie mask), its detect_batch program
+    and img/s; the COCO canvas detect() program (detections, pre-NMS
+    scores, ms program and eager); the COCO detect_batch program at bs=32
+    (pre-NMS scores, img/s)."""
+    from yoloclip_tpu_torch.ops.preprocess import letterbox_batch_for
+    ref = {}
+    det = _detector(lvis_path, conf_threshold=-1.0)
+    text = det.offline_vocabulary
+    with torch.inference_mode():
+        canv, _ = letterbox_batch_for(det.config.model)(frames,
+                                                        det.image_size)
+        one = det.model(canv, text, fused_scores=True)
+        top2 = det.model(canv, text)['similarity'].topk(2, dim=-1).values
+    ref['tp'] = {'scores': one['scores'], 'ids': one['class_ids'],
+                 'tie': (top2[..., 0] - top2[..., 1]) < XDEV_TIE_GAP,
+                 'dets': det.detect_batch(frames), 'names': det.class_names,
+                 'topk': det.config.nms_topk,
+                 'img_s': _img_per_s(det, frames, SPLIT_CALLS)}
+    del det, one, top2
+    det = _detector(vocab_path, host_preprocess='auto', conf_threshold=-1.0)
+    frame = frames[0].cpu().numpy()
+    ms, base = _timed_detect(det, frame)
+    det._canvas_model = det.model      # the canvas body, eagerly
+    ms_eager, _ = _timed_detect(det, frame)
+    det._canvas_model = None
+    ref['detect'] = {'dets': base, 'scores': _canvas_scores(
+        det, frame, False)[0].cpu(), 'ms': ms, 'ms_eager': ms_eager}
+    with torch.inference_mode():
+        ref['batch'] = {'scores': det.model(canv, det.offline_vocabulary,
+                                            fused_scores=True)['scores'],
+                        'dets': det.detect_batch(frames),
+                        'img_s': _img_per_s(det, frames, SPLIT_CALLS),
+                        'names': det.class_names}
+    del det
+    print(f'[split ranks] single-card programs on cuda:0: LVIS-1203 '
+          f'detect_batch bs={BATCH} {ref["tp"]["img_s"]:.1f} img/s; '
+          f'640-px detect() {ms:.2f} ms (its canvas body eagerly '
+          f'{ms_eager:.2f} ms); COCO-80 detect_batch bs={BATCH} '
+          f'{ref["batch"]["img_s"]:.1f} img/s  [{card}]')
+    return ref
+
+
+def _check_split_ranks(ranks, ref, backend, card) -> None:
+    """Every rank's readings against the single-card references (and, over
+    NCCL, the program route against the eager route); prints them."""
+    world = len(ranks)
+    nccl = backend == 'nccl'
+    tag = f'{world} {backend} ranks' + ('' if nccl else ' on cuda:0')
+    routes = ('program', 'eager') if nccl else ('eager',)
+    tp, sd = ref['tp'], ref['detect']
+    for i, r in enumerate(ranks):
+        for part in ('tp', 'detect'):
+            refused = r[part]['refused']
+            if nccl:
+                require(refused is None, f'[split ranks] {tag}: rank {i} '
+                        f'refused the {part} program: {refused}')
+            else:
+                require(refused is not None and 'cannot capture' in refused,
+                        f'[split ranks] {tag}: the {part} program route '
+                        f'over gloo on the card did not raise')
+        for name in routes:
+            t, d = r['tp'][name], r['detect'][name]
+            require(t['launches']['similarity'] == len(LEVELS)
+                    and t['launches']['nms'] == 1,
+                    f'[vocab tp] {tag} {name}: launches {t["launches"]}')
+            require(d['launches']['similarity'] == len(LEVELS)
+                    and d['launches']['nms'] == 1,
+                    f'[spatial] {tag} {name}: launches {d["launches"]}')
+        if nccl:
+            err = _graph_diff(f'[vocab tp] {tag} rank {i} program vs eager',
+                              r['tp']['program']['dets'],
+                              r['tp']['eager']['dets'])
+            _same_lists(f'[spatial] {tag} rank {i} program vs eager',
+                        r['detect']['program']['dets'],
+                        r['detect']['eager']['dets'])
+            r['bit'] = err == 0.0 and r['detect']['program']['dets'] == \
+                r['detect']['eager']['dets']
+    r = ranks[0]
+    for i, q in enumerate(ranks):   # every rank returns the same scores
+        require(torch.equal(q['tp']['eager']['scores'],
+                            r['tp']['eager']['scores']),
+                f'[vocab tp] {tag}: rank {i} scores differ from rank 0')
+    scores = r['tp']['eager']['scores'].cuda()
+    ids = r['tp']['eager']['ids'].cuda()
+    err = (scores - tp['scores']).abs().max().item()
+    bad = ((ids != tp['ids']) & ~tp['tie']).sum().item()
+    _, n, total = _check_split(
+        f'[vocab tp] {tag}', r['tp']['eager']['dets'],
+        {k: v.cpu() for k, v in tp['dets'].items()}, scores, tp['scores'],
+        tp['names'], tp['topk'], VOCAB_TP_SCORE_ATOL)
+    require(err <= VOCAB_TP_SCORE_ATOL and bad == 0,
+            f'[vocab tp] {tag}: scores vs unsharded {err:.3e}, id '
+            f'mismatches outside near-ties {bad}')
+    t = {name: [q['tp'][name] for q in ranks] for name in routes}
+    print(f'[vocab tp] {tag} ({r["mesh"]}), LVIS-1203 detect_batch bs='
+          f'{BATCH}, classes split {world} ways, fp32: pre-NMS scores vs '
+          f'the unsharded forward max|diff| {err:.3e} (tol '
+          f'{VOCAB_TP_SCORE_ATOL:g}), id mismatches outside near-ties '
+          f'{bad}; detections compared {n} of {total}; '
+          + '; '.join(f'{name} img/s ' + ', '.join(
+              f'{x["img_s"]:.1f}' for x in t[name]) + ' (rank order), '
+              f'launches a call {t[name][0]["launches"]}' for name in routes)
+          + (f'; program = eager bit for bit on every rank: '
+             f'{all(q["bit"] for q in ranks)}; capture s '
+             + ', '.join(f'{q["tp"]["capture_s"]}' for q in ranks)
+             + '; graph pool GiB ' + ', '.join(
+                 f'{q["tp"]["pool"]:.2f}' for q in ranks) if nccl else '')
+          + f'; single-card program {tp["img_s"]:.1f} img/s  [{card}]')
+    d = r['detect']['eager']
+    delta = (r['detect']['scores'] - sd['scores']).abs().max().item()
+    n, total = _check_detections(f'[spatial] {tag} detect()', d['dets'],
+                                 sd['dets'], sd['scores'], delta,
+                                 tp['topk'], SPATIAL_SCORE_ATOL)
+    require(delta <= SPATIAL_SCORE_ATOL,
+            f'[spatial] {tag}: pre-NMS scores vs unsplit {delta:.3e}')
+    for i, q in enumerate(ranks):
+        _same_lists(f'[spatial] {tag} rank {i} vs rank 0',
+                    q['detect']['eager']['dets'], d['dets'])
+    print(f'[spatial] {tag} ({r["mesh"]}), 640-px detect() split {world} '
+          f'ways in height: pre-NMS scores vs unsplit max|diff| '
+          f'{delta:.3e}; detections compared {n} of {total} (scores '
+          f'{SPATIAL_SCORE_ATOL:g}, boxes {SPATIAL_BOX_PX:g} px); median ms '
+          f'of {SPATIAL_TIMED} (rank order) ' + '; '.join(
+              f'{name} ' + ', '.join(f'{q["detect"][name]["ms"]:.2f}'
+                                     for q in ranks) for name in routes)
+          + (f'; capture s ' + ', '.join(
+              f'{q["detect"]["capture_s"]}' for q in ranks) if nccl else '')
+          + ('; one traced call, device busy / span ms, idle share, NCCL '
+             'kernels ms (rank order) ' + '; '.join(
+                 f'{name} ' + ', '.join(
+                     '{:.2f} / {:.2f}, {}, {:.2f}'.format(
+                         t[0], t[1], _share(t[2]), t[3])
+                     for t in (q['detect'][name]['trace'] for q in ranks))
+                 for name in routes) if nccl else '')
+          + f'; unsplit program {sd["ms"]:.2f} ms, its body eagerly '
+          f'{sd["ms_eager"]:.2f} ms; the in-process split on one H100 '
+          f'(every shard on cuda:0, PERF.md): 22.1 / 102.7 / 243.2 ms at '
+          f'1 / 2 / 4 ways  [{card}]')
+    if 'batch' not in r:
+        return
+    b, rb = ref['batch'], r['batch']
+    for i, q in enumerate(ranks):
+        q['bit2'] = 0.0 == _graph_diff(
+            f'[spatial] {tag} 2x2 rank {i} program vs eager',
+            q['batch']['program']['dets'], q['batch']['eager']['dets'])
+        _graph_diff(f'[spatial] {tag} 2x2 rank {i} vs rank 0',
+                    q['batch']['eager']['dets'], rb['eager']['dets'])
+    delta, n, total = _check_split(
+        f'[spatial] {tag} 2x2', rb['eager']['dets'],
+        {k: v.cpu() for k, v in b['dets'].items()}, rb['scores'].cuda(),
+        b['scores'], b['names'], tp['topk'], SPATIAL_SCORE_ATOL)
+    require(delta <= SPATIAL_SCORE_ATOL,
+            f'[spatial] {tag} 2x2: pre-NMS scores vs unsplit {delta:.3e}')
+    print(f'[spatial] {tag} as a 2x2 grid, COCO-80 detect_batch bs={BATCH}, '
+          f'batch over data x height over model: pre-NMS scores vs unsplit '
+          f'max|diff| {delta:.3e}; detections compared {n} of {total}; '
+          f'img/s (rank order) ' + '; '.join(
+              f'{name} ' + ', '.join(f'{q["batch"][name]["img_s"]:.1f}'
+                                     for q in ranks)
+              for name in ('program', 'eager'))
+          + f'; program = eager bit for bit on every rank: '
+          f'{all(q["bit2"] for q in ranks)}; launches a call '
+          f'{rb["program"]["launches"]}; single-card '
+          f'program {b["img_s"]:.1f} img/s  [{card}]')
+
+
+def phase_split_ranks(sim, nms, vocab_path, lvis_path, frames, tmp,
+                      card) -> dict:
+    """[split ranks]: the class-sharded forward (`make_sharded_inference`)
+    and the spatial split (`spatialize_detector`) with one process a cell.
+    Two gloo ranks on cuda:0: their eager route against the single-card
+    programs ([vocab tp]'s and [spatial]'s bounds), the program route
+    refused. With two cards or more, one NCCL rank a card on 1x2 and 1 x
+    all grids (and 2x2 on four): the programs against the eager route and
+    the single-card programs, img/s and detect() ms beside them, capture s
+    and pool GiB. Returns the phase's launches, counted from 0."""
+    out_dir = os.path.join(tmp, 'split')
+    os.makedirs(out_dir, exist_ok=True)
+    shutil.copy(lvis_path, os.path.join(out_dir, 'lvis.json'))
+    shutil.copy(vocab_path, os.path.join(out_dir, 'coco.json'))
+    _zero_counts(sim, nms)
+    ref = _split_refs(sim, nms, vocab_path, lvis_path, frames, card)
+    launches = _counts(sim, nms)
+    runs = [(2, 'gloo')]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        runs += [(w, 'nccl') for w in sorted({2, cards})]
+    for world, backend in runs:
+        t0 = time.perf_counter()
+        ranks = _run_ranks(world, backend, out_dir, kind='split')
+        secs = time.perf_counter() - t0
+        _check_split_ranks(ranks, ref, backend, card)
+        print(f'[split ranks] {world} {backend} ranks ran in {secs:.1f} s '
+              f'with their start-up  [{card}]')
+        for q in ranks:
+            for k, v in q['launches'].items():
+                launches[k] = launches.get(k, 0) + v
+    if cards < 2:
+        print(f'[split ranks] one card: the NCCL programs across cards need '
+              f'two cards or more  [{card}]')
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# [ckpt async]: a mid-training checkpoint saved without waiting
+# ---------------------------------------------------------------------------
+
+def _ckpt_diff(got, want, where: str = '') -> list:
+    """The entries of two loaded checkpoints that are not bit-equal."""
+    if isinstance(want, torch.Tensor):
+        return [] if (isinstance(got, torch.Tensor)
+                      and got.dtype == want.dtype
+                      and torch.equal(got, want)) else [where]
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            return [where]
+        return [d for k in want for d in _ckpt_diff(got[k], want[k],
+                                                    f'{where}/{k}')]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [where]
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in _ckpt_diff(g, w, f'{where}/{i}')]
+    return [] if got == want else [where]
+
+
+CKPT_ROUNDS = 2
+
+
+def phase_ckpt_async(tmp: str, card: str) -> None:
+    """[ckpt async]: the clean bf16 trainer with an EMA on its train
+    program (bs=DDP_BS, 640 px). Each round: save(wait=True) of the state,
+    then save(wait=False) of the same state and at once one more step,
+    which updates the parameters, the AdamW moments and the EMA in place
+    on the same stream; once written, the async file equals the wait=True
+    file tensor for tensor, and the live state has moved. Prints the step
+    loop's stall of each save (the call's ms; with wait=False also the
+    call and the next step together, beside a plain step) and the
+    checkpoint's MiB."""
+    from yoloclip_tpu_torch.train import train_state as ts
+    from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
+    from yoloclip_tpu_torch.utils import checkpoint as ckpt
+    t0 = time.perf_counter()
+    out_dir = os.path.join(tmp, 'ckpt_async')
+    cfg = _train_cfg(assigner='topk_center', dtype='bfloat16',
+                     batch_size=DDP_BS, ema_decay=0.9999,
+                     output_dir=out_dir)
+    tr = YOLOCLIPTrainer(_seeded_model(cfg), None, cfg, device='cuda')
+    ts.set_learning_rate(tr.state, cfg.learning_rate)
+    arrays, text, _ = _ddp_batch()
+    a, t = tr._put_batch(arrays), text.to(tr.device)
+
+    def step():
+        tr._train_step(tr.state, a, t)
+
+    step()                                   # the capture
+    plain = _steps_ms(step, 3)
+    rounds = []
+    for i in range(CKPT_ROUNDS):
+        sync = os.path.join(out_dir, f'wait{i}', 'model.pt')
+        later = os.path.join(out_dir, f'async{i}', 'model.pt')
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.save(sync, wait=True)
+        wait_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        tr.save(later, wait=False)
+        call_ms = (time.perf_counter() - t1) * 1e3
+        step()
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        ckpt.finish_async_saves()
+        finish_ms = (time.perf_counter() - t1) * 1e3
+        want = torch.load(sync, map_location='cpu', weights_only=True)
+        got = torch.load(later, map_location='cpu', weights_only=True)
+        bad = _ckpt_diff(got, want)
+        require(not bad, f'[ckpt async] round {i}: the wait=False file '
+                f'differs from the wait=True file in {len(bad)} entries, '
+                f'e.g. {bad[:3]}')
+        live = tr.model.state_dict()
+        moved = sum(not torch.equal(v.cpu(), want['model'][k])
+                    for k, v in live.items() if v.is_floating_point())
+        moved += sum(not torch.equal(v.cpu(), want['ema'][k])
+                     for k, v in tr.state.ema.items())
+        require(moved > 0, '[ckpt async] the step after the save moved '
+                'nothing')
+        with open(sync, 'rb') as f, open(later, 'rb') as g:
+            same = f.read() == g.read()
+        rounds.append(f'round {i}: wait=True {wait_ms:.1f} ms; wait=False '
+                      f'{call_ms:.1f} ms, with the next step {loop_ms:.1f} '
+                      f'ms, written {finish_ms:.1f} ms after that step; '
+                      f'{moved} tensors moved by the step; files '
+                      f'byte-identical {same}')
+    mib = os.path.getsize(sync) / 2 ** 20
+    print(f'[ckpt async] clean bf16 with EMA, bs={DDP_BS}, 640 px, the '
+          f'train program (a plain step {plain:.2f} ms): a {mib:.1f} MiB '
+          f'checkpoint; the wait=False file equals the wait=True file of '
+          f'the pre-step state tensor for tensor; ' + '; '.join(rounds)
+          + f'; phase {time.perf_counter() - t0:.1f} s  [{card}]')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this run '
@@ -5453,9 +5980,7 @@ def main() -> int:
     i8_err = phase_int8_kernel(i8, shapes)
     lvis_vocab = phase_text(card)
 
-    rng = np.random.RandomState(0)
-    frames = torch.from_numpy(
-        rng.randint(0, 256, (BATCH, 480, 640, 3), dtype=np.uint8)).cuda()
+    frames = _smoke_frames('cuda')
     with tempfile.TemporaryDirectory() as tmp:
         vocab_path = os.path.join(tmp, 'coco80_vocab.json')
         _write_vocab(vocab_path)
@@ -5488,6 +6013,9 @@ def main() -> int:
         del det, bf
         paths.append(phases_training(sim, nms, tmp, card))
         paths.append(phase_train_graphs(sim, nms, tmp, card))
+        phase_ckpt_async(tmp, card)
+        gc.collect()
+        torch.cuda.empty_cache()
         paths.append(phase_ddp(sim, nms, tmp, card))
         paths.append(phase_ddp_graphs(sim, nms, tmp, card))
         paths += phase_dp_serve(sim, nms, i8, vocab_path, tmp, card)
@@ -5502,13 +6030,19 @@ def main() -> int:
         paths += [vtp, phase_spatial(sim, nms, i8, vocab_path, frames, card)]
         torch.cuda.empty_cache()
         t2 = time.perf_counter()
-        phase_tp_train(tmp, card)
+        paths.append(phase_split_ranks(
+            sim, nms, vocab_path, os.path.join(tmp, 'lvis_vocab.json'),
+            frames, tmp, card))
+        torch.cuda.empty_cache()
         t3 = time.perf_counter()
-        phase_multihost(tmp, card)
+        phase_tp_train(tmp, card)
         t4 = time.perf_counter()
+        phase_multihost(tmp, card)
+        t5 = time.perf_counter()
         print(f'[model axis] phase seconds: [vocab tp] {t1 - t0:.1f}, '
-              f'[spatial] {t2 - t1:.1f}, [tp train] {t3 - t2:.1f}, '
-              f'[multihost 4x2] {t4 - t3:.1f}  [{card}]')
+              f'[spatial] {t2 - t1:.1f}, [split ranks] {t3 - t2:.1f}, '
+              f'[tp train] {t4 - t3:.1f}, [multihost 4x2] {t5 - t4:.1f}  '
+              f'[{card}]')
     # every path's launches, each counted from 0 just before it ran
     launched = {k: sum(p.get(k, 0) for p in paths)
                 for k in ('similarity', 'similarity_bf16', 'nms',

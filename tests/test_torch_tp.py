@@ -23,7 +23,22 @@
         same 1e-9;
       - one 64-px forward split 2-way in height over the model group
         (`parallel/spatial.py` through torch.distributed) against the
-        unsplit forward, float64: within 1e-9.
+        unsplit forward, float64: within 1e-9;
+      - `make_sharded_inference` as the 'sharded_inference' program
+        (rows over data, classes over model) against JAX's
+        `make_sharded_inference` on its 2x2 mesh (ids exact, scores 1e-5)
+        and the port's unsharded forward (1e-6); its later call, its
+        eager route and a class_mask input; a rank with another global
+        batch raises `ProgramKeyMismatch` on every rank;
+      - `spatialize_detector` over the four processes (128 px, 4 blocks
+        of 32 rows): `detect()` split 4 ways and `detect_batch()` with
+        batch over data x height over model, as the detector's programs,
+        against JAX's spatialized detector and the port's in-process
+        split (test_torch_spatial.py's bounds), every rank returning the
+        same detections, the eager route equal;
+      - both program routes on a CUDA device over gloo raise before
+        touching it, and `DetectionServer(spatial=True)` refuses a mesh
+        across processes.
   * In one process (threads over `collectives.LocalGroup`):
       - 16 persistent shard workers exchanging under contention (exact
         sums), and a failing shard that fails the call without a hang;
@@ -42,6 +57,7 @@ Every spawned rank uses one thread, a `file://` rendezvous in tmp_path, a
 60 s collective timeout, and a join timeout here.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -52,22 +68,33 @@ import numpy as np
 import pytest
 import torch
 
+from yoloclip_tpu.config import InferenceConfig as JInferenceConfig
 from yoloclip_tpu.config import ModelConfig as JModelConfig
+from yoloclip_tpu.inference.detector import YOLOCLIPDetector as JDetector
 from yoloclip_tpu.config import TrainingConfig as JTrainingConfig
 from yoloclip_tpu.models.yolo_clip import YOLOCLIP as JYOLOCLIP
 from yoloclip_tpu.parallel.mesh import create_mesh as jax_create_mesh
-from yoloclip_tpu.parallel.train_step import (make_sharded_train_step as
+from yoloclip_tpu.parallel.spatial import (spatialize_detector as
+                                           jax_spatialize)
+from yoloclip_tpu.parallel.train_step import (make_sharded_inference as
+                                              jax_sharded_inference,
+                                              make_sharded_train_step as
                                               jax_sharded_step,
                                               place_text as jax_place_text,
                                               replicate_state)
+from yoloclip_tpu.text.encoder import save_text_tower_params
+from yoloclip_tpu.text.model import CLIPTextTransformer as JaxTower
 from yoloclip_tpu.train import train_state as jts
 from yoloclip_tpu.utils.convert import convert_reference_state_dict
-from yoloclip_tpu_torch.config import ModelConfig, TrainingConfig
+from yoloclip_tpu_torch.config import (InferenceConfig, ModelConfig,
+                                       TrainingConfig)
+from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
 from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP, init_weights
 from yoloclip_tpu_torch.ops import quantize
 from yoloclip_tpu_torch.ops.kernels import similarity as sim
 from yoloclip_tpu_torch.parallel import collectives as col
 from yoloclip_tpu_torch.parallel.mesh import create_mesh
+from yoloclip_tpu_torch.parallel.spatial import spatialize_detector
 from yoloclip_tpu_torch.parallel.train_step import make_sharded_inference
 from yoloclip_tpu_torch.train import train_state as ts
 from yoloclip_tpu_torch.train.trainer import YOLOCLIPTrainer
@@ -93,6 +120,12 @@ CASES = {   # float64
     'clean_eager': dict(assigner='topk_center'),   # 'clean', eager route
 }
 PROMPTS = [f'p{i}' for i in range(3)]   # bucket 8: rank 1's block 4..7
+SPLIT = 128                 # the split detector's canvas: 4 blocks of 32
+NAMES = ['cat', 'dog', 'person']
+# tests/test_torch_spatial.py's bounds (the JAX tests'): ids and counts
+# exact, scores 1e-4, boxes 1 px for detect() (int boxes), 0.5 px for
+# detect_batch()
+SPLIT_SCORE_ATOL, DETECT_BOX_PX, BATCH_BOX_PX = 1e-4, 1, 0.5
 
 
 def _batch(case):
@@ -203,6 +236,77 @@ with torch.no_grad(), spatial.partition(shard):
     got = model(shard.split(images, 1), text)
 if rank == 0:
     out['spatial'] = {k: got[k] for k in ('scores', 'class_ids', 'boxes')}
+
+# the class-sharded forward as a program: rows over data, classes over model
+from yoloclip_tpu_torch.config import InferenceConfig
+from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
+from yoloclip_tpu_torch.inference.program import ProgramKeyMismatch
+from yoloclip_tpu_torch.inference.server import DetectionServer
+from yoloclip_tpu_torch.parallel.mesh import Mesh
+from yoloclip_tpu_torch.parallel.spatial import spatialize_detector
+from yoloclip_tpu_torch.parallel.train_step import (make_sharded_inference,
+                                                    sharded_programs)
+pick = lambda o: {k: o[k] for k in ('scores', 'class_ids', 'boxes')}
+model = YOLOCLIP(cfg)
+model.load_state_dict(inp['weights'])
+model = model.eval()
+images, text, mask = inp['infer']
+cache = sharded_programs(mesh)
+run = make_sharded_inference(model, mesh, programs=cache)
+res = {'first': pick(run(images, text)[0]),
+       'again': pick(run(images, text)[0]),
+       'masked': pick(run(images, text, class_mask=mask)[0]),
+       'eager': pick(make_sharded_inference(model, mesh, eager=True)(
+           images, text)[0])}
+try:   # rank 3 passes another global batch: no rank runs a program
+    run(images[:2] if rank == 3 else images, text)
+    res['mismatch'] = None
+except ProgramKeyMismatch as e:
+    res['mismatch'] = str(e)
+res['count'] = cache.count('sharded_inference')
+out['infer'] = res
+
+# the program routes on a CUDA device over gloo (ranks sharing a card)
+on_card = Mesh([['cuda:0'] * 2] * 2, data_group=mesh.data_group,
+               model_group=mesh.model_group, host_group=mesh.host_group,
+               host_data_group=mesh.host_data_group,
+               host_model_group=mesh.host_model_group)
+sp = inp['spatial_det']
+det = YOLOCLIPDetector(InferenceConfig(model=ModelConfig(
+    image_size=(sp['size'], sp['size'])), conf_threshold=-10.0, nms_topk=64,
+    max_detections=16), vocab_path=sp['vocab'], text_checkpoint=sp['tower'],
+    state_dict=sp['state'], device='cpu')
+refused = {}
+for name, fn in (('infer', lambda: make_sharded_inference(model, on_card)),
+                 ('spatial', lambda: spatialize_detector(det, on_card))):
+    try:
+        fn()
+        refused[name] = None
+    except RuntimeError as e:
+        refused[name] = str(e)
+out['refused'] = refused
+
+# the split detector across the four processes: detect() 4 ways, then
+# detect_batch with batch over data x height over model
+spatialize_detector(det, mesh)
+res = {'detect': [det.detect(sp['frame']) for _ in range(2)]}
+spatialize_detector(det, mesh, batch_axis='data', height_axis='model')
+res['batch'] = [{k: v.clone() for k, v in det.detect_batch(
+    sp['frames']).items()} for _ in range(2)]
+res['programs'] = {n: det.programs.count(n)
+                   for n in ('canvas', 'detect_batch')}
+spatialize_detector(det, mesh, eager=True)
+res['detect_eager'] = det.detect(sp['frame'])
+spatialize_detector(det, mesh, batch_axis='data', height_axis='model',
+                    eager=True)
+res['batch_eager'] = det.detect_batch(sp['frames'])
+res['eager_programs'] = det.programs.count()
+try:
+    DetectionServer(det, max_batch=4, mesh=mesh, spatial=True)
+    res['server'] = None
+except ValueError as e:
+    res['server'] = str(e)
+out['split'] = res
 torch.save(out, f'{tmp}/rank{rank}.pt')
 multihost.shutdown()
 '''
@@ -225,8 +329,53 @@ def _spatial_inputs():
             torch.from_numpy(rs.randn(C, 512)).double())
 
 
+def _infer_inputs():
+    """4 images of 64 px, 8 classes and a class mask."""
+    rs = np.random.RandomState(31)
+    return (torch.from_numpy(rs.rand(B, SIZE, SIZE, 3).astype(np.float32)),
+            torch.from_numpy(rs.randn(C, 512).astype(np.float32)),
+            torch.tensor([True, False, True, True, False, True, True,
+                          False]))
+
+
+def _frame():
+    return (np.random.RandomState(7).rand(100, 150, 3) * 255).astype(
+        np.uint8)
+
+
+def _frames():
+    return (np.random.RandomState(11).rand(4, SPLIT, SPLIT, 3)
+            * 255).astype(np.uint8)
+
+
 @pytest.fixture(scope='module')
-def ranks(weights, tmp_path_factory):
+def split_files(tmp_path_factory):
+    """The split detector's weights at SPLIT px (4 blocks of 32 rows): a
+    seeded port init and its flax variables; its JSON vocabulary and
+    miniature text tower."""
+    tmp = tmp_path_factory.mktemp('split')
+    model = YOLOCLIP(ModelConfig(image_size=(SPLIT, SPLIT)))
+    init_weights(model, torch.Generator().manual_seed(2))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    variables = jax.tree_util.tree_map(
+        jnp.asarray, convert_reference_state_dict(
+            state, JModelConfig(image_size=(SPLIT, SPLIT)),
+            with_aux_box=False))
+    rng = np.random.RandomState(0)
+    vocab = rng.randn(len(NAMES), 512)
+    vocab /= np.linalg.norm(vocab, axis=-1, keepdims=True)
+    path = str(tmp / 'vocab.json')
+    with open(path, 'w') as f:
+        json.dump({n: v.tolist() for n, v in zip(NAMES, vocab)}, f)
+    params = JaxTower(width=64, layers=1, heads=1, output_dim=512).init(
+        jax.random.PRNGKey(2), jnp.zeros((1, 77), jnp.int32))['params']
+    npz = str(tmp / 'tower.npz')
+    save_text_tower_params(jax.tree_util.tree_map(np.asarray, params), npz)
+    return variables, {'vocab': path, 'tower': npz, 'size': SPLIT}, state
+
+
+@pytest.fixture(scope='module')
+def ranks(weights, split_files, tmp_path_factory):
     """Start the four ranks, then hand out a function that waits for them
     and returns their results by rank."""
     tmp = tmp_path_factory.mktemp('tp')
@@ -238,7 +387,10 @@ def ranks(weights, tmp_path_factory):
                        torch.float32 if case in JAX_CASES else torch.float64,
                        batch, text)
     torch.save({'weights': weights[0], 'cases': cases, 'lr': LR,
-                'spatial': _spatial_inputs()}, tmp / 'inputs.pt')
+                'spatial': _spatial_inputs(), 'infer': _infer_inputs(),
+                'spatial_det': dict(split_files[1], state=split_files[2],
+                                    frame=_frame(), frames=_frames())},
+               tmp / 'inputs.pt')
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
     rdv = f'file://{tmp}/rendezvous'
     procs = [subprocess.Popen(
@@ -399,6 +551,185 @@ def test_spatial_split_over_process_group(weights, ranks):
     for k in ('scores', 'boxes'):
         assert float((got[k] - want[k]).abs().max()) <= RTOL * float(
             want[k].abs().max())
+
+
+def _rows(got, key):
+    """The whole batch's outputs of the 2x2 class-sharded forward: data
+    row 0 from rank 0, row 1 from rank 2 (each row's model ranks hold the
+    same outputs)."""
+    for r, twin in ((0, 1), (2, 3)):
+        for k in got[r]['infer'][key]:
+            assert torch.equal(got[r]['infer'][key][k],
+                               got[twin]['infer'][key][k]), (r, key, k)
+    return {k: torch.cat([got[r]['infer'][key][k] for r in (0, 2)])
+            for k in got[0]['infer'][key]}
+
+
+def _unsharded(weights, **kw):
+    images, text, _ = _infer_inputs()
+    model = YOLOCLIP(ModelConfig(image_size=(SIZE, SIZE)))
+    model.load_state_dict(weights[0])
+    with torch.inference_mode():
+        return model.eval()(images, text, **kw)
+
+
+def test_sharded_inference_program_matches_jax(weights, ranks):
+    """`make_sharded_inference` over the 2x2 grid of processes as the
+    'sharded_inference' program (on the CPU its body over gloo) against
+    JAX's `make_sharded_inference` on its 2x2 mesh and the port's
+    unsharded forward: ids exact, scores 1e-5 / 1e-6
+    (`test_vocab_parallel_inference_matches_jax`'s bounds)."""
+    images, text, _ = _infer_inputs()
+    jmesh = jax_create_mesh(n_data=2, n_model=2)
+    jout = jax_sharded_inference(JYOLOCLIP(JModelConfig(
+        image_size=(SIZE, SIZE))).apply, jmesh)(
+            weights[1], jnp.asarray(images.numpy()),
+            jnp.asarray(text.numpy()))
+    one = _unsharded(weights)
+    got = _rows(ranks(), 'first')
+    np.testing.assert_array_equal(got['class_ids'].numpy(),
+                                  np.asarray(jout['class_ids']))
+    np.testing.assert_allclose(got['scores'].numpy(),
+                               np.asarray(jout['scores']), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(got['boxes'].numpy(),
+                               np.asarray(jout['boxes']), rtol=0, atol=1e-3)
+    assert torch.equal(got['class_ids'], one['class_ids'])
+    np.testing.assert_allclose(got['scores'].numpy(), one['scores'].numpy(),
+                               rtol=0, atol=1e-6)
+
+
+def test_sharded_inference_program_matches_eager_route(weights, ranks):
+    """The program's later call and the eager route (eager=True) equal its
+    first call bit for bit; a class_mask goes in as an input (another
+    program of the same key) and matches the unsharded masked forward."""
+    got = ranks()
+    first = _rows(got, 'first')
+    for key in ('again', 'eager'):
+        rows = _rows(got, key)
+        for k in first:
+            assert torch.equal(rows[k], first[k]), (key, k)
+    assert {got[r]['infer']['count'] for r in range(4)} == {2}
+    _, _, mask = _infer_inputs()
+    one = _unsharded(weights, class_mask=mask)
+    masked = _rows(got, 'masked')
+    assert torch.equal(masked['class_ids'], one['class_ids'])
+    assert bool(mask[masked['class_ids'].long()].all())
+    np.testing.assert_allclose(masked['scores'].numpy(),
+                               one['scores'].numpy(), rtol=0, atol=1e-6)
+
+
+def test_sharded_inference_other_shape_raises_on_every_rank(ranks):
+    """Rank 3 passes a global batch of 2 where the others pass 4: every
+    rank raises ProgramKeyMismatch naming both shapes, and no program is
+    built for it."""
+    for r, res in ranks().items():
+        m = res['infer']['mismatch']
+        assert m is not None and 'different program keys' in m, r
+        assert '(4, 64, 64, 3)' in m and '(2, 64, 64, 3)' in m, r
+
+
+def test_program_routes_over_gloo_on_cuda_raise(ranks):
+    """`make_sharded_inference` and `spatialize_detector` over gloo ranks
+    on a CUDA device raise (gloo's collectives cannot be captured) before
+    touching the device; eager=True is the route there."""
+    for r, res in ranks().items():
+        for name, msg in res['refused'].items():
+            assert msg is not None and 'gloo' in msg, (r, name)
+            assert 'cannot capture' in msg and 'eager=True' in msg, (r, name)
+
+
+def _split_port(split_files):
+    _, files, state = split_files
+    return YOLOCLIPDetector(
+        InferenceConfig(model=ModelConfig(image_size=(SPLIT, SPLIT)),
+                        conf_threshold=-10.0, nms_topk=64,
+                        max_detections=16),
+        vocab_path=files['vocab'], text_checkpoint=files['tower'],
+        state_dict=state, device='cpu')
+
+
+def _split_jax(split_files):
+    variables, files, _ = split_files
+    return JDetector(vocab_path=files['vocab'], variables=variables,
+                     text_checkpoint=files['tower'],
+                     config=JInferenceConfig(
+                         model=JModelConfig(image_size=(SPLIT, SPLIT)),
+                         conf_threshold=-10.0, nms_topk=64,
+                         max_detections=16))
+
+
+def _same_dets(got, want, box_tol=DETECT_BOX_PX):
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert a['class_id'] == b['class_id']
+        assert a['score'] == pytest.approx(b['score'], abs=SPLIT_SCORE_ATOL)
+        np.testing.assert_allclose(a['box'], b['box'], atol=box_tol)
+
+
+def test_spatial_detect_program_matches_jax(split_files, ranks):
+    """detect() after `spatialize_detector` over the 2x2 grid of processes:
+    the canvas program splits the frame 4 ways over the world (1 block of
+    32 rows each); against JAX's spatialized detect() and the port's
+    in-process split, within test_torch_spatial.py's bounds; every rank
+    returns the same detections, the program's later call and the eager
+    route equal to its first."""
+    frame = _frame()
+    jdet = _split_jax(split_files)
+    jax_spatialize(jdet, jax_create_mesh(n_data=2, n_model=2))
+    want = jdet.detect(frame)
+    det = _split_port(split_files)
+    spatialize_detector(det, create_mesh(2, 2, devices=['cpu'] * 4))
+    inproc = det.detect(frame)
+    got = ranks()
+    first = got[0]['split']['detect'][0]
+    for r in range(4):
+        res = got[r]['split']
+        assert res['detect'] == [first, first] == [res['detect_eager']] * 2
+        assert res['programs']['canvas'] == 1, r
+        assert res['eager_programs'] == 0, r
+    _same_dets(first, want)
+    _same_dets(first, inproc)
+
+
+def test_spatial_detect_batch_program_matches_jax(split_files, ranks):
+    """detect_batch() with batch over 'data' x height over 'model' across
+    the four processes (each returns the whole batch's detections) against
+    JAX's spatialized detect_batch and the port's in-process split: ids
+    and counts exact, scores 1e-4, boxes 0.5 px."""
+    frames = _frames()
+    jdet = _split_jax(split_files)
+    jax_spatialize(jdet, jax_create_mesh(n_data=2, n_model=2),
+                   batch_axis='data', height_axis='model')
+    want = jax.tree_util.tree_map(np.asarray,
+                                  dict(jdet.detect_batch(frames)))
+    det = _split_port(split_files)
+    spatialize_detector(det, create_mesh(2, 2, devices=['cpu'] * 4),
+                        batch_axis='data', height_axis='model')
+    inproc = {k: v.numpy() for k, v in det.detect_batch(frames).items()}
+    got = ranks()
+    first = got[0]['split']['batch'][0]
+    for r in range(4):
+        res = got[r]['split']
+        assert res['programs']['detect_batch'] == 1, r
+        for out in res['batch'] + [res['batch_eager']]:
+            for k in first:
+                assert torch.equal(out[k], first[k]), (r, k)
+    first = {k: v.numpy() for k, v in first.items()}
+    for ref in (want, inproc):
+        np.testing.assert_array_equal(first['count'], ref['count'])
+        np.testing.assert_array_equal(first['class_ids'], ref['class_ids'])
+        np.testing.assert_allclose(first['scores'], ref['scores'],
+                                   atol=SPLIT_SCORE_ATOL)
+        np.testing.assert_allclose(first['boxes'], ref['boxes'],
+                                   atol=BATCH_BOX_PX)
+
+
+def test_spatial_server_refuses_a_mesh_across_processes(ranks):
+    """DetectionServer(spatial=True) serves from one process, as JAX's
+    does: a mesh across processes raises ValueError saying so."""
+    for r, res in ranks().items():
+        assert 'one process' in res['split']['server'], r
 
 
 # ---------------------------------------------------------------------------

@@ -44,8 +44,9 @@ batches over N/M, each row's frames over its M devices
     python -m yoloclip_tpu_torch.cli.serve --devices cuda:0,cuda:0 \
         --spatial 2 --port 8000
 
-Not ported, and refused with NotImplementedError: an orbax checkpoint
-directory as --model (queue A: orbax checkpoints).
+An orbax checkpoint directory as --model is refused with
+NotImplementedError, by design: the port reads torch files only; convert
+the directory first on a machine with JAX (`tools/orbax_to_torch.py`).
 """
 
 from __future__ import annotations

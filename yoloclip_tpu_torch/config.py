@@ -161,7 +161,8 @@ class TrainingConfig:
     grad_accum_steps: int = 1
     output_dir: str = 'outputs/'
     seed: int = 42
-    # data-parallel shards; only 1 is ported (ROADMAP.md, queue A item 5)
+    # read by nothing, as in the JAX package: the mesh (`parallel/mesh.py`)
+    # sets the parallelism
     data_parallel: int = 1
     # False: evaluate the raw first max_objects anchors with no NMS or
     # confidence filter, as the original trainer does; True: real

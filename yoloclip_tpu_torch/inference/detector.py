@@ -39,8 +39,10 @@ are the programs' bodies, callable on their own.
 (`_canvas_model`) and `detect_batch` (`_batch_model`) through a height
 split over a mesh, as the JAX package rebuilds its canvas and batch
 programs; the device-letterbox path stays on the detector's own model.
-The split runs threads and in-process exchanges, so those two paths then
-run their eager bodies.
+Over a mesh across processes (one rank a cell) the two paths stay
+programs, keyed on the split's layout and this rank's shard, their ranks
+agreeing on each call's key; in one process the split runs threads and
+in-process exchanges, so those two paths then run their eager bodies.
 """
 
 from __future__ import annotations
@@ -188,6 +190,8 @@ class YOLOCLIPDetector:
         self._canvas_model = None
         self._batch_model = None
         self.spatial_mesh = None
+        # True: the split paths run as programs (a mesh across processes)
+        self._split_programs = False
         self.quantized = False
         # the per-shape programs of detect_batch, detect() and its canvas
         self.programs = ProgramCache()
@@ -248,7 +252,9 @@ class YOLOCLIPDetector:
         # the programs run the new model unpartitioned, as the JAX
         # detector rebuilds its programs here
         self._canvas_model = self._batch_model = self.spatial_mesh = None
+        self._split_programs = False
         self.programs.clear()
+        self.programs.agreement = None
         # keep config.model in step, so callers passing self.config on
         # (the stream CLI) see the int8 graph
         self.config = dataclasses.replace(
@@ -304,6 +310,18 @@ class YOLOCLIPDetector:
         in beyond its inputs' shapes and its device."""
         return detection_key(model or self.model, self._nms_args(),
                              self._use_fused_similarity())
+
+    def _run_program(self, name: str, split, body, inputs):
+        """body as the detector's program `name`: of its own model, or of
+        `split`, this rank's cell of a split across processes
+        (`parallel/spatial.py::CellForward`), whose layout enters the key
+        and whose shard is the rank's own part of it."""
+        if split is None:
+            return self.programs.run(name, self._program_key(), body, inputs,
+                                     self.device)
+        return self.programs.run(name, self._program_key(split) + split.key,
+                                 body, inputs, self.device,
+                                 local=split.place)
 
     def _nms_args(self) -> Dict:
         c = self.config
@@ -393,14 +411,14 @@ class YOLOCLIPDetector:
         """Same-size frames (B, H, W, 3) uint8 -> the batched NMS dict
         (boxes (B, D, 4), scores, class_ids, valid, count,
         prefilter_saturated), left on the device. Runs the program of the
-        frames' shape (`_detect_batch_eager` under a height split)."""
+        frames' shape (`_detect_batch_eager` under an in-process height
+        split)."""
         text, _ = self._text(text_prompts)
         images = torch.as_tensor(images)
-        if self._batch_model is not None:
+        if self._batch_model is not None and not self._split_programs:
             return self._detect_batch_eager(images.to(self.device), text)
-        return self.programs.run('detect_batch', self._program_key(),
-                                 self._detect_batch_eager, (images, text),
-                                 self.device)
+        return self._run_program('detect_batch', self._batch_model,
+                                 self._detect_batch_eager, (images, text))
 
     @torch.inference_mode()
     def _detect_batch_eager(self, images: torch.Tensor, text: torch.Tensor
@@ -419,16 +437,15 @@ class YOLOCLIPDetector:
     def _canvas_program(self, canvases: torch.Tensor, text: torch.Tensor,
                         meta: torch.Tensor) -> torch.Tensor:
         """`_detect_canvases` as the program of the canvases' shape (eager
-        under a height split). meta (B, 3) float32: each canvas's scale
-        and original (w, h), on any device (pinned: the upload stays
-        asynchronous)."""
-        if self._canvas_model is not None:
+        under an in-process height split). meta (B, 3) float32: each
+        canvas's scale and original (w, h), on any device (pinned: the
+        upload stays asynchronous)."""
+        if self._canvas_model is not None and not self._split_programs:
             m = meta.to(self.device)
             return self._detect_canvases(canvases.to(self.device), text,
                                          m[:, 0], m[:, 1:])
-        return self.programs.run('canvas', self._program_key(),
-                                 self._canvas_body(), (canvases, text, meta),
-                                 self.device)
+        return self._run_program('canvas', self._canvas_model,
+                                 self._canvas_body(), (canvases, text, meta))
 
     def _canvas_body(self, model=None):
         """The canvas program's body over (canvases, text, meta)."""

@@ -126,12 +126,14 @@ def detection_key(model, nms_args: Dict, fused: bool) -> tuple:
 
 
 def _map(fn, out):
-    """fn over the tensors of a program's output: a tensor, or a dict or
-    tuple of them (nested)."""
+    """fn over the tensors of a program's output: a tensor, or a dict,
+    tuple or list of them (nested)."""
     if isinstance(out, dict):
         return {k: _map(fn, v) for k, v in out.items()}
     if isinstance(out, tuple):
         return tuple(_map(fn, v) for v in out)
+    if isinstance(out, list):
+        return [_map(fn, v) for v in out]
     return fn(out)
 
 
@@ -340,18 +342,22 @@ class ProgramCache:
 
     def run(self, name: str, key: tuple, body: Callable,
             inputs: Sequence[torch.Tensor], device: torch.device,
-            grad: bool = False, agreed: Optional[tuple] = None):
-        """body(*static inputs) -> a tensor, or a dict or tuple of them,
-        run as the program of (name, key, the inputs' shapes and dtypes) on
-        `device`; returns a fresh copy of its outputs. grad: the body runs
-        with autograd (`ShapeProgram`). agreed: with an agreement, what
-        every rank must pass equal (default: the whole key, `portable`),
-        checked before anything runs."""
+            grad: bool = False, agreed: Optional[tuple] = None,
+            local: Optional[tuple] = None):
+        """body(*static inputs) -> a tensor, or a dict, tuple or list of
+        them, run as the program of (name, key, the inputs' shapes and
+        dtypes, local) on `device`; returns a fresh copy of its outputs.
+        grad: the body runs with autograd (`ShapeProgram`). agreed: with an
+        agreement, what every rank must pass equal (default: the key
+        without `local`, `portable`), checked before anything runs. local:
+        the part of the key that is this rank's own (its shard's index)."""
         device = _device(device)
         full = (name, device, key) + tuple((tuple(x.shape), x.dtype)
                                            for x in inputs)
         if self.agreement is not None:
             self.agreement.check(full if agreed is None else agreed)
+        if local is not None:
+            full = full + (local,)
         prog = self._programs.get(full)
         if prog is None:
             with self._lock:

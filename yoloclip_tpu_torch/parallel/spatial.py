@@ -6,10 +6,10 @@ of one frame. This module splits the canvas HEIGHT over mesh axes, so the
 conv-dominated backbone, neck and heads of one forward split across
 devices. GSPMD inserts the halo exchanges for the JAX package; here they
 are written out, inside the modules, and the model's own `forward` runs
-once a shard (SPMD-style: one thread a shard device in one process, the
-exchanges through `parallel/collectives.py`'s in-process backend, on
-workers that persist with the program, or a torch.distributed group across
-processes):
+once a shard (SPMD-style): one thread a shard device in one process, the
+exchanges through `parallel/collectives.py`'s in-process backend on
+workers that persist with the detector; or one process a mesh cell
+(`CellForward`), the exchanges over torch.distributed groups:
 
   * rows: the canvas height splits in blocks of the total stride (32
     rows), so every level's shard edge falls on a whole row; shards may be
@@ -43,6 +43,13 @@ Modes (`spatialize_detector`, the JAX rules):
     height axes (a batch axis is dropped from the height split);
   * the device-letterbox path stays single-device.
 
+Across processes (one NCCL rank a card, as a multi-controller JAX program
+runs) both re-routed paths stay the detector's programs: every rank is
+called with the whole input, runs its cell inside the program, and
+returns the whole input's detections; on the card a program is one CUDA
+graph holding NCCL's exchanges. In one process the threads meet at host
+barriers that no graph can hold, so the re-routed paths run eagerly.
+
 The partition a thread runs under is a context variable (`partition`):
 every conv of the model reads it, which an argument threaded through
 every module's forward would do with far more code. Each new thread
@@ -58,6 +65,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from yoloclip_tpu_torch.parallel import collectives as col
@@ -255,9 +263,9 @@ def _axes(a: Optional[AxisName]) -> Tuple[str, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class CanvasSharding:
-    """An NHWC canvas's layout over an in-process mesh: batch over
-    `batch_axis` (None: unsplit), height over the `height_axes` folded in
-    order. `spec` reads as the JAX PartitionSpec's entries."""
+    """An NHWC canvas's layout over a mesh: batch over `batch_axis` (None:
+    unsplit), height over the `height_axes` folded in order. `spec` reads
+    as the JAX PartitionSpec's entries."""
     mesh: object
     batch_axis: Optional[str]
     height_axes: Tuple[str, ...]
@@ -295,15 +303,14 @@ class CanvasSharding:
         """A callable with the model's signature, run over this layout:
         the (B, H, W, C) input split over batch shards (only batch shard
         `batch_index`'s devices, with the whole input as its rows, when
-        given) and each shard's rows over its height group, one thread a
-        (batch, height) pair, the model's own forward in each. Returns the
-        outputs of the whole input on the first batch shard's device (the
-        height shards' outputs are equal: shard 0's)."""
-        nb, nh, cells = self.layout()
+        given) and each shard's rows over its height group, the model's
+        own forward in each. Returns the outputs of the whole input on the
+        first batch shard's device (the height shards' outputs are equal:
+        shard 0's). In one process: one thread a (batch, height) pair,
+        eager. One process a cell: a `CellForward`, this rank's cell."""
         if self.mesh.multiprocess:
-            raise ValueError('spatial partitioning over a mesh runs one '
-                             'process: build its mesh before (or without) '
-                             'torch.distributed')
+            return CellForward(self, replicas[self.mesh.local_device])
+        nb, nh, cells = self.layout()
         shards = [batch_index] if batch_index is not None else range(nb)
         workers = col.ShardThreads(len(shards) * nh)
 
@@ -311,9 +318,7 @@ class CanvasSharding:
             if x.shape[0] % len(shards):
                 raise ValueError(f'batch {x.shape[0]} does not split over '
                                  f'{len(shards)} batch shards')
-            # (B, H/2, W/2, 12): the uint8 space-to-depth canvas
-            blocks = row_blocks(x.shape[1] * (2 if x.shape[-1] == 12
-                                              else 1), nh)
+            blocks = row_blocks(_canvas_height(x), nh)
             rows = x.shape[0] // len(shards)
             fns, groups = [], []
             for bi, b in enumerate(shards):
@@ -337,6 +342,81 @@ class CanvasSharding:
                     for k, v in firsts[0].items()}
 
         return run
+
+
+def _canvas_height(x: torch.Tensor) -> int:
+    """The canvas rows of a model input: (B, H/2, W/2, 12) is the uint8
+    space-to-depth canvas."""
+    return x.shape[1] * (2 if x.shape[-1] == 12 else 1)
+
+
+def _axis_group(mesh, axis: str):
+    return mesh.model_group if axis == 'model' else mesh.data_group
+
+
+class CellForward:
+    """The model's forward over this rank's cell of a `CanvasSharding`
+    across processes (one NCCL rank a card, as a multi-controller JAX
+    program runs): every rank is called with the WHOLE input, takes its
+    batch shard's rows and, of those, its height shard's, runs the model
+    under `partition` (the halo rows, the I-Pool max and the heads' maps
+    exchanged by `collectives.gather` / `group_max`, exact all-reduces
+    NCCL can capture), and returns the whole input's outputs: the anchor
+    tail runs replicated after `gather_rows`, and the batch shards'
+    outputs are gathered over the batch axis's group.
+
+    The height group is the model group for 'model', the data group for
+    'data', and the world for ('data', 'model') (rank r sits at (r //
+    n_model, r % n_model), so the world's order is JAX's fold order);
+    axes of size 1 fold away. `key` is what every rank shares (the
+    layout), `place` this rank's (batch, height) shard."""
+
+    def __init__(self, layout: CanvasSharding, model: torch.nn.Module):
+        mesh = layout.mesh
+        axes = tuple(a for a in layout.height_axes if mesh.shape[a] > 1)
+        if len(axes) == 2 and axes != ('data', 'model'):
+            raise ValueError(f'height over {axes} across processes: the '
+                             f"process groups fold ('data', 'model') only")
+        self.model = model
+        self.nb = mesh.shape[layout.batch_axis] if layout.batch_axis else 1
+        self.nh = int(np.prod([mesh.shape[a] for a in axes]))
+        self.height_group = (None if not axes else dist.group.WORLD
+                             if len(axes) == 2 else _axis_group(mesh,
+                                                                axes[0]))
+        self.batch_group = (_axis_group(mesh, layout.batch_axis)
+                            if self.nb > 1 else None)
+        cell = {'data': mesh.rank, 'model': mesh.model_index}
+        self.place = (cell[layout.batch_axis] if layout.batch_axis else 0,
+                      layout._fold(axes, cell))
+        self.key = (layout.spec, self.nb, self.nh)
+
+    def __call__(self, x: torch.Tensor, text: torch.Tensor, **kw):
+        if x.shape[0] % self.nb:
+            raise ValueError(f'batch {x.shape[0]} does not split over '
+                             f'{self.nb} batch shards')
+        rows = x.shape[0] // self.nb
+        b, h = self.place
+        xs = x[b * rows:(b + 1) * rows]
+        shard = (HeightShard(row_blocks(_canvas_height(x), self.nh), h,
+                             self.height_group) if self.nh > 1 else None)
+        with partition(shard):
+            out = self.model(xs if shard is None else shard.split(xs, 1),
+                             text, **kw)
+        if self.batch_group is None:
+            return out
+        return _gather_batch(out, self.batch_group)
+
+
+def _gather_batch(out, group):
+    """Each batch shard's outputs -> the whole batch's, on every rank
+    (`collectives.gather`: exact)."""
+    if isinstance(out, dict):
+        return {k: _gather_batch(v, group) for k, v in out.items()}
+    if isinstance(out, list):
+        return [_gather_batch(v, group) for v in out]
+    if out.dtype == torch.bool:
+        return _gather_batch(out.to(torch.uint8), group).bool()
+    return col.gather(out, group).flatten(0, 1)
 
 
 def _shard_call(model, x, text, shard: Optional[HeightShard],
@@ -364,24 +444,38 @@ def canvas_sharding(mesh, batch_axis: Optional[AxisName] = None,
 
 def replicate_variables(model: torch.nn.Module, mesh
                         ) -> Dict[torch.device, torch.nn.Module]:
-    """One replica of `model` on each distinct device of the mesh (the
-    model itself on its own device): spatial partitioning splits
-    activations, never weights (`mesh.replicas_by_device`)."""
+    """One replica of `model` on each distinct device of the mesh this
+    process drives (the model itself on its own device): spatial
+    partitioning splits activations, never weights
+    (`mesh.replicas_by_device`)."""
     from yoloclip_tpu_torch.parallel.mesh import replicas_by_device
-    return replicas_by_device(model, mesh.devices.reshape(-1))
+    return replicas_by_device(model, [mesh.local_device] if mesh.multiprocess
+                              else mesh.devices.reshape(-1))
 
 
 def spatialize_detector(detector, mesh,
                         height_axis: AxisName = ('data', 'model'),
-                        batch_axis: Optional[AxisName] = None):
+                        batch_axis: Optional[AxisName] = None,
+                        eager: bool = False):
     """Re-route `detector`'s canvas program (`detect()` through the
     host-letterbox canvas, and the server's batches when given no model)
     through a height split over `height_axis`, and `detect_batch()`
     through batch over `batch_axis` (if given) x height over the rest of
     `height_axis`. Returns the detector (changed in place). The
-    device-letterbox path stays single-device. The split runs threads and
-    in-process exchanges, so the two re-routed paths run eagerly: their
-    programs (`inference/program.py`) are dropped."""
+    device-letterbox path stays single-device.
+
+    One process a cell (torch.distributed): each rank runs its cell
+    (`CellForward`) and the two re-routed paths stay programs of
+    `detector.programs`, the whole frame their input and this rank's shard
+    in their key, their ranks agreeing on each call's key over the mesh's
+    host group (`KeyAgreement`): every rank calls with the same frames, as
+    a multi-controller JAX program is called. On the card a program is a
+    CUDA graph holding NCCL's exchanges; over gloo on a CUDA device (ranks
+    sharing a card) it raises, as the sharded steps do. eager=True runs
+    the re-routed paths eagerly instead (also the bodies
+    `_detect_batch_eager` and `_detect_canvases`, callable on their own).
+    In one process the split runs threads and in-process exchanges, so the
+    two re-routed paths run eagerly and their programs are dropped."""
     names = _axes(height_axis)
     if batch_axis is not None:
         # a mesh axis cannot split two dims at once: drop the batch axis
@@ -389,9 +483,26 @@ def spatialize_detector(detector, mesh,
         names = tuple(a for a in names if a not in _axes(batch_axis))
     single = canvas_sharding(mesh, None, height_axis)
     batched = canvas_sharding(mesh, batch_axis, names)
+    programs = mesh.multiprocess and not eager
+    if programs:
+        from yoloclip_tpu_torch.inference.program import KeyAgreement
+        reason = col.capture_blocker(mesh.local_device, mesh.data_group,
+                                     mesh.model_group, dist.group.WORLD)
+        if reason is not None:
+            raise RuntimeError(f'the split detector cannot run as programs '
+                               f'on {mesh.local_device}: {reason} '
+                               f'(eager=True runs it eagerly)')
+    if mesh.multiprocess and torch.device(detector.device) != \
+            mesh.local_device:
+        raise ValueError(f'the detector is on {detector.device}, this '
+                         f"rank's cell on {mesh.local_device}")
     replicas = replicate_variables(detector.model, mesh)
     detector._canvas_model = single.forward(replicas)
     detector._batch_model = batched.forward(replicas)
     detector.spatial_mesh = mesh
-    detector.programs.clear()    # the split paths run their eager bodies
+    detector._split_programs = programs
+    if programs:
+        detector.programs.agreement = KeyAgreement(mesh.host_group)
+    else:
+        detector.programs.clear()    # the split paths run their eager bodies
     return detector

@@ -37,14 +37,17 @@ eager route (eager=True) wraps the model in DistributedDataParallel
 (`no_sync` on all but the last micro-batch); it is the route over gloo on
 the card, where two ranks share one device and nothing can be captured.
 
-In one process (`make_sharded_inference`) each data row's model-axis
-devices run one persistent worker thread each, the exchanges through the
-in-process backend.
+`make_sharded_inference` runs the class-sharded forward: with one
+process a cell as the 'sharded_inference' program (JAX jits it), on the
+card a CUDA graph holding NCCL's class exchanges; in one process each data
+row's model-axis devices run one persistent worker thread each, eagerly,
+the exchanges through the in-process backend.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import inspect
 from typing import Dict, List, Optional
 
@@ -55,6 +58,7 @@ from torch.nn.parallel import DistributedDataParallel
 
 from yoloclip_tpu_torch.config import TrainingConfig
 from yoloclip_tpu_torch.inference.program import KeyAgreement, ProgramCache
+from yoloclip_tpu_torch.models import layers
 from yoloclip_tpu_torch.models.layers import BatchNorm2d
 from yoloclip_tpu_torch.parallel import collectives as col
 from yoloclip_tpu_torch.parallel.mesh import (Mesh, replicas_by_device,
@@ -98,7 +102,8 @@ def sharded_step_blocker(mesh: Mesh) -> Optional[str]:
 
 
 def _step_programs(mesh: Mesh, programs: Optional[ProgramCache],
-                   eager: bool) -> Optional[ProgramCache]:
+                   eager: bool, what: str = 'the sharded steps'
+                   ) -> Optional[ProgramCache]:
     """The cache a sharded step's programs go in: `programs`, else a new
     one (`sharded_programs` over a process group); None for the eager
     route. Raises where the programs cannot be captured."""
@@ -106,7 +111,7 @@ def _step_programs(mesh: Mesh, programs: Optional[ProgramCache],
         return None
     reason = sharded_step_blocker(mesh)
     if reason is not None:
-        raise RuntimeError(f'the sharded steps cannot run as programs on '
+        raise RuntimeError(f'{what} cannot run as programs on '
                            f'{mesh.local_device}: {reason} (eager=True runs '
                            f'them eagerly)')
     if programs is not None:
@@ -199,22 +204,43 @@ def make_sharded_eval_step(cfg: TrainingConfig, mesh: Mesh,
                           programs=cache)
 
 
-def make_sharded_inference(model: nn.Module, mesh: Mesh):
+def make_sharded_inference(model: nn.Module, mesh: Mesh,
+                           programs: Optional[ProgramCache] = None,
+                           eager: bool = False):
     """run(images, text, **model_kwargs) -> the model's outputs for each
     data-axis device this process drives, in axis order, every launch made
     before any result is read. The GLOBAL batch of images splits over the
     data axis (this rank's rows when one process runs a cell); text (C, E)
     or (B, C, E) is the whole vocabulary (with B the global batch), its
-    classes split over the model axis (a class_mask (C,) with them). In
-    one process a data row's model-axis devices run one thread each, the
-    first of them returning the row's outputs; scores and class_ids are
-    global, `similarity` and `text_embeddings` the first block's."""
+    classes split over the model axis (a class_mask (C,) with them).
+    scores and class_ids are global, `similarity` and `text_embeddings`
+    the first block's.
+
+    One process a cell: the rank's forward runs as the program
+    'sharded_inference' of `programs` (default: a new
+    `sharded_programs(mesh)`), as JAX jits the sharded forward; on the card
+    one CUDA graph holding NCCL's class-max and (score, id) merge
+    all-reduces over the model group. The class shard is computed before
+    the program (its block sizes are gathered over the host group, which
+    no graph may hold) and enters the key with the replica, its dtypes and
+    int8 form and the keyword arguments that are not tensors; a class_mask
+    is an input. Every rank must call with the same shapes and settings
+    (`ProgramKeyMismatch` on every rank otherwise). Over gloo on a CUDA
+    device (ranks sharing a card) it raises, as the sharded steps do;
+    eager=True runs the same forward without a program.
+
+    In one process a data row's model-axis devices run one thread each,
+    the first of them returning the row's outputs. That route stays eager:
+    its exchanges meet at a host barrier that no graph can hold."""
+    cache = (_step_programs(mesh, programs, eager, 'the class-sharded '
+                            'forward') if mesh.multiprocess else None)
     replicas = replicas_by_device(model, mesh.local_devices
                                   if mesh.multiprocess
                                   else mesh.devices.reshape(-1))
     n_model = mesh.shape['model']
     workers = (col.ShardThreads(mesh.devices.size)
                if n_model > 1 and not mesh.multiprocess else None)
+    forms = {dev: _model_form(m) for dev, m in replicas.items()}
 
     @torch.inference_mode()
     def run(images: torch.Tensor, text: torch.Tensor,
@@ -228,10 +254,28 @@ def make_sharded_inference(model: nn.Module, mesh: Mesh):
             dev = s['images'].device
             t = s.get('text', text)   # this rank's rows, every class
             t = t.narrow(-2, *mesh.class_block(t.shape[-2])).to(dev)
+            shard = mesh.text_shard(t) if n_model > 1 else None
             kw = dict(model_kwargs)
-            if n_model > 1:
-                kw = _block_kwargs(kw, mesh.text_shard(t))
-            return [replicas[dev](s['images'], t, **kw)]
+            mask = kw.pop('class_mask', None)
+            inputs = [s['images'], t]
+            if mask is not None:
+                mask = torch.as_tensor(mask)
+                inputs.append((mask if shard is None
+                               else shard.take(mask, -1)).to(dev))
+            body = functools.partial(_forward, replicas[dev], shard, kw)
+            if cache is None:
+                return [body(*inputs)]
+            key = (replicas[dev], forms[dev], layers.STORE_INT8_MIN_ELEMS,
+                   None if shard is None else shard.total,
+                   tuple(sorted(kw.items())))
+            # the ranks agree on the global inputs; their blocks' shapes
+            # and offsets are their own
+            agreed = ('sharded_inference', key) + tuple(
+                (tuple(x.shape), x.dtype) for x in (images, text, mask)
+                if x is not None)
+            return [cache.run('sharded_inference', key, body, inputs, dev,
+                              agreed=agreed, local=None if shard is None
+                              else (shard.offset, shard.size))]
         if n_model == 1:
             return [replicas[dev](s['images'], s.get('text', text).to(dev),
                                   **model_kwargs)
@@ -253,6 +297,23 @@ def make_sharded_inference(model: nn.Module, mesh: Mesh):
         return outs[::n_model]
 
     return run
+
+
+def _model_form(model: nn.Module) -> tuple:
+    """What a program of `model` bakes in beyond its identity: its
+    parameters' dtypes and whether it is the int8 deploy graph."""
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    int8 = any(getattr(m, 'mode', None) == 'int8' for m in model.modules())
+    return tuple(dtypes), int8
+
+
+def _forward(model, shard, kw, images, text, class_mask=None):
+    """The class-sharded forward of one rank (a program's body)."""
+    if shard is not None:
+        kw = dict(kw, class_shard=shard)
+    if class_mask is not None:
+        kw = dict(kw, class_mask=class_mask)
+    return model(images, text, **kw)
 
 
 def _block_kwargs(kw: Dict, shard: col.ClassShard) -> Dict:

@@ -9,8 +9,10 @@ Counterpart of `yoloclip_tpu/train/trainer.py`.
   * the learning rate from the OneCycle curve, once per epoch ('epoch'
     units, the original trainer's cadence) or per step ('step');
   * best-by-mAP50-95, interval and final checkpoints (`.pt` files,
-    `utils/checkpoint.py`), a crash checkpoint and the CONTINUE_ON_ERROR
-    environment gate; `history.json` written atomically every epoch;
+    `utils/checkpoint.py`; the best and interval ones written in the
+    background, as the JAX trainer's async saves), a crash checkpoint and
+    the CONTINUE_ON_ERROR environment gate; `history.json` written
+    atomically every epoch;
   * prompts encoded per sample through the text encoder's per-prompt cache
     and zero-padded to a power-of-two class bucket of at least 8, with no
     class mask (the original zero-pads without masking);
@@ -70,7 +72,9 @@ from yoloclip_tpu_torch.train.train_state import (BATCH_KEYS, TRAIN_KEYS,
                                                   make_onecycle_schedule,
                                                   make_train_step,
                                                   set_learning_rate)
-from yoloclip_tpu_torch.utils.checkpoint import (load_checkpoint,
+from yoloclip_tpu_torch.utils.checkpoint import (CheckpointWriteError,
+                                                 finish_async_saves,
+                                                 load_checkpoint,
                                                  save_checkpoint)
 from yoloclip_tpu_torch.utils.metrics import calculate_map
 
@@ -291,8 +295,10 @@ class YOLOCLIPTrainer:
                     val_metrics = self.evaluate(val_dataloader, epoch)
                     if val_metrics['mAP50_95'] > self.best_map:
                         self.best_map = val_metrics['mAP50_95']
+                        # mid-training saves do not wait: the next epoch
+                        # runs while the file is written
                         self.save(os.path.join(self.output_dir,
-                                               'best_model.pt'))
+                                               'best_model.pt'), wait=False)
                     history['val_loss'].append(val_metrics['loss'])
                     history['val_mAP50'].append(val_metrics['mAP50'])
                     history['val_mAP50_95'].append(val_metrics['mAP50_95'])
@@ -309,11 +315,14 @@ class YOLOCLIPTrainer:
                     time.time() - t0)
                 if epoch % cfg.save_interval == 0:
                     self.save(os.path.join(self.output_dir,
-                                           f'checkpoint_epoch_{epoch}.pt'))
+                                           f'checkpoint_epoch_{epoch}.pt'),
+                              wait=False)
                 for cb in callbacks or []:
                     cb(epoch, train_metrics, val_metrics)
                 self._save_history(history)
             except Exception as e:   # crash checkpoint + env-gated resume
+                if isinstance(e, CheckpointWriteError):
+                    raise      # a lost checkpoint is no epoch to skip
                 logger.exception('Error during training epoch %d: %s',
                                  epoch, e)
                 try:
@@ -326,6 +335,7 @@ class YOLOCLIPTrainer:
                     break
                 continue
         self.save(os.path.join(self.output_dir, 'final_model.pt'))
+        self._finish_saves()
         return history
 
     def _save_history(self, history: Dict[str, List[float]]) -> None:
@@ -341,24 +351,35 @@ class YOLOCLIPTrainer:
         os.replace(tmp, path)
 
     # ------------------------------------------------------------------
-    def save(self, path: str) -> None:
+    def save(self, path: str, wait: bool = True) -> None:
         """The model's state dict, the EMA (when tracked, so inference
-        loaders serve it), the optimizer state, step and best_map. Under a
-        mesh rank 0 writes (every rank holds the same state) and the others
-        wait for it at a barrier."""
+        loaders serve it), the optimizer state, step and best_map.
+        wait=False returns once the state is snapshotted and writes the
+        file in the background (`utils/checkpoint.py`; the next step may
+        run at once). Under a mesh rank 0 writes (every rank holds the same
+        state) and the others wait at a barrier until it has started."""
         if self._rank == 0:
             save_checkpoint(path, self.model.state_dict(),
                             ema=self.state.ema,
                             optimizer_state=self.state.optimizer.state_dict(),
                             step=self.state.step,
-                            metadata={'best_map': self.best_map})
-            logger.info('Checkpoint saved to %s', path)
+                            metadata={'best_map': self.best_map}, wait=wait)
+            logger.info('Checkpoint save %s to %s',
+                        'complete' if wait else 'running (async)', path)
+        self._barrier()
+
+    def _finish_saves(self) -> None:
+        """Every save written (its failure raised) before any rank goes on:
+        no rank reads a file rank 0 is still writing."""
+        finish_async_saves()
         self._barrier()
 
     def load(self, path: str) -> None:
         """Resume: weights, BatchNorm buffers, optimizer, step, EMA and
-        best_map (every rank reads the file). Drops the programs: they
-        captured the optimizer's state and EMA tensors this replaces."""
+        best_map (every rank reads the file, after every save is written).
+        Drops the programs: they captured the optimizer's state and EMA
+        tensors this replaces."""
+        self._finish_saves()
         ckpt = load_checkpoint(path)
         self.programs.clear()
         self.model.load_state_dict(ckpt['model'])
