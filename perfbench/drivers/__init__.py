@@ -1,0 +1,1 @@
+"""One module a kind of traffic; a traffic file names its driver."""
