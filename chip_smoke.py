@@ -152,8 +152,9 @@ Phases, each printing its results; any failure exits non-zero:
  15b. profile -- utils/profiling.py on 10 bf16 detect_batch calls at bs=32:
                   trace() writes a Chrome trace that must hold kernel 1 and
                   kernel 2 events, the device's idle share read from it,
-                  the top kernels; StageTimer over the stages;
-                  memory_stats();
+                  the top kernels; the program's own spans, graph
+                  stages and counters (`take`), the idle gaps by
+                  program span; memory_stats();
  16. training  -- YOLOCLIPTrainer at variant 'n', 640 px, from seeded
                   weights on synthetic arrays (the card has no image
                   decoder): one compat fp32 AdamW step at bs=2 against the
@@ -4770,27 +4771,29 @@ def _share(x) -> str:
 def phase_profile(sim, nms, bf, frames, tmp: str, card: str) -> dict:
     """[profile]: utils/profiling.py on the bf16 detect_batch at bs=32:
     trace() writes a Chrome trace that must hold kernel 1's and kernel 2's
-    events; the device's idle share of 10 calls read from it; StageTimer
-    over its stages. Returns the launches of the traced calls."""
-    from yoloclip_tpu_torch.ops.nms import batched_nms
-    from yoloclip_tpu_torch.ops.preprocess import (letterbox_batch_for,
-                                                   rescale_boxes)
-    from yoloclip_tpu_torch.utils.profiling import (StageTimer, annotate,
-                                                    device_summary,
-                                                    memory_stats, trace)
+    events; the device's idle share of 10 calls read from it; the
+    program's own trace of those calls (`take`: its spans, the stages its
+    graph marks, its counters), and the device's idle gaps by program
+    span. Returns the launches of the traced calls."""
+    from yoloclip_tpu_torch.utils.profiling import (annotate, device_summary,
+                                                    idle_gaps_by_span,
+                                                    memory_stats, take,
+                                                    trace)
     _zero_counts(sim, nms)
     for _ in range(3):
         bf.detect_batch(frames)
     torch.cuda.synchronize()
     per_call = {k: v // 3 for k, v in _counts(sim, nms).items()}
     _zero_counts(sim, nms)
+    take()
     log_dir = os.path.join(tmp, 'trace')
-    with trace(log_dir) as prof:
+    with trace(log_dir) as prof:     # the program traces while it records
         with annotate('detect_batch x10'):
             for _ in range(10):
                 bf.detect_batch(frames)
             torch.cuda.synchronize()
     launches = _counts(sim, nms)
+    got = take()
     summary = device_summary(prof, span='detect_batch x10')
     with open(os.path.join(log_dir, 'trace.json')) as f:
         names = {e.get('name', '') for e in json.load(f)['traceEvents']}
@@ -4812,26 +4815,37 @@ def phase_profile(sim, nms, bf, frames, tmp: str, card: str) -> dict:
             and launches['similarity_bf16'] > 0 and launches['nms'] > 0,
             '[profile] detect_batch launch counts')
 
-    st = StageTimer()
-    text, _ = bf._text(None)
-    with torch.inference_mode():
-        for i in range(13):
-            if i == 3:
-                st.reset()
-            with st.stage('letterbox'):
-                canv, scale = st.observe(letterbox_batch_for(bf.config.model)(
-                    frames, bf.image_size))
-            with st.stage('model (folded scoring)'):
-                out = st.observe(bf.model(canv, text, fused_scores=True))
-            with st.stage('rescale + NMS'):
-                st.observe(batched_nms(
-                    rescale_boxes(out['boxes'], scale,
-                                  tuple(frames.shape[1:3])),
-                    out['scores'], out['class_ids'], **bf._nms_args()))
-    print('[profile] StageTimer, bf16 detect_batch stages, mean of 10 '
-          '(synchronised at each stage exit): ' + ', '.join(
-              f'{k} {v["mean_ms"]:.2f} ms' for k, v in st.summary().items())
-          + f'  [{card}]')
+    spans: dict = {}
+    for s in got['spans']:
+        spans.setdefault(s['name'], []).append(
+            (s['end_ns'] - s['start_ns']) / 1e6)
+    stages: dict = {}
+    for sample in got['stages']:
+        for stage, ms in sample['stages']:
+            stages.setdefault(stage, []).append(ms)
+    # the frames are on the card, so the host runs ahead of the device and
+    # a replay's marks are mostly still running when the next replay reads
+    # them (missed); take() reads the last one
+    missed = got['counters'].get('stage_samples_missed', 0)
+    require(len(spans.get('yoloclip.detect_batch', ())) == 10
+            and {len(v) for v in stages.values()} == {10 - missed}
+            and list(stages) == ['letterbox', 'backbone', 'neck', 'head',
+                                 'postprocess'],
+            f'[profile] the program traced {len(got["spans"])} spans, '
+            f'stages {[(k, len(v)) for k, v in stages.items()]}, '
+            f'{missed} missed')
+    print('[profile] program spans, median ms of 10 calls: ' + ', '.join(
+        f'{k[len("yoloclip."):]} {statistics.median(v):.3f}'
+        for k, v in spans.items()) + f'  [{card}]')
+    print(f'[profile] stages from the graph marks, device ms an image '
+          f'(mean of {10 - missed} replays of {BATCH}): ' + ', '.join(
+              f'{k} {statistics.mean(v) / BATCH:.4f}'
+              for k, v in stages.items())
+          + f'; counters {got["counters"]}  [{card}]')
+    gaps = idle_gaps_by_span(prof, 'detect_batch x10')
+    print('[profile] device idle gaps by program span, ms of 10 calls: '
+          + ', '.join(f'{k} {1e3 * v:.3f}' for k, v in sorted(
+              gaps.items(), key=lambda kv: -kv[1])))
     mem = memory_stats()
     print(f'[profile] memory_stats(): {len(mem)} device(s), cuda:0 peak '
           f'allocated {mem["cuda:0"]["allocated_bytes.all.peak"] / 2 ** 30:.2f}'

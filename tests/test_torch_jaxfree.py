@@ -11,8 +11,8 @@ the int8 deploy graph (`quantize_int8`) and run a `detect_batch`, take
 one training step and one `evaluate` (with NMS) through YOLOCLIPTrainer on
 a synthetic batch, serve and stream over a mesh of two CPU replicas
 (`parallel/`), run the classes split over a 1x2 mesh and a frame's height
-split 2-way (`parallel/spatial.py`, the detector and the server), time a
-stage and trace a `detect_batch` (`utils/profiling.py`,
+split 2-way (`parallel/spatial.py`, the detector and the server), trace
+a `detect_batch` and take its spans (`utils/profiling.py`,
 `utils/general.py`), then check that neither
 jax, jaxlib, flax nor any module of the JAX package (`yoloclip_tpu`) was
 imported.
@@ -117,7 +117,7 @@ assert np.isfinite(metrics['loss']) and 'mAP50' in metrics
 from yoloclip_tpu_torch.parallel import multihost
 from yoloclip_tpu_torch.parallel.mesh import create_mesh
 from yoloclip_tpu_torch.utils.general import Timer
-from yoloclip_tpu_torch.utils.profiling import StageTimer, trace
+from yoloclip_tpu_torch.utils import profiling
 assert multihost.process_local_indices(5, 1, 2) == [1, 3]
 mesh = create_mesh(n_data=2, devices=['cpu', 'cpu'])
 srv = DetectionServer(det, max_batch=2, max_delay_ms=1.0, mesh=mesh)
@@ -142,11 +142,12 @@ finally:
     srv.close()
 spatialize_detector(det, mesh2)
 assert det.detect(np.zeros((30, 50, 3), np.uint8))
-st = StageTimer()
-with Timer() as t, trace(os.path.join(sys.argv[1], 'trace')):
-    with st.stage('detect_batch'):
-        st.observe(det.detect_batch(np.zeros((2, 48, 64, 3), np.uint8)))
-assert t.elapsed > 0 and st.summary()['detect_batch']['count'] == 1
+profiling.enable(True)
+with Timer() as t, profiling.trace(os.path.join(sys.argv[1], 'trace')):
+    det.detect_batch(np.zeros((2, 48, 64, 3), np.uint8))
+got = profiling.take()
+assert t.elapsed > 0
+assert [s['name'] for s in got['spans']].count('yoloclip.detect_batch') == 1
 assert os.path.isfile(os.path.join(sys.argv[1], 'trace', 'trace.json'))
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split('.')[0] in ('jax', 'jaxlib', 'flax',

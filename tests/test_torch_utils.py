@@ -14,9 +14,8 @@ from yoloclip_tpu_torch.utils.general import (Timer, copy_code_to_dir,
                                               create_unique_output_dir,
                                               load_yaml, save_yaml, set_seed,
                                               setup_logger)
-from yoloclip_tpu_torch.utils.profiling import (StageTimer, annotate,
-                                                device_summary, memory_stats,
-                                                trace)
+from yoloclip_tpu_torch.utils.profiling import (annotate, device_summary,
+                                                memory_stats, trace)
 
 torch.set_num_threads(2)
 
@@ -57,19 +56,6 @@ def test_timer_blocks_device_work():
     with Timer('t') as t:
         x = t.block(torch.ones((64, 64)) @ torch.ones((64, 64)))
     assert t.elapsed > 0 and float(x[0, 0]) == 64.0
-
-
-def test_stage_timer():
-    st = StageTimer()
-    with st.stage('compute'):
-        st.observe(torch.ones((32, 32)) * 2)
-    with st.stage('compute'):
-        st.observe({'a': torch.ones((32, 32)) * 3, 'b': [torch.zeros(2)]})
-    s = st.summary()
-    assert s['compute']['count'] == 2
-    assert s['compute']['total_s'] > 0
-    st.reset()
-    assert st.summary() == {}
 
 
 def test_memory_stats_empty_on_cpu():

@@ -69,6 +69,7 @@ from yoloclip_tpu_torch.text.encoder import CLIPTextEncoder
 from yoloclip_tpu_torch.text.vocab import VocabularyBuilder
 from yoloclip_tpu_torch.utils.checkpoint import (is_training_checkpoint,
                                                  load_checkpoint)
+from yoloclip_tpu_torch.utils import profiling
 from yoloclip_tpu_torch.utils.convert import (is_reference_checkpoint,
                                               reference_state_dicts)
 from yoloclip_tpu_torch.utils.visualize import draw_detections
@@ -342,18 +343,24 @@ class YOLOCLIPDetector:
         the frame, NMS, pack. Under stem_u8_s2d the model takes the
         canvases space-to-depth'd, as uint8. model: a replica of the
         detector's model on the canvases' device (the server's replicas),
-        else the detector's own."""
+        else the detector's own. Marks its stages as `_detect_batch_eager`
+        does, letterbox being the /255 or the space-to-depth."""
+        profiling.mark(profiling.START, canvases.device)
         if self.config.model.stem_u8_s2d:
             x = space_to_depth2(canvases)
         else:
             x = canvases.float() / 255.0
+        profiling.mark('letterbox')
         out = (model or self._canvas_model or self.model)(
             x, text, fused_scores=self._use_fused_similarity())
+        profiling.mark('head')
         boxes = out['boxes'] / scales[:, None, None]
         hi = torch.cat([orig_whs, orig_whs], dim=-1)[:, None, :]
         boxes = torch.minimum(boxes.clamp_min(0), hi)
-        return _pack_detections(batched_nms(
+        packed = _pack_detections(batched_nms(
             boxes, out['scores'], out['class_ids'], **self._nms_args()))
+        profiling.mark('postprocess')
+        return packed
 
     def _host_letterbox_available(self) -> bool:
         """On the card: the native library, or the reason it failed to
@@ -412,27 +419,37 @@ class YOLOCLIPDetector:
         (boxes (B, D, 4), scores, class_ids, valid, count,
         prefilter_saturated), left on the device. Runs the program of the
         frames' shape (`_detect_batch_eager` under an in-process height
-        split)."""
-        text, _ = self._text(text_prompts)
-        images = torch.as_tensor(images)
-        if self._batch_model is not None and not self._split_programs:
-            return self._detect_batch_eager(images.to(self.device), text)
-        return self._run_program('detect_batch', self._batch_model,
-                                 self._detect_batch_eager, (images, text))
+        split). Traced as the span `yoloclip.detect_batch`."""
+        with profiling.span('yoloclip.detect_batch'):
+            text, _ = self._text(text_prompts)
+            images = torch.as_tensor(images)
+            if self._batch_model is not None and not self._split_programs:
+                return self._detect_batch_eager(images.to(self.device), text)
+            return self._run_program('detect_batch', self._batch_model,
+                                     self._detect_batch_eager,
+                                     (images, text))
 
     @torch.inference_mode()
     def _detect_batch_eager(self, images: torch.Tensor, text: torch.Tensor
                             ) -> Dict[str, torch.Tensor]:
         """The body of `detect_batch`'s program: letterbox -> model ->
-        rescale -> batched NMS, frames on the device."""
+        rescale -> batched NMS, frames on the device. Marks its stages
+        (`utils/profiling.py::mark`): letterbox, the model's backbone and
+        neck, head (the heads, the similarity and the DFL decode) and
+        postprocess (rescale, clip and NMS)."""
+        profiling.mark(profiling.START, images.device)
         h, w = images.shape[1], images.shape[2]
         canvases, scale = letterbox_batch_for(self.config.model)(
             images, self.image_size)
+        profiling.mark('letterbox')
         out = (self._batch_model or self.model)(
             canvases, text, fused_scores=self._use_fused_similarity())
+        profiling.mark('head')
         boxes = rescale_boxes(out['boxes'], scale, (h, w))
-        return batched_nms(boxes, out['scores'], out['class_ids'],
+        dets = batched_nms(boxes, out['scores'], out['class_ids'],
                            **self._nms_args())
+        profiling.mark('postprocess')
+        return dets
 
     def _canvas_program(self, canvases: torch.Tensor, text: torch.Tensor,
                         meta: torch.Tensor) -> torch.Tensor:
@@ -457,14 +474,19 @@ class YOLOCLIPDetector:
                       ) -> torch.Tensor:
         """The body of the device-letterbox `detect()` program: one frame
         (H, W, 3) on the device -> packed detections (max_det + 1, 6)."""
+        profiling.mark(profiling.START, image.device)
         canvas, scale = letterbox_batch_for(self.config.model)(
             image[None], self.image_size)
+        profiling.mark('letterbox')
         out = self.model(canvas, text,
                          fused_scores=self._use_fused_similarity())
+        profiling.mark('head')
         boxes = rescale_boxes(out['boxes'][0], scale, image.shape[:2])
-        return _pack_detections(nms_fixed(
+        packed = _pack_detections(nms_fixed(
             boxes, out['scores'][0], class_ids=out['class_ids'][0],
             **self._nms_args()))
+        profiling.mark('postprocess')
+        return packed
 
     def detect(self, image: Union[str, np.ndarray],
                text_prompts: Optional[Sequence[str]] = None) -> List[Dict]:

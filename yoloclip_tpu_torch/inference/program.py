@@ -66,6 +66,16 @@ body on the same static buffers without capture.
     (`KeyAgreement.exchange`), so the check costs no extra round trip.
   * Graphs do not outlive the process: there is no counterpart of the
     JAX package's persistent compile cache.
+  * Under tracing (`utils/profiling.py`) a call is the spans
+    `yoloclip.program.lookup`, `.lock`, `.copy_in`, `.replay` and
+    `.clone_out` (`.capture`, the warm-up and the capture, in place of the
+    last three on a miss), each with the program's name; it counts
+    `program.replays.<name>`, `program.captures.<name>` and the bytes
+    copied in by source (`program.copy_in_bytes.pageable`, `.pinned`,
+    `.device`). The body's stage marks are captured into the graph as
+    event-record nodes whether tracing is on or not, and a traced replay's
+    stages are read once it is done (by a background thread, else before
+    the program's next replay; `profiling.GraphMarks`).
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ import torch
 import torch.distributed as dist
 
 from yoloclip_tpu_torch.ops.kernels import add_counts, read_counts
+from yoloclip_tpu_torch.utils import profiling
 
 # One capture at a time in the process (torch.cuda.graph's own rule).
 _capture_lock = threading.Lock()
@@ -174,6 +185,8 @@ class ShapeProgram:
                        for x in inputs]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs = None
+        # the stage marks captured into the graph (None: the body has none)
+        self._marks: Optional[profiling.GraphMarks] = None
         self._delta: Dict[str, int] = {}
         self.warmup_s = self.capture_s = 0.0
 
@@ -193,6 +206,14 @@ class ShapeProgram:
         return torch.enable_grad() if self.grad else torch.inference_mode()
 
     def _copy_in(self, inputs: Sequence[torch.Tensor]) -> None:
+        # counted before the copies: a pageable copy waits for the device,
+        # so host work ahead of it leaves the device no idler
+        if profiling.enabled():
+            for x in inputs:
+                source = ('device' if x.device.type != 'cpu' else
+                          'pinned' if x.is_pinned() else 'pageable')
+                profiling.count('program.copy_in_bytes.' + source,
+                                x.numel() * x.element_size())
         for s, x in zip(self.static, inputs):
             s.copy_(x, non_blocking=True)
 
@@ -216,8 +237,9 @@ class ShapeProgram:
             t1 = time.perf_counter()
             before = read_counts()
             try:
-                with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                      capture_error_mode='thread_local'):
+                with profiling.capturing_marks() as marks, torch.cuda.graph(
+                        graph, pool=pool, stream=stream,
+                        capture_error_mode='thread_local'):
                     out = self._body(*self.static)
             except Exception as e:
                 _end_failed_capture(self.device, current)
@@ -230,18 +252,42 @@ class ShapeProgram:
                                if n != before.get(k, 0)}
                 add_counts({k: -n for k, n in self._delta.items()})
         self.graph, self.outputs = graph, out
+        if marks:
+            self._marks = profiling.GraphMarks(self.name, marks,
+                                               self.device)
         self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
         return first
 
     def __call__(self, inputs: Sequence[torch.Tensor]):
-        """Copy `inputs` in, run, and return a clone of the outputs."""
-        with self._lock, self._mode():
-            self._copy_in(inputs)
-            if self.graph is None:            # the CPU: no capture
-                return _map(torch.clone, self._body(*self.static))
-            self.graph.replay()
-            add_counts(self._delta)
-            return _map(torch.clone, self.outputs)
+        """Copy `inputs` in, run, and return a clone of the outputs. Under
+        tracing, each step is a span of its own; the stage marks of the
+        previous traced replay, where no background read took them, are
+        read before the graph replays again."""
+        name = self.name
+        with profiling.span('yoloclip.program.lock', program=name):
+            self._lock.acquire()
+        try:
+            with self._mode():
+                with profiling.span('yoloclip.program.copy_in',
+                                    program=name):
+                    self._copy_in(inputs)
+                with profiling.span('yoloclip.program.replay', program=name):
+                    if self.graph is None:        # the CPU: no capture
+                        out = self._body(*self.static)
+                    else:
+                        if self._marks is not None:
+                            self._marks.read()
+                        self.graph.replay()
+                        if self._marks is not None:
+                            self._marks.replayed()
+                        add_counts(self._delta)
+                        out = self.outputs
+                profiling.count('program.replays.' + name)
+                with profiling.span('yoloclip.program.clone_out',
+                                    program=name):
+                    return _map(torch.clone, out)
+        finally:
+            self._lock.release()
 
 
 def _end_failed_capture(device: torch.device,
@@ -352,19 +398,23 @@ class ProgramCache:
         without `local`, `portable`), checked before anything runs. local:
         the part of the key that is this rank's own (its shard's index)."""
         device = _device(device)
-        full = (name, device, key) + tuple((tuple(x.shape), x.dtype)
-                                           for x in inputs)
-        if self.agreement is not None:
-            self.agreement.check(full if agreed is None else agreed)
-        if local is not None:
-            full = full + (local,)
-        prog = self._programs.get(full)
+        with profiling.span('yoloclip.program.lookup', program=name):
+            full = (name, device, key) + tuple((tuple(x.shape), x.dtype)
+                                               for x in inputs)
+            if self.agreement is not None:
+                self.agreement.check(full if agreed is None else agreed)
+            if local is not None:
+                full = full + (local,)
+            prog = self._programs.get(full)
         if prog is None:
             with self._lock:
                 prog = self._programs.get(full)
                 if prog is None:
-                    prog, first = ShapeProgram.build(name, full, body,
-                                                     inputs, device, grad)
+                    with profiling.span('yoloclip.program.capture',
+                                        program=name):
+                        prog, first = ShapeProgram.build(name, full, body,
+                                                         inputs, device, grad)
+                    profiling.count('program.captures.' + name)
                     self._programs[full] = prog
                     return first
         return prog(inputs)

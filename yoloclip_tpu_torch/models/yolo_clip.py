@@ -39,6 +39,7 @@ from yoloclip_tpu_torch.ops.kernels.similarity import (
     sharded_projected_similarity_argmax)
 from yoloclip_tpu_torch.parallel import spatial
 from yoloclip_tpu_torch.parallel.collectives import ClassShard, merge_argmax
+from yoloclip_tpu_torch.utils import profiling
 
 
 class YOLOCLIP(nn.Module):
@@ -105,8 +106,10 @@ class YOLOCLIP(nn.Module):
                      and cfg.cls_alpha > 0)
 
         feats = self.backbone(x)
+        profiling.mark('backbone')
         pan, text = self.neck(feats, text, class_mask, skip_image_pool,
                               class_shard)
+        profiling.mark('neck')
 
         out: Dict[str, torch.Tensor] = {}
         if use_fused:
