@@ -2370,6 +2370,182 @@ def _shared_pool_threads(det, srv, frames, pool) -> None:
                 f'call {i}: packed max|diff| {err:.3e}')
 
 
+# Pageable frames of the benchmark's two frame shapes, the calls a trace
+# of the staged upload holds (inference/program.py::_stage), and the least
+# share of each pinned upload but the first that must lie under kernels
+# (0.90-1.00 read on the H100; a copy ordered behind the replay reads 0)
+UPLOAD_HW = ((480, 640), (720, 1280))
+UPLOAD_TRACED = 8
+UPLOAD_UNDER = 0.5
+# Batch sizes a thread captures while another stages uploads
+CAPTURE_WHILE_STAGING = (1, 2, 3, 4)
+
+
+def _one_ahead(det, batches, n: int) -> None:
+    """n detect_batch calls over `batches` as `perfbench/drivers/batch.py`
+    makes them: each call's results come down into pinned memory behind
+    an event, and the caller waits for call k's only after issuing k + 1."""
+    prev = None
+    for i in range(n):
+        out = det.detect_batch(batches[i % len(batches)])
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in out.items()}
+        for k, v in out.items():
+            host[k].copy_(v, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        if prev is not None:
+            prev.synchronize()
+        prev = ev
+    prev.synchronize()
+
+
+def _staged_uploads(det, tmp: str, card: str) -> None:
+    """detect_batch on pageable frames, which its program stages through
+    pinned memory on the device's copy stream, for each of UPLOAD_HW: results
+    bit-equal to the same frames passed on the card; overwriting the
+    caller's array as soon as the call returns changes nothing;
+    `program.uploads.detect_batch` counts every call; and in a trace of
+    UPLOAD_TRACED one-call-ahead calls every pinned upload but the first
+    overlaps a kernel (the replay before it). Prints img/s one call ahead,
+    pageable against on the card."""
+    from yoloclip_tpu_torch.utils.profiling import _device_events, take, trace
+    rng = np.random.RandomState(92)
+    for h, w in UPLOAD_HW:
+        tag = f'[graphs] staged upload {h}x{w}'
+        pages = [rng.randint(0, 256, (BATCH, h, w, 3), dtype=np.uint8)
+                 for _ in range(2)]
+        cards = [torch.from_numpy(p).cuda() for p in pages]
+        det.detect_batch(pages[0])             # captured if it was not
+        want = [det.detect_batch(c) for c in cards]
+        for i, p in enumerate(pages):
+            got = det.detect_batch(p)
+            for k in want[i]:
+                require(torch.equal(got[k], want[i][k]),
+                        f'{tag}: {k} differs from the frames on the card')
+        scratch = pages[0].copy()
+        got = det.detect_batch(scratch)
+        scratch[:] = pages[1]                  # the caller reuses its array
+        for k in want[0]:
+            require(torch.equal(got[k], want[0][k]),
+                    f'{tag}: overwriting the caller\'s array after the '
+                    f'call changed {k}')
+        # the calls' pinned result buffers cached, as after a warm-up: a
+        # new pinned allocation can hold the host until the device is idle
+        _one_ahead(det, pages, UPLOAD_TRACED)
+        take()
+        log_dir = os.path.join(tmp, f'upload_{h}x{w}')
+        with trace(log_dir) as prof:
+            _one_ahead(det, pages, UPLOAD_TRACED)
+        counters = take()['counters']
+        uploads = counters.get('program.uploads.detect_batch', 0)
+        waits = counters.get('program.upload_waits.detect_batch', 0)
+        require(uploads == UPLOAD_TRACED,
+                f'{tag}: {uploads} uploads counted for {UPLOAD_TRACED} calls')
+        dev = _device_events(prof.events())
+        copies = sorted((e.time_range.start, e.time_range.end) for e in dev
+                        if 'HtoD' in e.name and 'Pinned' in e.name)
+        kernels = [(e.time_range.start, e.time_range.end) for e in dev
+                   if not e.name.startswith(('Memcpy', 'Memset'))]
+        shares = []
+        for a, b in copies[1:]:
+            under = sum(max(0, min(b, e) - max(a, s)) for s, e in kernels
+                        if s < b and e > a)
+            shares.append(min(under, b - a) / max(b - a, 1e-9))
+        require(len(copies) >= UPLOAD_TRACED
+                and all(x >= UPLOAD_UNDER for x in shares),
+                f'{tag}: {len(copies)} pinned uploads in the trace of '
+                f'{UPLOAD_TRACED} calls; kernel overlap of each but the '
+                f'first {[round(x, 3) for x in shares]}, limit '
+                f'{UPLOAD_UNDER}')
+        rates = []
+        for batches in (cards, pages, pages, cards):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _one_ahead(det, batches, 20)
+            rates.append(20 * BATCH / (time.perf_counter() - t0))
+        ms = [(b - a) / 1e3 for a, b in copies]
+        print(f'{tag}, bs={BATCH}: results bit-equal to the frames on the '
+              f'card; unchanged when the caller overwrites its array after '
+              f'the call; {UPLOAD_TRACED} calls one ahead under the '
+              f'profiler: uploads {uploads}, host waits for the pinned '
+              f'buffer {waits}, pinned uploads {len(copies)} of median '
+              f'{statistics.median(ms):.3f} ms, share of each but the first '
+              f'under kernels min {min(shares):.3f} (limit {UPLOAD_UNDER}) '
+              f'median {statistics.median(shares):.3f}; img/s one call '
+              f'ahead (20 '
+              f'calls) in turns on the card {rates[0]:.1f}, pageable '
+              f'{rates[1]:.1f}, pageable {rates[2]:.1f}, on the card '
+              f'{rates[3]:.1f}  [{card}]')
+
+
+def _capture_while_staging(det, card: str) -> None:
+    """One thread calls det.detect_batch on pageable 480x640 frames, whose
+    uploads go up on the device's copy stream outside the device lock,
+    while another captures detect_batch's programs at each of
+    CAPTURE_WHILE_STAGING, under that lock and the capture lock. The copy
+    stream is not the capture stream, no call raises, and every result
+    equals the same frames' result on the card: an upload queued on the
+    stream being captured would land in that graph and not run."""
+    from yoloclip_tpu_torch.inference import program
+    dev = torch.device('cuda', torch.cuda.current_device())
+    tag = '[graphs] capture while staging'
+    rng = np.random.RandomState(93)
+    page = rng.randint(0, 256, (BATCH, 480, 640, 3), dtype=np.uint8)
+    smalls = [rng.randint(0, 256, (b, 480, 640, 3), dtype=np.uint8)
+              for b in CAPTURE_WHILE_STAGING]
+    want = det.detect_batch(torch.from_numpy(page).cuda())
+    det.detect_batch(page)                 # its program captured
+    before = len(det.programs.programs())
+    done = threading.Event()
+    staged, captured, errors = [], [], []
+
+    def stage():
+        try:
+            while not done.is_set() or len(staged) < POOL_CALLS:
+                staged.append(det.detect_batch(page))
+        except Exception as e:            # reported below, fails the run
+            errors.append(e)
+            done.set()
+
+    def capture():
+        try:
+            for s in smalls:
+                captured.append(det.detect_batch(s))
+        except Exception as e:
+            errors.append(e)
+        finally:
+            done.set()
+
+    threads = [threading.Thread(target=stage),
+               threading.Thread(target=capture)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    require(not errors and len(captured) == len(smalls),
+            f'{tag}: {errors[:1]}')
+    made = len(det.programs.programs()) - before
+    require(made == len(smalls),
+            f'{tag}: {made} programs captured for {len(smalls)} batch sizes')
+    require(program._copy_stream(dev) != program._pool_and_stream(dev)[1],
+            f'{tag}: the copy stream is the capture stream')
+    for i, got in enumerate(staged):
+        for k in want:
+            require(torch.equal(got[k], want[k]),
+                    f'{tag}: staged call {i}: {k} differs from the card\'s')
+    for s, got in zip(smalls, captured):
+        again = det.detect_batch(torch.from_numpy(s).cuda())
+        for k in again:
+            require(torch.equal(got[k], again[k]),
+                    f'{tag}: capture at bs={len(s)}: {k} differs from the '
+                    f'card\'s')
+    print(f'{tag}: {len(staged)} staged calls at bs={BATCH} while another '
+          f'thread captured bs={list(CAPTURE_WHILE_STAGING)}: copy stream '
+          f'not the capture stream, every result bit-equal to the frames '
+          f'on the card  [{card}]')
+
+
 def _forced_sync_raises(grad: bool = False) -> bool:
     """A body that syncs (`.item()`) raises at capture, naming the program
     and its key; a capture after it still works. grad: both bodies run a
@@ -2497,9 +2673,11 @@ def phase_graphs(sim, nms, i8, detectors, frames, tmp, card) -> dict:
               + ' s, capture ' + ', '.join(f'{p.capture_s:.3f}' for p in progs)
               + f' s  [{card}]')
     dev = torch.device('cuda', torch.cuda.current_device())
+    _, bdet = detectors[1]
+    _staged_uploads(bdet, tmp, card)
+    _capture_while_staging(bdet, card)
 
     # both detect() branches, float bf16, against their eager bodies
-    _, bdet = detectors[1]
     text = bdet.offline_vocabulary
     frame = frames[0].cpu().numpy()
     bdet.detect(frame)                     # the device-letterbox program

@@ -13,7 +13,8 @@ jitted function's `_cache_size()` over the same calls; new thresholds give
 JAX's results at each setting (the port captures a program a threshold
 pair, JAX traces them); a vocabulary of the same size reuses the program;
 and a non-square canvas (96 x 160) on landscape, portrait and 2x-oversize
-frames.
+frames; and on the CPU a host input still goes straight into the static
+buffers (the card stages it through pinned memory, `chip_smoke.py`).
 
 Tolerances: counts, validity, saturation flags and class ids exact;
 scores atol 1e-5 and boxes atol 1e-3 px (as tests/test_torch_detector.py);
@@ -45,9 +46,11 @@ from yoloclip_tpu.text.encoder import save_text_tower_params
 from yoloclip_tpu.text.model import CLIPTextTransformer as JaxTower
 from yoloclip_tpu_torch.config import InferenceConfig, ModelConfig
 from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
+from yoloclip_tpu_torch.inference import program
 from yoloclip_tpu_torch.inference.program import ProgramCache
 from yoloclip_tpu_torch.inference.server import DetectionServer
 from yoloclip_tpu_torch.inference.streaming import StreamingDetector
+from yoloclip_tpu_torch.utils import profiling
 from yoloclip_tpu_torch.utils.convert import state_dict_from_jax
 
 torch.set_num_threads(2)
@@ -442,3 +445,53 @@ def test_threads_share_device_programs(pair):
             assert torch.equal(g[k], want[k]), k
     for g in got_srv:
         assert torch.equal(g, want_srv)
+
+
+@pytest.mark.parametrize('as_tensor', [False, True], ids=['numpy', 'tensor'])
+def test_cpu_copy_in_stays_direct(pair, as_tensor):
+    """On the CPU a program copies host inputs straight into its static
+    buffers (the card stages them through pinned memory on a copy stream):
+    the result is the eager body's, the pageable bytes are counted as
+    before, no upload is counted, and a caller that overwrites its frames
+    once the call returns holds the result of the frames it passed."""
+    _, det = pair
+    text = det.offline_vocabulary
+    frames = _frames(30, 2, 44, 52)
+    kept = frames.copy()
+    passed = torch.from_numpy(frames) if as_tensor else frames
+    det.detect_batch(passed)                  # the program of the shape
+    profiling.enable(True)
+    try:
+        got = det.detect_batch(passed)
+        counters = profiling.take()['counters']
+    finally:
+        profiling.enable(None)
+        profiling.take()
+    frames[:] = 255 - kept                    # the caller reuses its array
+    want = det._detect_batch_eager(torch.from_numpy(kept), text)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert counters['program.copy_in_bytes.pageable'] == (
+        kept.nbytes + text.numel() * text.element_size())
+    assert not [k for k in counters
+                if k.startswith(('program.uploads.', 'program.upload_waits.'))]
+
+
+def test_capture_stream_is_never_the_copy_stream(monkeypatch):
+    """torch hands out its pooled streams in turn, so a stream drawn later
+    can be one drawn before. The capture stream is drawn until it is not
+    the device's copy stream (an upload queued there while another thread
+    captures would land in that graph), also after a failed capture
+    retires it. Stand-in streams from a pool of two."""
+    pool = iter(['s0', 's1'] * 4)
+    monkeypatch.setattr(torch.cuda, 'Stream', lambda device: next(pool))
+    monkeypatch.setattr(torch.cuda, 'graph_pool_handle', lambda: 'pool')
+    monkeypatch.setattr(program, '_shared', {})
+    monkeypatch.setattr(program, '_copy_streams', {})
+    dev = torch.device('cuda', 0)
+    assert program._pool_and_stream(dev) == ('pool', 's0')
+    assert program._copy_stream(dev) == 's1'
+    for _ in range(3):
+        program._shared.pop(dev)              # as after a failed capture
+        assert program._pool_and_stream(dev)[1] == 's0'
+    assert program._copy_stream(dev) == 's1'

@@ -19,16 +19,34 @@ body on the same static buffers without capture.
     confidence mask compares with a Python float, so a new threshold pair
     captures a new program.
   * A program owns static input buffers. A call `copy_`s its inputs into
-    them (non_blocking: a pinned source stays asynchronous), replays, and
-    CLONES the outputs: JAX returns fresh arrays on every call, and a
-    result the caller holds must not change when the next call replays.
+    them, replays, and CLONES the outputs: JAX returns fresh arrays on
+    every call, and a result the caller holds must not change when the
+    next call replays.
+  * On the card a host input goes up before the replay is queued, as
+    JAX's `device_put` overlaps the running program: on the device's
+    copy stream (from torch's pool, so not ordered behind the default
+    stream's work, and never the capture stream), into a device slot of
+    the program's own beside its static buffer. A pageable input is
+    first copied on the host into the program's pinned buffer, once the
+    previous upload has read that buffer; a pinned one goes up from the
+    caller's tensor. The upload
+    waits on the device only for the previous call's slot-to-static copy,
+    so it runs under the previous replay. Then, under the device lock,
+    the current stream waits for the upload, copies slot -> static on the
+    device and replays. The call returns once the caller's pageable
+    memory is read: the caller may overwrite it. Inputs already on the
+    device, and every program on the CPU, copy straight into the static
+    buffers under the device lock. A program's own lock keeps two
+    threads' calls of one program (its slots, buffers and events) apart;
+    the host copy and the upload hold no device lock.
   * Every program on a device captures into ONE graph pool, so a
     program's static outputs may lie in memory that another program uses
     for its intermediates. A call therefore holds its DEVICE's lock from
-    the copy-in through the replay to the clone-out, all queued on the
-    device's current stream (its default stream in this package: the
-    server's threads, the streaming loop, the detector), so no other
-    program's replay is queued between a replay and its clone.
+    the copy into the static buffers through the replay to the clone-out,
+    all queued on the device's current stream (its default stream in
+    this package: the server's threads, the streaming loop, the
+    detector), so no other program's replay is queued between a replay
+    and its clone.
   * The first call of a key runs the body eagerly on the static buffers,
     on the capture stream, and returns that result: the warm-up pays the
     first-call set-up (kernel attributes, cuDNN and cuBLAS state for the
@@ -67,15 +85,19 @@ body on the same static buffers without capture.
   * Graphs do not outlive the process: there is no counterpart of the
     JAX package's persistent compile cache.
   * Under tracing (`utils/profiling.py`) a call is the spans
-    `yoloclip.program.lookup`, `.lock`, `.copy_in`, `.replay` and
+    `yoloclip.program.lookup`, `.stage` (the host inputs' upload on the
+    card, where there are any), `.lock`, `.copy_in`, `.replay` and
     `.clone_out` (`.capture`, the warm-up and the capture, in place of the
     last three on a miss), each with the program's name; it counts
-    `program.replays.<name>`, `program.captures.<name>` and the bytes
+    `program.replays.<name>`, `program.captures.<name>`, the bytes
     copied in by source (`program.copy_in_bytes.pageable`, `.pinned`,
-    `.device`). The body's stage marks are captured into the graph as
-    event-record nodes whether tracing is on or not, and a traced replay's
-    stages are read once it is done (by a background thread, else before
-    the program's next replay; `profiling.GraphMarks`).
+    `.device`), the calls whose host inputs went up on the copy stream
+    (`program.uploads.<name>`) and those of them that waited on the host
+    for the pinned buffer (`program.upload_waits.<name>`). The body's
+    stage marks are captured into the graph as event-record nodes whether
+    tracing is on or not, and a traced replay's stages are read once it
+    is done (by a background thread, else before the program's next
+    replay; `profiling.GraphMarks`).
 """
 
 from __future__ import annotations
@@ -100,6 +122,9 @@ _shared: Dict[torch.device, tuple] = {}
 # device -> the lock every program on the device holds from copy-in to
 # clone-out (never retired: programs of a retired pool keep using it)
 _device_locks: Dict[torch.device, threading.Lock] = {}
+# device -> the stream every program on the device uploads its host inputs
+# on, outside the device lock (never retired; no capture stream is it)
+_copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
 
 
 def _device(device: torch.device) -> torch.device:
@@ -148,12 +173,27 @@ def _map(fn, out):
     return fn(out)
 
 
+def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream `device`'s programs upload host inputs on: from torch's
+    pool, so not ordered behind the default stream's replays."""
+    got = _copy_streams.get(device)
+    if got is None:
+        got = _copy_streams.setdefault(device, torch.cuda.Stream(device))
+    return got
+
+
 def _pool_and_stream(device: torch.device) -> tuple:
-    """(graph pool handle, capture stream) of `device`, made once."""
+    """(graph pool handle, capture stream) of `device`, made once. torch
+    hands out its 32 pooled streams in turn, so the capture stream is
+    drawn until it is not the copy stream: an upload queued there while
+    another thread captures would land in that thread's graph."""
     got = _shared.get(device)
     if got is None:
+        stream = torch.cuda.Stream(device)
+        while stream == _copy_stream(device):
+            stream = torch.cuda.Stream(device)
         got = _shared.setdefault(device, (torch.cuda.graph_pool_handle(),
-                                          torch.cuda.Stream(device)))
+                                          stream))
     return got
 
 
@@ -180,9 +220,18 @@ class ShapeProgram:
         self.name, self.key, self.device = name, key, device
         self.grad = grad
         self._body = body
+        self._own = threading.Lock()        # one call of this program
         self._lock = _device_lock(device)   # copy-in -> replay -> clone-out
         self.static = [torch.empty(x.shape, dtype=x.dtype, device=device)
                        for x in inputs]
+        # the upload of host inputs on the card (`_stage`), made by the
+        # first call that needs them: by input, a device slot and, for a
+        # pageable input, a pinned host buffer; the events 'uploaded' (on
+        # the device's copy stream) and 'slot free' (after the
+        # slot-to-static copies on the current stream)
+        self._slots: Dict[int, torch.Tensor] = {}
+        self._pinned: Dict[int, torch.Tensor] = {}
+        self._uploaded = self._slot_free = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs = None
         # the stage marks captured into the graph (None: the body has none)
@@ -196,26 +245,76 @@ class ShapeProgram:
               grad: bool = False):
         """(program, the result of its first call on `inputs`)."""
         prog = cls(name, key, body, inputs, device, grad)
-        with prog._lock, prog._mode():
-            prog._copy_in(inputs)
-            if prog.device.type != 'cuda':
-                return prog, _map(torch.clone, body(*prog.static))
-            return prog, prog._capture()
+        with prog._own, prog._mode():
+            sources, staged = prog._stage(inputs)
+            with prog._lock:
+                prog._copy_in(sources, staged)
+                if prog.device.type != 'cuda':
+                    return prog, _map(torch.clone, body(*prog.static))
+                return prog, prog._capture()
 
     def _mode(self):
         return torch.enable_grad() if self.grad else torch.inference_mode()
 
-    def _copy_in(self, inputs: Sequence[torch.Tensor]) -> None:
-        # counted before the copies: a pageable copy waits for the device,
-        # so host work ahead of it leaves the device no idler
+    def _stage(self, inputs: Sequence[torch.Tensor]) -> tuple:
+        """(what each static buffer is copied from under the device lock,
+        whether an upload was staged). On the card every host input goes
+        up now on the device's copy stream into its slot (the module's
+        docstring): a pageable one through the pinned buffer, after a
+        host wait for the previous upload where it has not yet read the
+        buffer (counted), a pinned one from the caller's tensor. Each
+        upload waits on the device for the previous call's slot-to-static
+        copies. Elsewhere, and for device inputs, the input itself."""
         if profiling.enabled():
             for x in inputs:
                 source = ('device' if x.device.type != 'cpu' else
                           'pinned' if x.is_pinned() else 'pageable')
                 profiling.count('program.copy_in_bytes.' + source,
                                 x.numel() * x.element_size())
-        for s, x in zip(self.static, inputs):
+        host = [i for i, x in enumerate(inputs) if x.device.type == 'cpu']
+        if self.device.type != 'cuda' or not host:
+            return inputs, False
+        with profiling.span('yoloclip.program.stage', program=self.name):
+            if self._uploaded is None:
+                self._uploaded = torch.cuda.Event()
+                self._slot_free = torch.cuda.Event()
+            pageable = {i for i in host if not inputs[i].is_pinned()}
+            if pageable and not self._uploaded.query():
+                profiling.count('program.upload_waits.' + self.name)
+                self._uploaded.synchronize()
+            stream = _copy_stream(self.device)
+            for i in host:
+                if i not in self._slots:
+                    self._slots[i] = torch.empty_like(self.static[i])
+                    self._slots[i].record_stream(stream)
+            sources = list(inputs)
+            with torch.cuda.stream(stream):
+                stream.wait_event(self._slot_free)
+                for i in host:
+                    x = inputs[i]
+                    if i in pageable:
+                        if i not in self._pinned:
+                            self._pinned[i] = torch.empty(
+                                x.shape, dtype=x.dtype, pin_memory=True)
+                        x = self._pinned[i].copy_(x)   # on all cores
+                    self._slots[i].copy_(x, non_blocking=True)
+                    sources[i] = self._slots[i]
+                self._uploaded.record(stream)
+        profiling.count('program.uploads.' + self.name)
+        return sources, True
+
+    def _copy_in(self, sources: Sequence[torch.Tensor], staged: bool
+                 ) -> None:
+        """Copy `sources` (`_stage`) into the static buffers, under the
+        device lock; after a staged upload the current stream waits for
+        it first and marks the slots free after."""
+        if staged:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(self._uploaded)
+        for s, x in zip(self.static, sources):
             s.copy_(x, non_blocking=True)
+        if staged:
+            self._slot_free.record(current)
 
     def _capture(self):
         """Warm the body up on the capture stream (the first call's
@@ -264,13 +363,14 @@ class ShapeProgram:
         previous traced replay, where no background read took them, are
         read before the graph replays again."""
         name = self.name
-        with profiling.span('yoloclip.program.lock', program=name):
-            self._lock.acquire()
-        try:
-            with self._mode():
+        with self._own, self._mode():
+            sources, staged = self._stage(inputs)
+            with profiling.span('yoloclip.program.lock', program=name):
+                self._lock.acquire()
+            try:
                 with profiling.span('yoloclip.program.copy_in',
                                     program=name):
-                    self._copy_in(inputs)
+                    self._copy_in(sources, staged)
                 with profiling.span('yoloclip.program.replay', program=name):
                     if self.graph is None:        # the CPU: no capture
                         out = self._body(*self.static)
@@ -286,8 +386,8 @@ class ShapeProgram:
                 with profiling.span('yoloclip.program.clone_out',
                                     program=name):
                     return _map(torch.clone, out)
-        finally:
-            self._lock.release()
+            finally:
+                self._lock.release()
 
 
 def _end_failed_capture(device: torch.device,

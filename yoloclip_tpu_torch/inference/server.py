@@ -359,7 +359,7 @@ class DetectionServer:
                     canv[rows].to(dev, non_blocking=True),
                     self._text_on(text, dev), m[:, 0], m[:, 1:],
                     model=model))
-            else:    # the pinned rows go straight into the static buffers
+            else:    # the pinned rows go up on the device's copy stream
                 outs.append(self.programs.run(
                     'bucket', det._program_key(model),
                     det._canvas_body(model), (canv[rows], text, meta[rows]),

@@ -361,13 +361,15 @@ class GraphMarks:
     """The stage marks captured into one program's graph: (stage, event)
     in order. The program calls `read` before each replay and `replayed`
     after it. With tracing on a replay's marks wait to be read, once:
-      * by a background thread, as soon as the replay's last mark is done:
-        the caller is then mostly elsewhere (its next pageable copy-in
-        waits for this replay with the GIL released), so the read costs
-        the device no idle time;
+      * by a background thread, as soon as the replay's last mark is done,
+        so the read costs the device no idle time;
       * else by `read` before the next replay (counted as
         `stage_samples_read_at_launch`), which never waits: a replay still
-        running is counted as `stage_samples_missed`;
+        running is counted as `stage_samples_missed`, since the next
+        replay records the same events again. A caller that queues its
+        next call while the replay runs (one call ahead, its upload
+        staged under the replay) thus leaves only the last replay of such
+        a run to read;
       * or by `take`.
     Every read holds `_guard`, and so does the program's `read` before it
     replays: no replay records the events again while they are read."""
@@ -484,7 +486,11 @@ def mark(stage: str, device=None) -> None:
     capture = getattr(_local, 'capture', None)
     if capture is not None:
         if stage == START or capture:
-            ev = torch.cuda.Event(enable_timing=True, external=True)
+            # blocking: the reading thread sleeps in its wait for a
+            # replay instead of spinning on a core the caller's host
+            # copies use
+            ev = torch.cuda.Event(enable_timing=True, blocking=True,
+                                  external=True)
             ev.record()
             capture.append((stage, ev))
         return
