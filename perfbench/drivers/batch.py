@@ -67,7 +67,7 @@ def run(ctx) -> Dict:
     pool = tr.batch_pool(t, ctx.seed, dev)
     det = system.detector(ctx.cfg, ctx.state_dict, ctx.vocab_path, dev)
     if ctx.control:
-        det.quantize_int8(pool[0][:8])
+        ctx.arch.control(det, pool[0])
     for frames in pool:
         _Call(det, frames, 0, cuda).finish()
     stretch = tc.Stretch() if ctx.trace else None

@@ -1,4 +1,5 @@
-"""Runs the plain reference over the frames whose answers are judged, in
+"""Runs the plain reference of the configuration's architecture
+(`perfbench/architectures/`) over the frames whose answers are judged, in
 blocks, and judges each answer (`judge.py`).
 
 It is given only what the benchmark made (the seeded weights, the
@@ -14,9 +15,9 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from perfbench.lib import judge
+from perfbench.lib import arch, judge
 from perfbench.reference.letterbox import device_letterbox
-from perfbench.reference.model import YOLOCLIPReference, fp32_strict
+from perfbench.reference.model import fp32_strict
 
 
 @dataclass
@@ -29,10 +30,8 @@ class Item:
 
 
 def reference_model(cfg: Dict, state_dict: Dict[str, torch.Tensor],
-                    device) -> YOLOCLIPReference:
-    m = YOLOCLIPReference(cfg['backbone_variant'], cfg['embed_dim'],
-                          cfg['hidden_dim'], cfg['reg_max'],
-                          cfg['neck_bottlenecks'], cfg['strides'])
+                    device) -> torch.nn.Module:
+    m = arch.load(cfg).reference(cfg)
     m.load_state_dict({k: v.float() if v.is_floating_point() else v
                        for k, v in state_dict.items()})
     return m.to(device).eval()
@@ -47,7 +46,7 @@ def _canvases(frames: Sequence[np.ndarray], target, device):
     return canv, scale, (w, h)
 
 
-def check(items: Sequence[Item], cfg: Dict, model: YOLOCLIPReference,
+def check(items: Sequence[Item], cfg: Dict, model: torch.nn.Module,
           text: torch.Tensor, device, block: int = 8
           ) -> Tuple[List[Dict[str, float]], List[Dict]]:
     """(readings of every answer of every item, each item's pool: its

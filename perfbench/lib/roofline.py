@@ -9,9 +9,11 @@ roofline share is that bound over the device time it took.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import torch
+
+from perfbench.lib import arch
 
 # NVIDIA's data sheet, SXM part, dense (no sparsity), at the 700 W limit.
 BF16_TENSOR = 989e12       # FLOP/s
@@ -51,18 +53,26 @@ def nms_cost(valid: Sequence[int], K: int) -> Tuple[float, float]:
     return float(12 * pairs), float(len(valid) * K * (16 + 1 + 1))
 
 
-def model_flops_per_image(variant: str, classes: int,
-                          hw: Tuple[int, int] = (640, 640)) -> float:
-    """FLOPs of one image through the plain reference's forward, counted by
-    `FlopCounterMode` on the meta device (no memory, no time): the same
-    count whatever implements the step."""
+def forward_flops(build: Callable[[], torch.nn.Module],
+                  *shapes: Sequence[int]) -> float:
+    """FLOPs of `build()` applied to empty tensors of `shapes`, all made
+    on the meta device (no memory, no time) and counted by
+    `FlopCounterMode`."""
     from torch.utils.flop_counter import FlopCounterMode
-
-    from perfbench.reference.model import YOLOCLIPReference
     with torch.device('meta'):
-        m = YOLOCLIPReference(variant)
-        x = torch.empty((1, 3) + tuple(hw))
-        t = torch.empty((classes, 512))
+        m = build()
+        args = [torch.empty(tuple(s)) for s in shapes]
     with FlopCounterMode(display=False) as fc:
-        m(x, t)
+        m(*args)
     return float(fc.get_total_flops())
+
+
+def model_flops_per_image(cfg: Union[Dict, str], classes: int,
+                          hw: Tuple[int, int] = (640, 640)) -> float:
+    """FLOPs of one image through the plain reference's forward of the
+    configuration's architecture (`cfg` as a configuration dict, or a
+    YOLO-CLIP backbone variant at the default widths): the same count
+    whatever implements the step."""
+    if isinstance(cfg, str):
+        cfg = {'backbone_variant': cfg}
+    return arch.load(cfg).flops_per_image(cfg, classes, hw)

@@ -7,8 +7,11 @@ system is used.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Dict
+
+from perfbench.lib import arch
 
 
 def quiet() -> None:
@@ -18,26 +21,35 @@ def quiet() -> None:
     logging.getLogger('yoloclip_tpu_torch').setLevel(logging.ERROR)
 
 
-def detector(cfg: Dict, state_dict, vocab_path: str, device):
-    """A YOLOCLIPDetector with the configuration's model and inference
-    settings, the seeded weights (reference layout) and the seeded
-    offline vocabulary."""
+def inference_config(cfg: Dict):
+    """The system's InferenceConfig of a configuration file: every key of
+    the file that names a field of the system's ModelConfig (lists as
+    tuples), and the inference settings. Raises where the system's
+    ModelConfig lacks a field that the file's architecture needs
+    (`model_fields` of its plug-in), so that a configuration never
+    silently builds another model."""
     from yoloclip_tpu_torch.config import InferenceConfig, ModelConfig
-    from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
-    model = ModelConfig(
-        backbone_variant=cfg['backbone_variant'],
-        clip_model=cfg['clip_model'], embed_dim=cfg['embed_dim'],
-        reg_max=cfg['reg_max'], strides=tuple(cfg['strides']),
-        hidden_dim=cfg['hidden_dim'],
-        neck_bottlenecks=cfg['neck_bottlenecks'],
-        cls_alpha=cfg['cls_alpha'], cls_beta=cfg['cls_beta'],
-        image_size=tuple(cfg['image_size']), dtype=cfg['dtype'])
-    inf = InferenceConfig(
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    missing = [f for f in arch.load(cfg).model_fields if f not in fields]
+    if missing:
+        raise ValueError(
+            f'architecture {cfg.get("architecture", arch.DEFAULT)!r} needs '
+            f'ModelConfig fields {missing} that the system does not have')
+    model = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in cfg.items() if k in fields})
+    return InferenceConfig(
         model=model, conf_threshold=cfg['conf_threshold'],
         iou_threshold=cfg['iou_threshold'], nms_topk=cfg['nms_topk'],
         max_detections=cfg['max_detections'],
         class_agnostic_nms=cfg['class_agnostic_nms'])
-    return YOLOCLIPDetector(inf, vocab_path=vocab_path,
+
+
+def detector(cfg: Dict, state_dict, vocab_path: str, device):
+    """A YOLOCLIPDetector with the configuration's model and inference
+    settings (`inference_config`), the seeded weights (the architecture's
+    layout) and the seeded offline vocabulary."""
+    from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
+    return YOLOCLIPDetector(inference_config(cfg), vocab_path=vocab_path,
                             state_dict=state_dict, device=device, seed=0)
 
 

@@ -5,21 +5,21 @@ Everything is drawn on the card (or the device given) from one
 so the same seed gives the same inputs and set-up stays short.
 
 Weights follow the system's own random-init rule (lecun-normal conv and
-linear kernels, zero biases, xavier-uniform attention projections), with
-its one prior: the box towers' last biases are -k on DFL bin k, so random
-boxes come out at object scale and overlap as real candidates do. With
-identity BatchNorm such a network's activations shrink by about half a
-layer (to 1e-6 of the input at the heads), so the box towers' output is
-their bias alone and every anchor's box has one shape. So the BatchNorm
-statistics are set as a trained network's are: each layer's running mean
-and variance are those of its input over a seeded calibration batch, run
-through the plain reference (`calibrate_batchnorm`), and every BatchNorm
-scales by BN_GAIN. Every layer then hands on activations of one scale,
-and boxes, scores and classes depend on the frame. At a gain of 1 the
-SiLU network is chaotic (a rounding error grows about 1.2 times a layer,
-so bf16 and float32 answers part completely at YOLOv8l's depth); at 0.25
-it is not. The weights are keyed in the reference layout, which the
-system loads with `state_dict=`.
+linear kernels, zero biases, xavier-uniform attention projections),
+keyed in the layout of the configuration's architecture
+(`perfbench/architectures/`), which the system loads with `state_dict=`;
+the architecture adds its output-bias prior. With identity BatchNorm such
+a network's activations shrink by about half a layer (to 1e-6 of the
+input at the heads), so the box towers' output is their bias alone and
+every anchor's box has one shape. So the BatchNorm statistics are set as
+a trained network's are: each layer's running mean and variance are those
+of its input over a seeded calibration batch, run through the
+architecture's plain reference (`calibrate_batchnorm`), and every
+BatchNorm scales by BN_GAIN. Every layer then hands on activations of one
+scale, and boxes, scores and classes depend on the frame. At a gain of 1
+the SiLU network is chaotic (a rounding error grows about 1.2 times a
+layer, so bf16 and float32 answers part completely at YOLOv8l's depth);
+at 0.25 it is not.
 """
 
 from __future__ import annotations
@@ -27,10 +27,12 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from perfbench.lib import arch
 
 INT63 = (1 << 63) - 1
 BN_GAIN = 0.25
@@ -42,11 +44,18 @@ def generator(seed: int, device) -> torch.Generator:
     return g
 
 
-def _kind(key: str, shape: Tuple[int, ...]) -> str:
+def init_kind(key: str, shape: Tuple[int, ...]) -> str:
+    """How `seeded_state_dict` draws a key, by PyTorch's key names:
+    BatchNorm ('.bn.') weight 'gain' (BN_GAIN), its running variance
+    'one', its bias and running mean 'zero'; packed attention projections
+    'xavier'; other kernels of 2 or more dimensions 'lecun'; everything
+    else 'zero' ('zero_long' for the batch counters)."""
     if key.endswith('num_batches_tracked'):
         return 'zero_long'
     if '.bn.' in key:
-        return 'one' if key.endswith(('weight', 'running_var')) else 'zero'
+        if key.endswith('weight'):
+            return 'gain'
+        return 'one' if key.endswith('running_var') else 'zero'
     if key.endswith('in_proj_weight'):
         return 'xavier'
     if key.endswith('weight') and len(shape) >= 2:
@@ -55,14 +64,15 @@ def _kind(key: str, shape: Tuple[int, ...]) -> str:
 
 
 def seeded_state_dict(shapes: Dict[str, Tuple[int, ...]], seed: int,
-                      device, reg_max: int = 16) -> Dict[str, torch.Tensor]:
-    """Float32 weights for every key of `shapes`, drawn in two calls: one
-    normal draw for every lecun-normal kernel, one uniform draw for the
-    attention projections."""
+                      device, kind: Callable[[str, Tuple[int, ...]], str]
+                      = init_kind) -> Dict[str, torch.Tensor]:
+    """Float32 weights for every key of `shapes`, each drawn as `kind`
+    says, in two calls: one normal draw for every lecun-normal kernel, one
+    uniform draw for the attention projections."""
     g = generator(seed, device)
     out: Dict[str, torch.Tensor] = {}
-    normal = [(k, s) for k, s in shapes.items() if _kind(k, s) == 'lecun']
-    xavier = [(k, s) for k, s in shapes.items() if _kind(k, s) == 'xavier']
+    normal = [(k, s) for k, s in shapes.items() if kind(k, s) == 'lecun']
+    xavier = [(k, s) for k, s in shapes.items() if kind(k, s) == 'xavier']
     for keys, draw in ((normal, 'normal'), (xavier, 'uniform')):
         total = sum(math.prod(s) for _, s in keys)
         flat = torch.empty(total, device=device)
@@ -81,19 +91,14 @@ def seeded_state_dict(shapes: Dict[str, Tuple[int, ...]], seed: int,
                 w.mul_(math.sqrt(6.0 / (s[0] + s[1])))
             out[k] = w
     for k, s in shapes.items():
-        kind = _kind(k, s)
-        if kind == 'one':
-            out[k] = torch.full(s, BN_GAIN if k.endswith('.bn.weight')
-                                else 1.0, device=device)
-        elif kind == 'zero':
+        how = kind(k, s)
+        if how in ('gain', 'one'):
+            out[k] = torch.full(s, BN_GAIN if how == 'gain' else 1.0,
+                                device=device)
+        elif how == 'zero':
             out[k] = torch.zeros(s, device=device)
-        elif kind == 'zero_long':
+        elif how == 'zero_long':
             out[k] = torch.zeros(s, dtype=torch.int64, device=device)
-    prior = -torch.arange(reg_max + 1, dtype=torch.float32,
-                          device=device).repeat(4)
-    for k in shapes:
-        if k.startswith('box_head.box_convs.') and k.endswith('.2.bias'):
-            out[k] = prior.clone()
     return out
 
 
@@ -114,10 +119,8 @@ def calibrate_batchnorm(sd: Dict[str, torch.Tensor], cfg: Dict,
     train mode, with a cumulative average over the one batch). Canvases of
     noise alone would leave deep features of nearly no spatial variance,
     which a black border then blows up."""
-    from perfbench.reference.model import YOLOCLIPReference, fp32_strict
-    model = YOLOCLIPReference(cfg['backbone_variant'], cfg['embed_dim'],
-                              cfg['hidden_dim'], cfg['reg_max'],
-                              cfg['neck_bottlenecks'], cfg['strides'])
+    from perfbench.reference.model import fp32_strict
+    model = arch.load(cfg).reference(cfg)
     model.load_state_dict(sd)
     model.to(device).train()
     for m in model.modules():

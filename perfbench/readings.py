@@ -7,8 +7,9 @@ benchmark's own runs.
 
 One process runs the cell's whole path (set-up, a short window at the
 cell's own load, the reference and the comparison) once a seed: the
-system as the configuration states it (`sound`), then with its int8 path
-switched on (`control`, `quantize_int8`) on the control seeds, then with
+system as the configuration states it (`sound`), then with the
+architecture's control switched on (`control`: for `yoloclip` the
+system's int8 path, `quantize_int8`) on the control seeds, then with
 each fault of `lib/system.py::fault` planted (`fault:<kind>`) on the
 fault seeds. Each run prints one JSON line: the comparison's numbers, the
 gaps' quantiles and the run's diagnostics.

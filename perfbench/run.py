@@ -12,8 +12,10 @@ configuration (`perfbench/configs/<config>.json`) and a traffic mix
   1. set-up: weights, vocabulary and frames from the seed, the system
      built, every shape of the cell's traffic warmed up and captured;
   2. the measured window, `--seconds` long;
-  3. the plain reference (`perfbench/reference/`) over what the window
-     returned, and the comparison that decides `correct`;
+  3. the plain reference of the configuration's architecture (its
+     plug-in in `perfbench/architectures/`, `yoloclip` unless the
+     configuration names another) over what the window returned, and the
+     comparison that decides `correct`;
   4. the result: the comparison's numbers beside their limits as the last
      lines of standard error, then one JSON line as the last line of
      standard output.
@@ -90,30 +92,29 @@ def _reader(name: str):
 def run_cell(spec: Dict, seed: int, seconds: float, trace: bool, device,
              t_start: float, control: bool = False) -> Dict:
     """One run of a cell on `device`: the result's fields, the comparison's
-    numbers and the run's diagnostics. control: the system's int8 path
-    switched on (the comparison's control)."""
+    numbers and the run's diagnostics. control: the architecture's control
+    switched on in the system (for `yoloclip` its int8 path)."""
     import torch
 
-    from perfbench.lib import check, judge, system, weights
-    from perfbench.reference.model import state_shapes
+    from perfbench.lib import arch, check, judge, system, weights
 
     system.quiet()
     device = torch.device(device)
     cfg, traffic = spec['cfg'], spec['traffic']
-    shapes = state_shapes(cfg['backbone_variant'])
+    plugin = arch.load(cfg)
 
     names, rows = weights.vocabulary(traffic['classes'], cfg['embed_dim'],
                                      seed, device)
 
     def make_weights():
-        sd = weights.seeded_state_dict(shapes, seed, device, cfg['reg_max'])
+        sd = plugin.seeded_state_dict(cfg, seed, device)
         return weights.calibrate_batchnorm(sd, cfg, rows, seed, device)
 
     vocab_path = weights.vocab_file(names, rows)
     ctx = SimpleNamespace(cfg=cfg, traffic=traffic, seed=seed,
                           seconds=float(seconds), trace=bool(trace),
                           device=device, t_start=t_start, control=control,
-                          vocab_path=vocab_path,
+                          arch=plugin, vocab_path=vocab_path,
                           state_dict=make_weights())
     driver = importlib.import_module('perfbench.drivers.'
                                      + traffic['driver'])
