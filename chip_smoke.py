@@ -550,6 +550,50 @@ def phase_kernel1(sim):
     return worst
 
 
+def phase_kernel1_raw(sim):
+    """Kernel 1's folded raw mode (normalize=False: the max not divided by
+    the row norm, YOLO-World's BatchNorm contrastive head) against its
+    plain version, at the main path's and the edges' shapes. The score
+    difference is taken over the row norm ||h K + b||, so SIM_ATOL holds
+    it as it holds the folded mode's. Returns the worst such difference
+    per input type."""
+    g = torch.Generator(device='cuda').manual_seed(2)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst[dtype] = 0.0
+        for A, C, nv in K1_CASES:
+            h, t, K, b = _sim_inputs(g, A, C, dtype)
+            before = sim.raw_launches
+            s, i = sim.fused_projected_similarity_argmax(h, t, K, b, nv,
+                                                         normalize=False)
+            ps, pi = sim.similarity_max_plain(h, t, K, b, nv)
+            norm = (torch.matmul(h.float(), K.to(dtype).float()) + b).norm(
+                dim=-1).clamp_min(1e-12)
+            tp, cb = sim._fold_text(t, K, b, dtype)
+            raw = torch.matmul(h.float(), tp.float().transpose(1, 2)) \
+                + cb[:, None]
+            if nv is not None:
+                raw[..., nv:] = sim.NEG
+            tie = _near_ties(raw, norm)
+            del raw
+            torch.cuda.synchronize()
+            err = ((s - ps).abs() / norm).max().item()
+            bad = ((i != pi) & ~tie).sum().item()
+            worst[dtype] = max(worst[dtype], err)
+            tag = (f'{str(dtype)[6:]:8s} B={BATCH} A={A:5d} C={C:4d} '
+                   f'num_valid={nv}')
+            print(f'[kernel1 raw] {tag}: max|score-plain|/norm={err:.3e} '
+                  f'(tol {SIM_ATOL:g}) id mismatches outside near-ties='
+                  f'{bad} near-tie anchors exempt={int(tie.sum())}')
+            require(sim.raw_launches == before + 1,
+                    f'kernel 1 raw mode did not launch once ({tag})')
+            require(err <= SIM_ATOL, f'kernel 1 raw scores disagree ({tag})')
+            require(bad == 0, f'kernel 1 raw ids disagree ({tag})')
+            _require_ids(i, nv, C, f'kernel 1 raw ({tag})')
+            del h, t
+    return worst
+
+
 def _nms_scene(g, B, K):
     c = torch.rand(B, K, 2, device='cuda', generator=g) * 200
     half = K // 2
@@ -1208,6 +1252,7 @@ def _counts(sim, nms) -> dict:
 def _zero_counts(sim, nms) -> None:
     sim.launches = sim.launches_bf16 = nms.launches = 0
     sim.unprojected_launches = sim.unprojected_launches_bf16 = 0
+    sim.raw_launches = sim.raw_launches_bf16 = 0
 
 
 def _mixed_frames(seed: int, n: int):
@@ -2308,7 +2353,8 @@ POOL_CALLS = 16
 
 def _hand_counts(sim, nms, i8) -> dict:
     """The hand kernels' launch counters, as device events count them."""
-    return {'similarity_wgmma': sim.launches + sim.unprojected_launches,
+    return {'similarity_wgmma': (sim.launches + sim.unprojected_launches
+                                 + sim.raw_launches),
             'nms_mask': nms.launches, 'nms_scan': nms.launches,
             'int8_conv_wgmma': i8.launches}
 
@@ -2791,6 +2837,101 @@ def _store_threshold(value: int):
         yield
     finally:
         layers.STORE_INT8_MIN_ELEMS = old
+
+
+WORLD_STAGES = ['letterbox', 'backbone',
+                'neck_convs.top_down.0', 'text_attn.top_down.0',
+                'neck_convs.top_down.1', 'text_attn.top_down.1',
+                'neck_convs.bottom_up.0', 'text_attn.bottom_up.0',
+                'neck_convs.bottom_up.1', 'text_attn.bottom_up.1',
+                'neck', 'head', 'postprocess']
+
+
+def phase_world_graphs(sim, nms, i8, frames, tmp, card) -> dict:
+    """[world graphs]: YOLO-World v2 at its published L widths and depths
+    (family 'yolo_world_v2'), bf16, LVIS's 1203 classes, through
+    detect_batch's program at the run's BATCH 480x640 frames: the replay
+    against its eager body; kernel 1's raw mode once a level (3 launches)
+    and the NMS kernel once a call, and no other mode of kernel 1; the
+    hand kernels' events in a trace of the program against the counters;
+    the stages its graph marks (one per attention block). Returns the
+    launches of the counted calls."""
+    from yoloclip_tpu_torch.config import InferenceConfig, ModelConfig
+    from yoloclip_tpu_torch.inference.detector import YOLOCLIPDetector
+    from yoloclip_tpu_torch.utils.profiling import (annotate, device_summary,
+                                                    take, trace)
+    rng = np.random.RandomState(22)
+    v = rng.randn(LVIS_C, EMBED)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    path = os.path.join(tmp, 'world_vocab.json')
+    with open(path, 'w') as f:
+        json.dump({n: row.tolist() for n, row in zip(LVIS_NAMES, v)}, f)
+    model = ModelConfig(family='yolo_world_v2', backbone_variant='l',
+                        reg_max=15, neck_bottlenecks=3, dtype='bfloat16')
+    cfg = InferenceConfig(model=model, conf_threshold=0.1, iou_threshold=0.7,
+                          nms_topk=1024, max_detections=300,
+                          class_agnostic_nms=True, host_preprocess=False)
+    d = YOLOCLIPDetector(cfg, vocab_path=path, device='cuda', seed=0)
+    text = d.offline_vocabulary
+    eager = lambda f: d._detect_batch_eager(f, text)   # noqa: E731
+    d.detect_batch(frames)                         # captures
+    got = d.detect_batch(frames)
+    err = _graph_diff('world v2 detect_batch', got, eager(frames))
+    require(int(got['count'].sum()) > 0,
+            '[world graphs] the program kept no detection')
+    _zero_int8(sim, nms, i8)
+    for _ in range(GRAPH_CALLS):
+        d.detect_batch(frames)
+    torch.cuda.synchronize()
+    launches = {'similarity_raw': sim.raw_launches - sim.raw_launches_bf16,
+                'similarity_raw_bf16': sim.raw_launches_bf16,
+                'nms': nms.launches}
+    other = {'similarity': sim.launches,
+             'similarity_unprojected': sim.unprojected_launches,
+             'int8_conv': i8.launches}
+    print(f'[world graphs] bf16 L, bs={BATCH} 480x640, C={LVIS_C}: '
+          f'{GRAPH_CALLS} replays launched {launches}, other modes '
+          f'{other}; max|program-eager| {err:.3e}  [{card}]')
+    require(launches == {'similarity_raw': 0,
+                         'similarity_raw_bf16': 3 * GRAPH_CALLS,
+                         'nms': GRAPH_CALLS}
+            and not any(other.values()),
+            f'[world graphs] {GRAPH_CALLS} replays launched {launches} '
+            f'and {other}: kernel 1 raw 3 a call and NMS 1 a call wanted')
+    take()
+    log_dir = os.path.join(tmp, 'world_trace')
+    before = _hand_counts(sim, nms, i8)
+    with trace(log_dir) as prof:
+        with annotate(f'program x{GRAPH_TRACED}'):
+            for _ in range(GRAPH_TRACED):
+                d.detect_batch(frames)
+            torch.cuda.synchronize()
+    counted = {k: v - before[k] for k, v in _hand_counts(sim, nms,
+                                                         i8).items()}
+    marks = take()
+    events = _hand_events(device_summary(
+        prof, span=f'program x{GRAPH_TRACED}')['kernels'])
+    stages: dict = {}
+    for sample in marks['stages']:
+        for stage, ms in sample['stages']:
+            stages.setdefault(stage, []).append(ms)
+    print(f'[world graphs] a trace of {GRAPH_TRACED} replays: hand kernel '
+          f'events {events}, counters {counted}; stages from the graph '
+          f'marks, device ms an image: ' + ', '.join(
+              f'{k} {statistics.mean(v) / BATCH:.4f}'
+              for k, v in stages.items()) + f'  [{card}]')
+    require(events == counted
+            and events['similarity_wgmma'] == 3 * GRAPH_TRACED
+            and events['nms_scan'] == GRAPH_TRACED,
+            f'[world graphs] the trace holds the hand kernels\' events '
+            f'{events}, their counters rose by {counted}')
+    require(list(stages) == WORLD_STAGES
+            and len({len(v) for v in stages.values()}) == 1,
+            f'[world graphs] stages {[(k, len(v)) for k, v in stages.items()]}'
+            f', {WORLD_STAGES} once a replay wanted')
+    del d
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_int8_s8_kernel(i8, shapes) -> dict:
@@ -6166,6 +6307,7 @@ def main() -> int:
     card = phase_device()
     phase_build(_build)
     k1_err = phase_kernel1(sim)
+    raw_err = phase_kernel1_raw(sim)
     nms_err = phase_kernel2(nms)
     k3_err = phase_kernel3(sim)
     shapes = eligible_shapes()
@@ -6189,6 +6331,7 @@ def main() -> int:
             sim, nms, i8, (('float fp32', det), ('float bf16', bf),
                            ('int8 bf16', qbf)), frames, tmp, card)
         del qbf
+        world_launches = phase_world_graphs(sim, nms, i8, frames, tmp, card)
         edge_launches, s8_err, res_s8 = phase_int8_edges(
             sim, nms, i8, vocab_path, frames, shapes, card)
         stem_launches = phase_stems(sim, nms, vocab_path, frames)
@@ -6198,7 +6341,7 @@ def main() -> int:
         print(f'[export] phase seconds: {time.perf_counter() - t0:.1f}  '
               f'[{card}]')
         paths = [main_launches, prompt_launches, int8_launches,
-                 graph_launches, edge_launches, stem_launches,
+                 graph_launches, world_launches, edge_launches, stem_launches,
                  export_launches,
                  *phases_serving(sim, nms, det, bf, vocab_path, tmp, card),
                  phase_profile(sim, nms, bf, frames, tmp, card)]
@@ -6241,7 +6384,8 @@ def main() -> int:
                           'int8_conv', 'int8_conv_bf16',
                           'int8_conv_s8', 'int8_conv_s8_bf16',
                           'similarity_unprojected',
-                          'similarity_unprojected_bf16')}
+                          'similarity_unprojected_bf16', 'similarity_raw',
+                          'similarity_raw_bf16')}
 
     require(not any(m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                         'yoloclip_tpu')
@@ -6264,6 +6408,13 @@ def main() -> int:
         entry('fused_projected_similarity_argmax[bfloat16]', sim_src, k1,
               res[('similarity', b16)], launched['similarity_bf16'],
               k1_err[b16]),
+        # the folded raw mode (YOLO-World's BatchNorm contrastive head):
+        # its error over the row norm against its plain version; not timed
+        entry('fused_projected_similarity_argmax[raw, float32]', sim_src, k1,
+              (None,) * 5, launched['similarity_raw'], raw_err[f32]),
+        entry('fused_projected_similarity_argmax[raw, bfloat16]', sim_src,
+              k1, (None,) * 5, launched['similarity_raw_bf16'],
+              raw_err[b16]),
         entry('nms_keep', 'yoloclip_tpu_torch/csrc/nms.cu',
               'yoloclip_tpu/ops/pallas/nms.py:103', res[('nms', f32)],
               launched['nms'], nms_err),

@@ -63,17 +63,52 @@ def _defaults(cls):
             for f in dataclasses.fields(cls)}
 
 
+def _jax_fields(model_config) -> dict:
+    """The port's ModelConfig as a dict, without the fields only the port
+    has (`config.PORT_FIELDS`)."""
+    d = dataclasses.asdict(model_config)
+    for k in port_config.PORT_FIELDS:
+        d.pop(k)
+    return d
+
+
+def _layout(model) -> dict:
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()
+            if not k.endswith('num_batches_tracked')}
+
+
 def test_config_fields_and_defaults_match_jax():
+    """Every field of the JAX package's ModelConfig is the port's, with
+    the same default; the port's other fields are exactly
+    `config.PORT_FIELDS`; and at their defaults the port builds the model the
+    JAX package builds (the same state-dict keys and shapes)."""
     assert port_config.COCO_CLASS_NAMES == jax_config.COCO_CLASS_NAMES
     assert port_config.VARIANT_CONFIGS == jax_config.VARIANT_CONFIGS
-    assert _defaults(port_config.ModelConfig) == _defaults(
-        jax_config.ModelConfig)
+    port_fields = _defaults(port_config.ModelConfig)
+    jax_fields = _defaults(jax_config.ModelConfig)
+    assert {k: port_fields[k] for k in jax_fields} == jax_fields
+    assert set(port_fields) - set(jax_fields) == set(
+        port_config.PORT_FIELDS)
+    assert port_fields['family'] == 'yoloclip'
     want = _defaults(jax_config.InferenceConfig)
     got = _defaults(port_config.InferenceConfig)
     assert list(got) == list(want)
-    assert dataclasses.asdict(got.pop('model')) == dataclasses.asdict(
+    assert _jax_fields(got.pop('model')) == dataclasses.asdict(
         want.pop('model'))
     assert got == want
+    # the default model's layout: the JAX package's model exported to the
+    # reference torch layout (flax variables from a port model seeded at
+    # its defaults, through the JAX package's converter and exporter)
+    cfg = port_config.ModelConfig()
+    model = YOLOCLIP(cfg)
+    init_weights(model, torch.Generator().manual_seed(0))
+    variables = convert_reference_state_dict(model.state_dict(),
+                                             jax_config.ModelConfig(),
+                                             with_aux_box=False)
+    exported = export_reference_state_dict(variables,
+                                           jax_config.ModelConfig())
+    assert _layout(model) == {k: tuple(np.shape(v))
+                              for k, v in exported.items()}
     for v in jax_config.VARIANT_CONFIGS:
         p = port_config.ModelConfig(backbone_variant=v, image_size=(320, 480))
         j = jax_config.ModelConfig(backbone_variant=v, image_size=(320, 480))
@@ -91,7 +126,7 @@ def test_training_config_matches_jax(tmp_path):
     want = _defaults(jax_config.TrainingConfig)
     got = _defaults(port_config.TrainingConfig)
     assert list(got) == list(want)
-    assert dataclasses.asdict(got.pop('model')) == dataclasses.asdict(
+    assert _jax_fields(got.pop('model')) == dataclasses.asdict(
         want.pop('model'))
     assert got == want
     path = tmp_path / 'train.yaml'
@@ -103,7 +138,10 @@ def test_training_config_matches_jax(tmp_path):
                                 max_epochs=3, dtype='bfloat16')
     j = jax_config.load_config(jax_config.TrainingConfig, str(path),
                                max_epochs=3, dtype='bfloat16')
-    assert dataclasses.asdict(p) == dataclasses.asdict(j)
+    pd, jd = dataclasses.asdict(p), dataclasses.asdict(j)
+    assert _jax_fields(p.model) == jd.pop('model')
+    pd.pop('model')
+    assert pd == jd
     assert p.loss_weight('iou') == j.loss_weight('iou') == 3.0
 
 

@@ -3,6 +3,12 @@ dataclasses in `yoloclip_tpu/config.py`, with the same field names and
 defaults, so a configuration written for one package builds the same model
 and the same training run in the other.
 
+`ModelConfig` has one field more than the JAX package's (`PORT_FIELDS`):
+`family`, the detector family the port builds ('yoloclip', the default and
+the JAX package's model, or 'yolo_world_v2', `models/yolo_clip.py::
+make_model`). A family's widths and depths follow from the variant as its
+published code derives them (`backbone_channels`, `backbone_depths`).
+
 `load_config` is the JAX package's YAML loader (defaults < YAML with
 `model_config:`/`dataset_config:` includes < keyword overrides).
 """
@@ -39,6 +45,23 @@ VARIANT_CONFIGS: Dict[str, Dict[str, float]] = {
 }
 
 
+# The ModelConfig fields the JAX package's ModelConfig does not have.
+PORT_FIELDS = ('family',)
+
+# yolo_world_v2's backbone (mmyolo's YOLOv8CSPDarknet): bottlenecks per
+# stage before the depth multiple, and the last stage's width before the
+# width multiple (`last_stage_out_channels`) by variant.
+YOLOV8_STAGE_BLOCKS = (3, 6, 6, 3)
+YOLOV8_LAST_STAGE = {'n': 1024, 's': 1024, 'm': 768, 'l': 512, 'x': 512}
+
+
+def family_of(cfg) -> str:
+    """A model config's family: 'yoloclip' for one without the field (the
+    JAX package's ModelConfig, which the port's model constructors also
+    take)."""
+    return getattr(cfg, 'family', 'yoloclip')
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     """Static architecture hyperparameters."""
@@ -60,15 +83,25 @@ class ModelConfig:
     quant: str = 'none'
     stem_s2d: bool = False         # stem as a 2x2 conv over space-to-depth
     stem_u8_s2d: bool = False      # uint8 space-to-depth canvas input
+    # 'yoloclip': CSP backbone, RepVL-PAN, cosine scores, xy + exp(wh)
+    # boxes; 'yolo_world_v2': C2f backbone, YOLOWorldPAFPN with max-sigmoid
+    # text attention, BatchNorm contrastive head with sigmoid scores, ltrb
+    # boxes from anchor centres (DFL bins 0..reg_max either way)
+    family: str = 'yoloclip'
 
     def backbone_channels(self) -> List[int]:
         """Per-stage channel widths."""
         wm = VARIANT_CONFIGS[self.backbone_variant]['width']
-        return [max(int(c * wm), 16) for c in [64, 128, 256, 512, 1024]]
+        last = (YOLOV8_LAST_STAGE[self.backbone_variant]
+                if self.family == 'yolo_world_v2' else 1024)
+        return [max(int(c * wm), 16) for c in [64, 128, 256, 512, last]]
 
     def backbone_depths(self) -> List[int]:
-        """Bottleneck counts per stage."""
+        """Bottleneck counts per stage (yolo_world_v2: rounded, as mmyolo's
+        `make_round`)."""
         dm = VARIANT_CONFIGS[self.backbone_variant]['depth']
+        if self.family == 'yolo_world_v2':
+            return [max(round(d * dm), 1) for d in YOLOV8_STAGE_BLOCKS]
         return [max(int(d * dm), 1) for d in [1, 2, 4, 8]]
 
     def feature_channels(self) -> List[int]:

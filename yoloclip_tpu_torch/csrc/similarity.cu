@@ -11,7 +11,9 @@
 // where tp = text K^T (in the input type) and cb = text . bias (fp32) are
 // built by the Python wrapper (ops/kernels/similarity.py) exactly as the
 // JAX function builds them; the wrapper also passes K^T (E, Kd), so that
-// both products read a K-major B operand.
+// both products read a K-major B operand. Its raw form (normalize = 0,
+// YOLO-World's BatchNorm contrastive head) returns max_c raw[a, c] as it
+// is and runs no norm tile.
 //
 // Unprojected mode (FOLD = false) replaces the Pallas TPU kernel
 //   yoloclip_tpu/ops/pallas/similarity.py::fused_similarity_argmax
@@ -275,8 +277,8 @@ __host__ __device__ constexpr int chunks() {
 }
 
 // FOLD: h (B, A, Kd) hidden rows, bmat = tp (B, C, Kd), cb (B, C),
-// kt = K^T (E, Kd), bias (E,); the score is always divided by
-// ||h K + bias||.
+// kt = K^T (E, Kd), bias (E,); the score is divided by ||h K + bias||
+// when normalize != 0 (kt and bias unread otherwise).
 // !FOLD: h (B, A, Kd) obj rows with Kd = E, bmat = text (B, C, Kd); cb, kt,
 // bias and E unused; the score is divided by ||obj|| when normalize != 0.
 // WM warpgroups split the rows (64 each), WN split each B tile's columns.
@@ -336,7 +338,7 @@ similarity_wgmma(const T* __restrict__ h, const T* __restrict__ bmat,
     // different tiles, so that they do not all read the same B tile at
     // the same time.
     const int cvalid = nvalid < C ? nvalid : C;
-    const int n_norm = FOLD ? E / BN : 0;
+    const int n_norm = FOLD && normalize ? E / BN : 0;
     const int n_cls = cvalid > BN ? (cvalid + BN - 1) / BN : 1;
     const int KT = Kd / BK;
     const int total = (n_norm + n_cls) * KT;
@@ -545,8 +547,8 @@ similarity_wgmma(const T* __restrict__ h, const T* __restrict__ bmat,
             const int a = a0 + r0 + 8 * i;
             if (a < A) {
                 out_s[(size_t)b * A + a] =
-                    FOLD || normalize ? best[i] / fmaxf(sqrtf(ss[i]), 1e-12f)
-                                      : best[i];
+                    normalize ? best[i] / fmaxf(sqrtf(ss[i]), 1e-12f)
+                              : best[i];
                 out_i[(size_t)b * A + a] = bidx[i];
             }
         }
@@ -605,6 +607,27 @@ extern "C" int yc_similarity_bf16(const void* h, const void* tp,
                                   int nvalid, void* stream) {
     return launch<__nv_bfloat16, true, 4, 1>(h, tp, cb, kt, bias, out_s,
                                              out_i, B, A, Kd, C, E, nvalid, 1,
+                                             stream);
+}
+
+// Folded raw mode: the folded mode's launchers and shape contract, the
+// score not divided by the row norm.
+extern "C" int yc_similarity_raw_f32(const void* h, const void* tp,
+                                     const void* cb, const void* kt,
+                                     const void* bias, void* out_s,
+                                     void* out_i, int B, int A, int Kd, int C,
+                                     int E, int nvalid, void* stream) {
+    return launch<float, true, 2, 1>(h, tp, cb, kt, bias, out_s, out_i, B,
+                                     A, Kd, C, E, nvalid, 0, stream);
+}
+
+extern "C" int yc_similarity_raw_bf16(const void* h, const void* tp,
+                                      const void* cb, const void* kt,
+                                      const void* bias, void* out_s,
+                                      void* out_i, int B, int A, int Kd,
+                                      int C, int E, int nvalid, void* stream) {
+    return launch<__nv_bfloat16, true, 4, 1>(h, tp, cb, kt, bias, out_s,
+                                             out_i, B, A, Kd, C, E, nvalid, 0,
                                              stream);
 }
 

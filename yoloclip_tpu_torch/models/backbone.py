@@ -3,6 +3,10 @@
 Stem + four stages, each opening with a stride-2 conv; SPPF closes stage 4.
 Returns (c3, c4, c5) at strides 8/16/32. Module names follow the reference
 torch layout: `stage{s}.0` conv, `stage{s}.1` CSP layer, `stage4.2` SPPF.
+With c2f=True (the caller's choice: `YOLOWorldV2` sets it) each stage's
+layer is YOLOv8's C2f (`layers.py::C2fLayer`, mmyolo's
+`CSPLayerWithTwoConv`, shortcuts on), as mmyolo's `YOLOv8CSPDarknet` builds
+it; widths and depths come from the same config methods either way.
 `cfg.stem_s2d` runs the stem over the space-to-depth layout;
 `cfg.stem_u8_s2d` takes the (B, 12, H/2, W/2) 0..255 canvas as input.
 
@@ -21,11 +25,12 @@ import torch
 from torch import nn
 
 from yoloclip_tpu_torch.config import ModelConfig
-from yoloclip_tpu_torch.models.layers import SPPF, ConvBlock, CSPLayer
+from yoloclip_tpu_torch.models.layers import (SPPF, C2fLayer, ConvBlock,
+                                              CSPLayer)
 
 
 class YOLOv8Backbone(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, c2f: bool = False):
         super().__init__()
         ch = cfg.backbone_channels()
         dp = cfg.backbone_depths()
@@ -34,8 +39,9 @@ class YOLOv8Backbone(nn.Module):
                               s2d_pre=cfg.stem_u8_s2d, store_out=True)
         for s in range(1, 5):
             layers = [ConvBlock(ch[s - 1], ch[s], 3, 2, quant=q),
-                      CSPLayer(ch[s], ch[s], dp[s - 1], q,
-                               store_out=s in (1, 4))]
+                      C2fLayer(ch[s], ch[s], dp[s - 1], True, q) if c2f
+                      else CSPLayer(ch[s], ch[s], dp[s - 1], q,
+                                    store_out=s in (1, 4))]
             if s == 4:
                 layers.append(SPPF(ch[4], ch[4], 5, q))
             setattr(self, f'stage{s}', nn.Sequential(*layers))

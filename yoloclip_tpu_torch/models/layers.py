@@ -223,10 +223,14 @@ class ConvBlock(nn.Module):
     and the /255 folds into the fp32 kernel before its one cast. Both keep
     the canonical (O, C, 3, 3) kernel.
 
+    act=False leaves the SiLU out (conv + BatchNorm only, YOLO-World's
+    `act_cfg=None` blocks).
+
     quant='int8' (the deploy graph): a block passing `quant_eligible`
     carries int8 `wq` (Cout, kh, kw, Cin), fp32 `wscale` and `qbias`
     (Cout,) and a 0-d fp32 `act_scale`, and runs quantize -> s8 x s8 ->
-    s32 conv -> dequant + bias + SiLU in one kernel launch; any other block
+    s32 conv -> dequant + bias + SiLU in one kernel launch (without SiLU,
+    the kernel's int32 accumulator dequantized here); any other block
     carries the BN-folded fp32 kernel `wf` (Cout, Cin, k, k) and `fbias`,
     and runs conv, + fbias in fp32, SiLU, a cast to the compute dtype.
 
@@ -242,8 +246,10 @@ class ConvBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 1, quant: str = 'none', s2d: bool = False,
-                 s2d_pre: bool = False, store_out: bool = False):
+                 s2d_pre: bool = False, store_out: bool = False,
+                 act: bool = True):
         super().__init__()
+        self.act = act
         if s2d and s2d_pre:
             raise ValueError('s2d and s2d_pre are mutually exclusive')
         if (s2d or s2d_pre) and (kernel_size, stride) != (3, 2):
@@ -343,8 +349,19 @@ class ConvBlock(nn.Module):
         q = torch.clamp(torch.round(y.float() / self.out_scale), -127, 127)
         return QT(q.to(torch.int8), self.out_scale, dt)
 
+    def _silu(self, y: torch.Tensor) -> torch.Tensor:
+        return F.silu(y) if self.act else y
+
     def _forward(self, x: Union[torch.Tensor, QT]) -> torch.Tensor:
         if self.mode == 'int8':
+            q, scale, dt = ((x.q, x.scale, x.dtype) if isinstance(x, QT)
+                            else (x, self.act_scale, x.dtype))
+            if not self.act:
+                acc = int8_conv(q, self.wq, self.wscale, self.qbias, scale,
+                                self.stride, epilogue=False, out_dtype=dt)
+                y = (acc.float() * (self.wscale * scale)[:, None, None]
+                     + self.qbias[:, None, None])
+                return y.to(dt)
             if isinstance(x, QT):
                 return int8_conv(x.q, self.wq, self.wscale, self.qbias,
                                  x.scale, self.stride, out_dtype=x.dtype)
@@ -356,27 +373,30 @@ class ConvBlock(nn.Module):
             w = self.wf * (1.0 / 255.0) if self.s2d_pre else self.wf
             w = w.to(dt)
             if dt == torch.float32:
-                return F.silu(self._conv(x, w, self.fbias))
+                return self._silu(self._conv(x, w, self.fbias))
             # the conv's output + fbias in fp32, one cast at the end (a
             # storing block quantizes the fp32 value: _store casts)
-            y = F.silu(self._conv(x, w) + self.fbias[:, None, None])
+            y = self._silu(self._conv(x, w) + self.fbias[:, None, None])
             return y if self.store_out else y.to(dt)
         w = self.conv.weight
         if self.s2d_pre:
             w = w * (1.0 / 255.0)
-        return F.silu(self.bn(self._conv(x, w.to(dt))))
+        return self._silu(self.bn(self._conv(x, w.to(dt))))
 
 
 class DarkBottleneck(nn.Module):
     """1x1 squeeze to c/2 -> 3x3 expand to c; residual when the input
     already has c channels and shortcut=True. cv1 -> cv2 is a ConvBlock ->
-    ConvBlock edge, so cv1 may store it as int8."""
+    ConvBlock edge, so a 1x1 cv1 may store it as int8.
+
+    k1=3, expansion=1.0: the C2f blocks' bottleneck (3x3 -> 3x3 at c)."""
 
     def __init__(self, cin: int, cout: int, shortcut: bool = True,
-                 quant: str = 'none'):
+                 quant: str = 'none', k1: int = 1, expansion: float = 0.5):
         super().__init__()
-        self.cv1 = ConvBlock(cin, cout // 2, 1, quant=quant, store_out=True)
-        self.cv2 = ConvBlock(cout // 2, cout, 3, quant=quant)
+        mid = int(cout * expansion)
+        self.cv1 = ConvBlock(cin, mid, k1, quant=quant, store_out=k1 == 1)
+        self.cv2 = ConvBlock(mid, cout, 3, quant=quant)
         self.add = shortcut and cin == cout
 
     def forward(self, x: Union[torch.Tensor, QT]) -> torch.Tensor:
@@ -407,6 +427,36 @@ class CSPLayer(nn.Module):
             y1 = m(y1)
         y2 = self.cv2(x)
         return self.cv3(torch.cat([as_float(y1, y2.dtype), y2], dim=1))
+
+
+class C2fLayer(nn.Module):
+    """YOLOv8's C2f block (`CSPLayerWithTwoConv`): a 1x1 `main_conv` to
+    2 mid channels (mid = cout / 2), split in two; n bottlenecks (3x3 ->
+    3x3 at mid) one after another, each on the last chunk; every chunk
+    concatenated, (2 + n + extra) mid channels, then a 1x1 `final_conv`
+    to cout. `extra` counts chunks a subclass appends (the neck's
+    attention branch)."""
+
+    def __init__(self, cin: int, cout: int, n: int = 1,
+                 shortcut: bool = True, quant: str = 'none', extra: int = 0):
+        super().__init__()
+        self.mid = mid = cout // 2
+        self.main_conv = ConvBlock(cin, 2 * mid, 1, quant=quant)
+        self.blocks = nn.ModuleList(
+            DarkBottleneck(mid, mid, shortcut, quant, k1=3, expansion=1.0)
+            for _ in range(n))
+        self.final_conv = ConvBlock((2 + n + extra) * mid, cout, 1,
+                                    quant=quant)
+
+    def chunks(self, x: torch.Tensor) -> list:
+        """[main_conv's two halves, each bottleneck's output]."""
+        out = list(self.main_conv(x).split((self.mid, self.mid), dim=1))
+        for m in self.blocks:
+            out.append(m(out[-1]))
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.final_conv(torch.cat(self.chunks(x), dim=1))
 
 
 class SPPF(nn.Module):

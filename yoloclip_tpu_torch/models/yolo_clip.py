@@ -16,6 +16,15 @@ Two partitions of one forward, each running this forward once a shard:
   * a height partition (`parallel/spatial.py`): the convs exchange halo
     rows, and the heads' maps are gathered in global row order before the
     anchor tail, which then runs on every shard alike.
+
+`YOLOWorldV2` is the other family (`cfg.family == 'yolo_world_v2'`, built
+by `make_model`): YOLO-World v2 (arXiv:2401.17270)
+with mmyolo's module tree -- a C2f backbone (`backbone.image_model`), the
+`YOLOWorldPAFPN` neck with max-sigmoid text attention, and the BatchNorm
+contrastive head with sigmoid scores and ltrb boxes
+(`bbox_head.head_module`). It takes the same forward arguments and
+returns the same keys (no `obj_embeddings` or `box_preds`); it runs
+neither partition.
 """
 
 from __future__ import annotations
@@ -26,14 +35,16 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from yoloclip_tpu_torch.config import ModelConfig
+from yoloclip_tpu_torch.config import ModelConfig, family_of
 from yoloclip_tpu_torch.models.backbone import YOLOv8Backbone
 from yoloclip_tpu_torch.models.heads import (BoxHead, TextContrastiveHead,
-                                             decode_boxes, flatten_levels)
+                                             YOLOWorldHeadModule,
+                                             decode_boxes, decode_ltrb,
+                                             flatten_levels)
 from yoloclip_tpu_torch.models.heads import Proj1x1
 from yoloclip_tpu_torch.models.layers import (ConvBlock, MultiHeadAttention,
                                               _ConvKernel, at_least_fp32)
-from yoloclip_tpu_torch.models.neck import RepVLPAN
+from yoloclip_tpu_torch.models.neck import RepVLPAN, YOLOWorldPAFPN
 from yoloclip_tpu_torch.ops.kernels.similarity import (
     NEG, fused_projected_similarity_argmax,
     sharded_projected_similarity_argmax)
@@ -66,6 +77,10 @@ class YOLOCLIP(nn.Module):
             if isinstance(m, ConvBlock):
                 m.block_name = name
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.box_head.box_convs[0][2].weight.dtype
+
     def forward(self, images: torch.Tensor, text: torch.Tensor,
                 fused_scores: bool = False,
                 class_mask: Optional[torch.Tensor] = None,
@@ -90,17 +105,9 @@ class YOLOCLIP(nn.Module):
         classes; scores and class_ids come out global (ids over the whole
         vocabulary), `similarity` and `text_embeddings` the block's."""
         cfg = self.cfg
-        dt = self.box_head.box_convs[0][2].weight.dtype
-        B = images.shape[0]
-        x = images.permute(0, 3, 1, 2).to(dt).contiguous(
-            memory_format=torch.channels_last)
-        if text.dim() == 2:
-            text = text[None].expand(B, -1, -1)
-        text = at_least_fp32(text)
-        if class_mask is not None:
-            class_mask = class_mask.to(device=text.device, dtype=torch.bool)
-            if class_mask.dim() == 1:
-                class_mask = class_mask[None].expand(B, -1)
+        x, text, class_mask = _inputs(images, text, class_mask,
+                                      self.compute_dtype)
+        B = x.shape[0]
         # alpha > 0 strictly: argmax(alpha*s+beta) == argmax(s) needs it
         use_fused = (fused_scores and class_mask is None
                      and cfg.cls_alpha > 0)
@@ -165,6 +172,132 @@ class YOLOCLIP(nn.Module):
         return out
 
 
+def _inputs(images: torch.Tensor, text: torch.Tensor,
+            class_mask: Optional[torch.Tensor], dt: torch.dtype):
+    """(images as a channels_last NCHW view in dt, text (B, C, E) in at
+    least fp32, class_mask (B, C) bool or None)."""
+    B = images.shape[0]
+    x = images.permute(0, 3, 1, 2).to(dt).contiguous(
+        memory_format=torch.channels_last)
+    if text.dim() == 2:
+        text = text[None].expand(B, -1, -1)
+    text = at_least_fp32(text)
+    if class_mask is not None:
+        class_mask = class_mask.to(device=text.device, dtype=torch.bool)
+        if class_mask.dim() == 1:
+            class_mask = class_mask[None].expand(B, -1)
+    return x, text, class_mask
+
+
+class YOLOWorldV2(nn.Module):
+    """YOLO-World v2: C2f backbone -> YOLOWorldPAFPN (max-sigmoid text
+    attention, no text update) -> per level a cls tower scored by the
+    BatchNorm contrastive head (sigmoid of exp(logit_scale) BN(embed) .
+    t_hat + bias) and a reg tower decoded as ltrb distances over DFL bins
+    0..reg_max. Text (C, E) or (B, C, E) is the text model's normalised
+    output, the neck's guide as it is.
+
+    fused_scores=True: in eval mode BatchNorm after the 1x1 projection is
+    one affine map, folded onto the text side as YOLOCLIP folds its
+    projection, and the similarity kernel's unnormalised mode gives each
+    anchor's max and argmax of (h K' + b') . t_hat; the sigmoid of
+    exp(logit_scale) max + bias is taken after the max, which is exact
+    since exp(.) > 0 and the sigmoid is monotone. A class_mask takes the
+    unfused path. Scores are probabilities in (0, 1)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.quant not in ('none', 'int8'):
+            raise ValueError(f"ModelConfig.quant must be 'none' or 'int8', "
+                             f'got {cfg.quant!r}')
+        self.cfg = cfg
+        fc, q = cfg.feature_channels(), cfg.quant
+        self.backbone = nn.ModuleDict({'image_model': YOLOv8Backbone(
+            cfg, c2f=True)})
+        self.neck = YOLOWorldPAFPN(fc, cfg.embed_dim, cfg.neck_bottlenecks,
+                                   q)
+        self.bbox_head = nn.ModuleDict({'head_module': YOLOWorldHeadModule(
+            fc, cfg.embed_dim, cfg.hidden_dim, cfg.reg_max, q)})
+        for name, m in self.named_modules():
+            if isinstance(m, ConvBlock):
+                m.block_name = name
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.bbox_head['head_module'].reg_preds[0][2].weight.dtype
+
+    def forward(self, images: torch.Tensor, text: torch.Tensor,
+                fused_scores: bool = False,
+                class_mask: Optional[torch.Tensor] = None,
+                skip_image_pool: bool = False,
+                class_shard: Optional[ClassShard] = None
+                ) -> Dict[str, torch.Tensor]:
+        """As `YOLOCLIP.forward`. skip_image_pool changes nothing (there
+        is no image-pooling attention); a class_shard is refused."""
+        if class_shard is not None:
+            raise NotImplementedError(
+                'YOLO-World v2 has no class-sharded forward: run it on '
+                'one device a replica')
+        cfg = self.cfg
+        x, text, class_mask = _inputs(images, text, class_mask,
+                                      self.compute_dtype)
+        head = self.bbox_head['head_module']
+        feats = self.backbone['image_model'](x)
+        profiling.mark('backbone')
+        pan = self.neck(feats, text, class_mask)
+        profiling.mark('neck')
+
+        out: Dict[str, torch.Tensor] = {}
+        if fused_scores and class_mask is None:
+            txt_n = text / torch.linalg.vector_norm(
+                text, dim=-1, keepdim=True).clamp_min(1e-12)
+            fold_s, fold_ids = [], []
+            for i, feat in enumerate(pan):
+                h = head.hidden(i, feat)
+                hr = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1,
+                                                   h.shape[1])
+                k, b = head.folded(i)
+                s, ids = fused_projected_similarity_argmax(
+                    hr, txt_n, k, b, normalize=False)
+                scale, bias = head.scale_bias(i)
+                fold_s.append(torch.sigmoid(s * scale + bias))
+                fold_ids.append(ids)
+            scores = torch.cat(fold_s, dim=1)
+            class_ids = torch.cat(fold_ids, dim=1)
+        else:
+            logits = torch.cat([head.logits(i, feat, text)
+                                for i, feat in enumerate(pan)], dim=1)
+            if class_mask is not None:
+                logits = logits.masked_fill(~class_mask[:, None, :],
+                                            float('-inf'))
+            similarity = torch.sigmoid(logits)                 # (B, A, C)
+            scores, class_ids = similarity.max(dim=-1)
+            class_ids = class_ids.to(torch.int32)
+            out['similarity'] = similarity
+        box_preds = [tower(f) for tower, f in zip(head.reg_preds, pan)]
+        out.update({
+            'boxes': decode_ltrb(box_preds, cfg.strides, cfg.reg_max),
+            'scores': scores,
+            'class_ids': class_ids,
+            'text_embeddings': text,
+        })
+        return out
+
+
+def make_model(cfg: ModelConfig, with_aux_box: bool = False) -> nn.Module:
+    """The model of `cfg.family`, untrained (with_aux_box: YOLOCLIP
+    only)."""
+    family = family_of(cfg)
+    if family == 'yoloclip':
+        return YOLOCLIP(cfg, with_aux_box=with_aux_box)
+    if family == 'yolo_world_v2':
+        if with_aux_box:
+            raise ValueError('YOLO-World v2 has no auxiliary box towers')
+        return YOLOWorldV2(cfg)
+    raise ValueError(f'unknown model family {family!r}; the port '
+                     "has 'yoloclip' and 'yolo_world_v2'")
+
+
 def init_weights(model: YOLOCLIP, generator: torch.Generator) -> None:
     """Random init from an explicit generator (the bring-up mode when no
     checkpoint is given), in the spirit of flax's defaults: lecun-normal
@@ -175,7 +308,9 @@ def init_weights(model: YOLOCLIP, generator: torch.Generator) -> None:
     k. With zero biases the bins come out near uniform, every offset near
     8, and exp(8)*stride boxes cover the whole frame, so NMS would keep one
     box per image; with the prior, random-init boxes come out at object
-    scale and overlap like real candidates."""
+    scale and overlap like real candidates. A YOLOWorldV2 gets the same
+    prior on its reg towers and keeps its contrastive heads' published
+    logit_scale -1 and bias 0."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear, _ConvKernel)):
@@ -196,7 +331,10 @@ def init_weights(model: YOLOCLIP, generator: torch.Generator) -> None:
                 m.in_proj_bias.zero_()
         nbins = model.cfg.reg_max + 1
         prior = -torch.arange(nbins, dtype=torch.float32).repeat(4)
-        for tower in model.box_head.box_convs:
+        towers = (model.bbox_head['head_module'].reg_preds
+                  if isinstance(model, YOLOWorldV2)
+                  else model.box_head.box_convs)
+        for tower in towers:
             tower[2].bias.copy_(prior)
 
 
@@ -220,12 +358,13 @@ def cast_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 
 def build_model(cfg: ModelConfig, state_dict: Optional[dict] = None,
-                seed: int = 0) -> YOLOCLIP:
-    """A YOLOCLIP in eval mode on the CPU, in fp32: weights from a
-    reference-layout state dict (strict), or random from `seed`."""
+                seed: int = 0) -> nn.Module:
+    """The model of `cfg.family` (`make_model`) in eval mode on the
+    CPU, in fp32: weights from a reference-layout state dict (strict), or
+    random from `seed`."""
     aux = state_dict is not None and (
         'contrastive_heads.0.box_conv.0.conv.weight' in state_dict)
-    model = YOLOCLIP(cfg, with_aux_box=aux)
+    model = make_model(cfg, with_aux_box=aux)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     else:

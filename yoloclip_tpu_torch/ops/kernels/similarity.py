@@ -15,6 +15,11 @@ function does: tp = t K^T in the compute dtype (fp32 accumulation), and
 cb = t . b in fp32; only the final max is divided by ||h K + b||.
 Plain version: `similarity_argmax_plain`.
 
+Folded raw (`normalize=False`, YOLO-World's BatchNorm contrastive head): the
+same max and argmax of (h K + b) . t, not divided by the row norm, so the
+kernel skips the norm's h K product altogether. Plain version:
+`similarity_max_plain`.
+
 Unprojected: `fused_similarity_argmax` replaces
 `yoloclip_tpu/ops/pallas/similarity.py::fused_similarity_argmax`. For
 already-projected rows obj and L2-normalised text t it returns the max and
@@ -23,7 +28,8 @@ max(||obj||, 1e-12) when normalize_obj is set, without materialising
 (B, A, C). Plain version: `similarity_argmax_reference_plain`.
 
 Each mode is a custom op (`ops/kernels/library.py`):
-`yoloclip::fused_projected_similarity_argmax` and
+`yoloclip::fused_projected_similarity_argmax`,
+`yoloclip::fused_projected_similarity_max` (folded raw) and
 `yoloclip::fused_similarity_argmax`, whose cpu implementation is the plain
 version and whose cuda implementation the kernel; the wrappers call them,
 so each runs its plain version for CPU tensors and the CUDA kernel for
@@ -53,16 +59,20 @@ from yoloclip_tpu_torch.parallel.collectives import ClassShard, merge_argmax
 
 NEG = -1e30
 
-# Launches of the CUDA kernel, folded and unprojected mode, and of their
-# bf16 instantiations among them (incremented only where each launches).
+# Launches of the CUDA kernel, folded, folded raw and unprojected mode,
+# and of their bf16 instantiations among them (incremented only where each
+# launches).
 launches = 0
 launches_bf16 = 0
 unprojected_launches = 0
 unprojected_launches_bf16 = 0
+raw_launches = 0
+raw_launches_bf16 = 0
 _count_lock = threading.Lock()   # shards on threads launch too
 register_counters(__name__, _count_lock,
                   ('launches', 'launches_bf16', 'unprojected_launches',
-                   'unprojected_launches_bf16'))
+                   'unprojected_launches_bf16', 'raw_launches',
+                   'raw_launches_bf16'))
 
 
 def _fold_text(text: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -103,6 +113,20 @@ def similarity_argmax_plain(h: torch.Tensor, text: torch.Tensor,
     return best / norm.clamp_min(1e-12), ids.to(torch.int32)
 
 
+def similarity_max_plain(h: torch.Tensor, text: torch.Tensor,
+                         kernel: torch.Tensor, bias: torch.Tensor,
+                         num_valid: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The folded raw algebra in PyTorch ops: the max and lowest argmax
+    over c < num_valid of h . tp + cb (tp, cb as `_fold_text` makes them),
+    not divided by any norm. Shapes and dtypes as
+    `similarity_argmax_plain`."""
+    tp, cb = _fold_text(text, kernel, bias, h.dtype)
+    raw = torch.matmul(h.float(), tp.float().transpose(1, 2)) + cb[:, None, :]
+    best, ids = _masked_max(raw, num_valid)
+    return best, ids.to(torch.int32)
+
+
 def _prepare_folded(dtype: torch.dtype, text: torch.Tensor,
                     kernel: torch.Tensor, bias: torch.Tensor) -> dict:
     """Host-side operands of the folded kernel, built once per call: tp
@@ -130,6 +154,7 @@ def _check_dtype(dtype: torch.dtype) -> None:
 
 _ARGTYPES = {
     'folded': [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    'raw': [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     'unprojected': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
@@ -142,8 +167,7 @@ def _fn(mode: str, dtype: torch.dtype):
     key = (mode, dtype)
     if key not in _fns:
         lib = _build.load('similarity')
-        name = ('yc_similarity_' + ('unprojected_' if mode == 'unprojected'
-                                    else '')
+        name = ('yc_similarity_' + ('' if mode == 'folded' else mode + '_')
                 + ('bf16' if dtype == torch.bfloat16 else 'f32'))
         fn = getattr(lib, name)
         fn.argtypes = _ARGTYPES[mode]
@@ -152,10 +176,11 @@ def _fn(mode: str, dtype: torch.dtype):
     return _fns[key]
 
 
-def _launch(h: torch.Tensor, ops: dict, C: int, E: int, nvalid: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """h (B, A, Kd); `ops` from `_prepare_folded`."""
-    global launches, launches_bf16
+def _launch(h: torch.Tensor, ops: dict, C: int, E: int, nvalid: int,
+            mode: str = 'folded') -> Tuple[torch.Tensor, torch.Tensor]:
+    """h (B, A, Kd); `ops` from `_prepare_folded`; mode 'folded' or 'raw'
+    (the max not divided by ||h K + b||)."""
+    global launches, launches_bf16, raw_launches, raw_launches_bf16
     B, A, Kd = h.shape
     _check_dtype(h.dtype)
     if Kd % 128 or not 0 < Kd <= 256 or E % 128 or E <= 0:
@@ -167,7 +192,7 @@ def _launch(h: torch.Tensor, ops: dict, C: int, E: int, nvalid: int
     ids = torch.empty((B, A), dtype=torch.int32, device=h.device)
     if B == 0 or A == 0:
         return scores, ids
-    lib, fn = _fn('folded', h.dtype)
+    lib, fn = _fn(mode, h.dtype)
     ins = [_aligned(t) for t in (h, ops['tp'], ops['cb'], ops['kt'],
                                  ops['bias'])]
     err = fn(*(t.data_ptr() for t in ins),
@@ -175,8 +200,12 @@ def _launch(h: torch.Tensor, ops: dict, C: int, E: int, nvalid: int
              torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(lib, err, 'similarity kernel launch')
     with _count_lock:
-        launches += 1
-        launches_bf16 += h.dtype == torch.bfloat16
+        if mode == 'raw':
+            raw_launches += 1
+            raw_launches_bf16 += h.dtype == torch.bfloat16
+        else:
+            launches += 1
+            launches_bf16 += h.dtype == torch.bfloat16
     return scores, ids
 
 
@@ -186,6 +215,15 @@ def _folded_cuda(h: torch.Tensor, text: torch.Tensor, kernel: torch.Tensor,
     ops = _prepare_folded(h.dtype, text, kernel, bias)
     nvalid = text.shape[1] if num_valid is None else num_valid
     return _launch(h, ops, text.shape[1], kernel.shape[1], nvalid)
+
+
+def _folded_raw_cuda(h: torch.Tensor, text: torch.Tensor,
+                     kernel: torch.Tensor, bias: torch.Tensor,
+                     num_valid: Optional[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    ops = _prepare_folded(h.dtype, text, kernel, bias)
+    nvalid = text.shape[1] if num_valid is None else num_valid
+    return _launch(h, ops, text.shape[1], kernel.shape[1], nvalid, 'raw')
 
 
 def _rows_fake(rows: torch.Tensor, *_) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -201,22 +239,33 @@ FOLDED_OP = library.KernelOp(
     '-> (Tensor, Tensor)', similarity_argmax_plain, _folded_cuda, _rows_fake)
 
 
+RAW_OP = library.KernelOp(
+    'fused_projected_similarity_max', 'similarity',
+    '(Tensor h, Tensor text, Tensor kernel, Tensor bias, int? num_valid) '
+    '-> (Tensor, Tensor)', similarity_max_plain, _folded_raw_cuda,
+    _rows_fake)
+
+
 def fused_projected_similarity_argmax(h: torch.Tensor, text: torch.Tensor,
                                       kernel: torch.Tensor,
                                       bias: torch.Tensor,
-                                      num_valid: Optional[int] = None
+                                      num_valid: Optional[int] = None,
+                                      normalize: bool = True
                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h (A, Kd) or (B, A, Kd) raw hidden activations in the compute dtype;
     text (C, E) or (B, C, E), L2-normalised (per image after I-Pool: never
     pass text[0] for a batch); kernel (Kd, E), bias (E,) fp32.
+    normalize=False: the folded raw mode, the max of (h K + b) . t not
+    divided by ||h K + b||.
     Returns (scores float32, class_ids int32) shaped (A,) or (B, A)."""
     squeeze = h.dim() == 2
     if squeeze:
         h = h[None]
     if text.dim() == 2:
         text = text[None].expand(h.shape[0], -1, -1)
-    s, i = FOLDED_OP(h, text, kernel, bias,
-                     None if num_valid is None else int(num_valid))
+    op = FOLDED_OP if normalize else RAW_OP
+    s, i = op(h, text, kernel, bias,
+              None if num_valid is None else int(num_valid))
     return (s[0], i[0]) if squeeze else (s, i)
 
 

@@ -40,7 +40,8 @@ import torch
 
 from yoloclip_tpu_torch.models.layers import (ConvBlock, quant_eligible,
                                               store_int8_eligible)
-from yoloclip_tpu_torch.models.yolo_clip import YOLOCLIP, cast_compute_dtype
+from yoloclip_tpu_torch.models.yolo_clip import (YOLOCLIP, cast_compute_dtype,
+                                                 make_model)
 from yoloclip_tpu_torch.ops.reparam import build_reparam_forward
 from yoloclip_tpu_torch.parallel import spatial
 
@@ -234,7 +235,9 @@ def quantize_model(model: YOLOCLIP, state_dict: Dict[str, torch.Tensor],
                    calib_batches: Iterable[Tuple[Any, Any]],
                    calibration: str = 'max', **forward_kwargs) -> YOLOCLIP:
     """(float model, its fp32 state dict, calibration batches) -> the int8
-    YOLOCLIP, on the model's device in its compute dtype, as the JAX
+    model of its family (`make_model`: a YOLOCLIP, or a
+    YOLOWorldV2, whose no-SiLU blocks dequantize the int8 kernel's
+    accumulator), on the model's device in its compute dtype, as the JAX
     package's `quantize_model(cfg, variables, ...)`. Calibrates with the
     model as it runs (forward_kwargs: class_mask, skip_image_pool) and
     folds from `state_dict`, the fp32 weights the model was built from
@@ -245,12 +248,11 @@ def quantize_model(model: YOLOCLIP, state_dict: Dict[str, torch.Tensor],
                           **forward_kwargs)
     qsd = quantize_state(state_dict, amax, calibration)
     aux = 'contrastive_heads.0.box_conv.0.conv.weight' in state_dict
-    qmodel = YOLOCLIP(dataclasses.replace(model.cfg, quant='int8'),
-                      with_aux_box=aux)
+    qmodel = make_model(dataclasses.replace(model.cfg, quant='int8'),
+                        with_aux_box=aux)
     qmodel.load_state_dict(qsd, strict=True)
     device = next(model.parameters()).device
-    dtype = model.box_head.box_convs[0][2].weight.dtype
-    return cast_compute_dtype(qmodel.to(device), dtype).eval()
+    return cast_compute_dtype(qmodel.to(device), model.compute_dtype).eval()
 
 
 def build_quant_forward(model: YOLOCLIP, state_dict: Dict[str, torch.Tensor],

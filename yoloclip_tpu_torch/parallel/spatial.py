@@ -36,6 +36,9 @@ workers that persist with the detector; or one process a mesh cell
     heads' maps gathered level by level in global row order
     (`gather_rows`), as the JAX module's notes say GSPMD runs it.
 
+Only the 'yoloclip' family splits: `spatialize_detector` refuses
+another (YOLO-World v2's neck and head have no halo exchanges).
+
 Modes (`spatialize_detector`, the JAX rules):
   * `detect()` (the host-letterbox canvas program): both axes fold into
     the height split, so a 2x2 mesh splits one frame 4 ways;
@@ -68,6 +71,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from yoloclip_tpu_torch.config import family_of
 from yoloclip_tpu_torch.parallel import collectives as col
 
 AxisName = Union[str, Sequence[str]]
@@ -475,7 +479,12 @@ def spatialize_detector(detector, mesh,
     the re-routed paths eagerly instead (also the bodies
     `_detect_batch_eager` and `_detect_canvases`, callable on their own).
     In one process the split runs threads and in-process exchanges, so the
-    two re-routed paths run eagerly and their programs are dropped."""
+    two re-routed paths run eagerly and their programs are dropped.
+    Only the 'yoloclip' family splits; another raises."""
+    arch = family_of(detector.config.model)
+    if arch != 'yoloclip':
+        raise NotImplementedError(f'the height split runs the yoloclip '
+                                  f'family only, not {arch!r}')
     names = _axes(height_axis)
     if batch_axis is not None:
         # a mesh axis cannot split two dims at once: drop the batch axis

@@ -37,7 +37,8 @@ eager route (eager=True) wraps the model in DistributedDataParallel
 (`no_sync` on all but the last micro-batch); it is the route over gloo on
 the card, where two ranks share one device and nothing can be captured.
 
-`make_sharded_inference` runs the class-sharded forward: with one
+`make_sharded_inference` runs the class-sharded forward (the 'yoloclip'
+family only; YOLO-World v2 is refused): with one
 process a cell as the 'sharded_inference' program (JAX jits it), on the
 card a CUDA graph holding NCCL's class exchanges; in one process each data
 row's model-axis devices run one persistent worker thread each, eagerly,
@@ -56,7 +57,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
-from yoloclip_tpu_torch.config import TrainingConfig
+from yoloclip_tpu_torch.config import TrainingConfig, family_of
 from yoloclip_tpu_torch.inference.program import KeyAgreement, ProgramCache
 from yoloclip_tpu_torch.models import layers
 from yoloclip_tpu_torch.models.layers import BatchNorm2d
@@ -231,7 +232,14 @@ def make_sharded_inference(model: nn.Module, mesh: Mesh,
 
     In one process a data row's model-axis devices run one thread each,
     the first of them returning the row's outputs. That route stays eager:
-    its exchanges meet at a host barrier that no graph can hold."""
+    its exchanges meet at a host barrier that no graph can hold.
+
+    Only the 'yoloclip' family shards its classes; another raises."""
+    arch = family_of(getattr(model, 'cfg', None))
+    if arch != 'yoloclip':
+        raise NotImplementedError(f'the class-sharded forward runs the '
+                                  f'yoloclip family only, not '
+                                  f'{arch!r}')
     cache = (_step_programs(mesh, programs, eager, 'the class-sharded '
                             'forward') if mesh.multiprocess else None)
     replicas = replicas_by_device(model, mesh.local_devices
